@@ -2,7 +2,7 @@
 
 A second package beside the JAX reference (``repro``): the same module
 layout (``configs``, ``core``, ``kernels``, ``models``, ``serve``) and
-names, written in PyTorch.  The two kernels of the serving hot path are
+names, written in PyTorch.  Each of the reference's four TPU kernels is
 hand-written CUDA C++ for Hopper (``kernels/csrc``), built with ``nvcc`` at
 first use; each sits beside its plain PyTorch version, which the wrapper
 takes only for tensors that lie on the CPU.

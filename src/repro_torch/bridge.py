@@ -7,7 +7,9 @@ weight arrives as a dict of its arrays plus its static fields:
 * FakeQuantTensor: ``w``, ``scale``, ``bitwidth``, ``shape``, ``wb_rows``,
   ``wb_cols``, ``n_bits``;
 * ServingWeight: ``w_int``, ``scale``, ``shape``, ``wb_rows``, ``wb_cols``,
-  ``bits``.
+  ``bits``;
+* BitplaneServingWeight: ``planes``, ``sign``, ``mask``, ``scale``,
+  ``shape``, ``wb_rows``, ``wb_cols``, ``bits``.
 
 Both a QAT tree (to deploy in the port) and a deployed tree are accepted.
 Dtypes are kept (int8, uint8, float32), so wire formats cross bit for bit.
@@ -22,7 +24,7 @@ import torch
 from .core.blocking import BlockingSpec
 from .core.device import resolve_device
 from .core.fakequant import FakeQuantTensor
-from .serve.deploy import ServingWeight
+from .serve.deploy import BitplaneServingWeight, ServingWeight
 
 
 def params_from_numpy(tree: Any, device=None) -> Any:
@@ -43,6 +45,12 @@ def params_from_numpy(tree: Any, device=None) -> Any:
                                      scale=t(node["scale"]),
                                      shape=tuple(node["shape"]), spec=spec,
                                      bits=int(node["bits"]))
+            if "planes" in node:
+                return BitplaneServingWeight(
+                    planes=t(node["planes"]), sign=t(node["sign"]),
+                    mask=t(node["mask"]), scale=t(node["scale"]),
+                    shape=tuple(node["shape"]), spec=spec,
+                    bits=int(node["bits"]))
             if "bitwidth" in node:
                 return FakeQuantTensor(w=t(node["w"]), scale=t(node["scale"]),
                                        bitwidth=t(node["bitwidth"]),

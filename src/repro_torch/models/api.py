@@ -96,6 +96,19 @@ class ModelAPI:
             backend=backend, attn_backend=attn_backend)
         return logits, {**state, "cache": cache}
 
+    def verify_step(self, params, tokens, state, index, *,
+                    backend: str = "dense", attn_backend: str = "gather"
+                    ) -> tuple:
+        """Batched multi-token decode forward (speculative verification).
+
+        ``tokens`` (B, W) are each slot's last accepted token followed by
+        its draft proposals, written at fill levels ``index ..
+        index+W-1``.  Returns ((B, W, V) logits, state)."""
+        logits, cache = transformer.verify_step(
+            params, self.cfg, tokens, state["cache"], index,
+            backend=backend, attn_backend=attn_backend)
+        return logits, {**state, "cache": cache}
+
     def init_decode_state(self, params, batch, n_slots: int, max_len: int,
                           page_size: int = 0,
                           n_pages: Optional[int] = None) -> Any:

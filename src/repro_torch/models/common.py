@@ -2,18 +2,22 @@
 embeddings (port of ``repro.models.common``).
 
 Params are plain nested dicts.  A weight matrix is a ``FakeQuantTensor``
-(QAT form), a ``ServingWeight`` (deployed packed integers) or a plain
-tensor.  Layer code never dequantizes a weight itself: every ``x @ W``
-goes through :func:`qmatmul`, which dispatches on the weight
-representation and the execution backend, passed explicitly per call:
+(QAT form), a ``ServingWeight`` (deployed packed integers), a
+``BitplaneServingWeight`` (deployed bit planes) or a plain tensor.  Layer
+code never dequantizes a weight itself: every ``x @ W`` goes through
+:func:`qmatmul`, which dispatches on the weight representation and the
+execution backend, passed explicitly per call:
 
-* ``dense``  — dequantize the leaf and run a plain matmul (works for every
-  representation);
-* ``kernel`` — stream a deployed leaf through the hand-written CUDA
-  ``packed_matmul`` kernel (the counterpart of the reference's ``pallas``
-  backend; on CPU tensors the wrapper runs the kernel's plain version);
-* ``ref``    — the kernel's plain PyTorch version, on whatever device the
-  tensors lie (the comparison path on the card).
+* ``dense``    — dequantize the leaf and run a plain matmul (works for
+  every representation);
+* ``kernel``   — stream a deployed leaf through its hand-written CUDA
+  kernel, ``packed_matmul`` or ``bitplane_matmul`` (the counterpart of the
+  reference's ``pallas`` backend; on CPU tensors the wrapper runs the
+  kernel's plain version);
+* ``bitplane`` — ``bitplane_matmul`` for bit-plane leaves, and only for
+  them: a packed leaf falls back to the dense dot, as in the reference;
+* ``ref``      — the leaf's kernel's plain PyTorch version, on whatever
+  device the tensors lie (the comparison path on the card).
 """
 from __future__ import annotations
 
@@ -24,11 +28,13 @@ import torch
 from ..configs.base import QuantConfig
 from ..core.fakequant import FakeQuantTensor, fq_compose, fq_from_float
 from ..core.pact import pact_sym_quant
+from ..kernels.bitplane_matmul import bitplane_matmul
 from ..kernels.packed_matmul import packed_matmul
-from ..kernels.ref import packed_matmul_ref
-from ..serve.deploy import ServingWeight, serving_compose
+from ..kernels.ref import bitplane_matmul_ref, packed_matmul_ref
+from ..serve.deploy import (BitplaneServingWeight, ServingWeight,
+                            bitplane_serving_compose, serving_compose)
 
-MATMUL_BACKENDS = ("dense", "kernel", "ref")
+MATMUL_BACKENDS = ("dense", "kernel", "bitplane", "ref")
 
 __all__ = ["QuantConfig", "MATMUL_BACKENDS", "make_weight", "qdense",
            "qmatmul", "prepare_params", "act_quant", "make_beta",
@@ -54,6 +60,8 @@ def qdense(w: Any, dtype=None) -> torch.Tensor:
         return fq_compose(w, dtype)
     if isinstance(w, ServingWeight):
         return serving_compose(w, dtype or torch.bfloat16)
+    if isinstance(w, BitplaneServingWeight):
+        return bitplane_serving_compose(w, dtype or torch.bfloat16)
     if dtype is not None and w.is_floating_point():
         return w.to(dtype)
     return w
@@ -74,12 +82,35 @@ def _qmatmul_packed(x: torch.Tensor, sw: ServingWeight,
     return y[:, :n].reshape(*lead, n).to(x.dtype)
 
 
+def _qmatmul_bitplane(x: torch.Tensor, sw: BitplaneServingWeight,
+                      backend: str) -> torch.Tensor:
+    """x (..., K) @ bit-plane BitplaneServingWeight (Kp, Np) -> (..., N)."""
+    n = sw.shape[-1]
+    lead = x.shape[:-1]
+    x2 = x.reshape(-1, x.shape[-1])
+    wbr, wbc = sw.spec.wb_rows, sw.spec.wb_cols
+    if backend == "ref":
+        y = bitplane_matmul_ref(x2, sw.planes, sw.sign, sw.mask, sw.scale,
+                                wbr, wbc)
+    else:                                      # 'bitplane' / 'kernel'
+        y = bitplane_matmul(x2, sw.planes, sw.sign, sw.mask, sw.scale,
+                            wbr=wbr, wbc=wbc)
+    return y[:, :n].reshape(*lead, n).to(x.dtype)
+
+
 def qmatmul(x: torch.Tensor, w: Any, backend: str = "dense") -> torch.Tensor:
     """y = x @ W for any weight representation (the model-side matmul).
 
-    A deployed (2-D, i.e. layer-sliced) ServingWeight runs its kernel under
-    ``kernel`` and the kernel's plain version under ``ref``; every other
-    combination dequantizes the single leaf and runs a plain matmul."""
+    A deployed (2-D, i.e. layer-sliced) leaf runs on its compressed form
+    under a non-dense backend: a bit-plane leaf runs ``bitplane_matmul``
+    under ``kernel`` or ``bitplane`` and its plain version under ``ref``;
+    a packed leaf runs ``packed_matmul`` under ``kernel`` and its plain
+    version under ``ref``.  Every other combination (a packed leaf under
+    ``bitplane`` included) dequantizes the single leaf and runs a plain
+    matmul."""
+    if isinstance(w, BitplaneServingWeight) and backend != "dense" \
+            and w.sign.ndim == 2:
+        return _qmatmul_bitplane(x, w, backend)
     if isinstance(w, ServingWeight) and backend in ("kernel", "ref") \
             and w.w_int.ndim == 2:
         return _qmatmul_packed(x, w, backend)

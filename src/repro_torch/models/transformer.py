@@ -16,7 +16,7 @@ import torch
 
 from ..configs.base import ModelConfig
 from ..core.fakequant import FakeQuantTensor
-from ..serve.deploy import ServingWeight
+from ..serve.deploy import BitplaneServingWeight, ServingWeight
 from .attention import attn_forward, fill_levels
 from .common import (act_quant, embed_init, make_weight, prepare_params,
                      qmatmul, rms_norm, softcap)
@@ -102,7 +102,8 @@ def _layer(tree, i: int):
     """Layer ``i`` of a tree of stacked (L, ...) leaves (views)."""
     if isinstance(tree, dict):
         return {k: _layer(v, i) for k, v in tree.items()}
-    if isinstance(tree, (FakeQuantTensor, ServingWeight)):
+    if isinstance(tree, (FakeQuantTensor, ServingWeight,
+                         BitplaneServingWeight)):
         return tree.layer(i)
     return tree[i]
 
@@ -251,3 +252,18 @@ def decode_step(params, cfg: ModelConfig, tokens, cache, index, *,
                             cache=cache, index=index, backend=backend,
                             attn_backend=attn_backend)
     return logits[:, -1], cache
+
+
+def verify_step(params, cfg: ModelConfig, tokens, cache, index, *,
+                backend: str = "dense", attn_backend: str = "gather"):
+    """W-token decode forward for speculative verification.
+
+    ``tokens`` (B, W): a slot's last accepted token followed by its draft
+    proposals; ``index``: scalar or per-slot (B,) fill levels.  Returns the
+    full (B, W, V) logits and the cache with all W positions (re)written
+    (attention reads through the gather path: the fused kernel serves one
+    token)."""
+    positions = decode_positions(index, tokens.shape[0], tokens.shape[1],
+                                 tokens.device)
+    return forward(params, cfg, tokens, positions=positions, cache=cache,
+                   index=index, backend=backend, attn_backend=attn_backend)

@@ -167,7 +167,8 @@ def test_cpu_tensors_take_plain_versions_and_launch_nothing():
     case = [_t(a) for a in _pool_case(1, 2, 1, 8, 4, 2, 8)]
     np.testing.assert_array_equal(np_of(paged_attention(*case)),
                                   np_of(paged_attention_ref(*case)))
-    assert tk.launch_counts() == {"packed_matmul": 0, "paged_attention": 0}
+    assert tk.launch_counts() == {"packed_matmul": 0, "paged_attention": 0,
+                                  "bitplane_matmul": 0, "pact_quant": 0}
 
 
 @pytest.fixture

@@ -5,7 +5,7 @@ import numpy as np
 import torch
 
 from repro.core.fakequant import FakeQuantTensor
-from repro.serve.deploy import ServingWeight
+from repro.serve.deploy import BitplaneServingWeight, ServingWeight
 
 
 def tree_to_numpy(tree):
@@ -18,6 +18,12 @@ def tree_to_numpy(tree):
                 "wb_cols": tree.spec.wb_cols, "n_bits": tree.n_bits}
     if isinstance(tree, ServingWeight):
         return {"w_int": np.asarray(tree.w_int),
+                "scale": np.asarray(tree.scale), "shape": tuple(tree.shape),
+                "wb_rows": tree.spec.wb_rows, "wb_cols": tree.spec.wb_cols,
+                "bits": tree.bits}
+    if isinstance(tree, BitplaneServingWeight):
+        return {"planes": np.asarray(tree.planes),
+                "sign": np.asarray(tree.sign), "mask": np.asarray(tree.mask),
                 "scale": np.asarray(tree.scale), "shape": tuple(tree.shape),
                 "wb_rows": tree.spec.wb_rows, "wb_cols": tree.spec.wb_cols,
                 "bits": tree.bits}

@@ -12,7 +12,11 @@ It builds the four CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
    the card at the serving path's shapes, f32 and bf16 activations, with
    stated tolerances: ``packed_matmul``, ``paged_attention``,
    ``bitplane_matmul`` (mixed, fully masked and truncated draft masks, both
-   scale modes, 9x8 blocks with byte-pad rows, ragged N) and ``pact_quant``;
+   scale modes, 9x8 blocks with byte-pad rows, ragged N) and ``pact_quant``.
+   The two matmuls run every edge case in both of their regimes (byte
+   streaming at M <= ``kernels.tiling.STREAM_MAX_M``, tensor-core tiles
+   above), the phi3 shapes at the switch point, one past it and the verify
+   M, and two launches on the same inputs must agree bit for bit;
 2. path phase — serves full-width ``phi3-mini-3.8b`` (all 32 layers,
    random weights from seed 0) in float32.
 
@@ -45,10 +49,14 @@ It builds the four CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
    tokens identical, kernels vs plain versions, paged vs contiguous and
    speculative vs not;
 3. time phase — in bfloat16 (the config's compute dtype): each kernel at
-   the path's shapes with CUDA events, beside its bound, its plain version
-   and one PyTorch library call; and each path's prefill ms, decode
-   ms/step and tokens/s, each run counted, with the speculative runs'
-   acceptance rate.
+   the path's shapes (``bitplane_matmul`` also at the verify M) with CUDA
+   events around back-to-back calls (``ms``: the host's cost a call shows
+   where it exceeds the device's) and around the same calls queued behind
+   a sleeping kernel (``device_ms``), with the host's enqueue time a call,
+   beside its bound, its plain version and one PyTorch library call (both
+   ways); and each path's prefill ms, decode ms/step and
+   tokens/s, each run counted, with the speculative runs' acceptance
+   rate.
 
 Output: a ``{"kernels": [...]}`` JSON line, the card's name and power
 limit, and as the last line ``{"ok": true, "device": {...}}``.  Details go
@@ -96,7 +104,10 @@ def log(*a):
 
 
 def cuda_ms(fn, iters=20, warmup=3):
-    """Mean device time of ``fn`` in ms over ``iters`` calls (events)."""
+    """Mean time of ``fn`` in ms over ``iters`` back-to-back calls, between
+    two CUDA events: the device time where a call's work outlasts its
+    enqueue, else the host's Python and launch time a call.  Every ``ms``
+    of the kernels line is this (as in every run since the port began)."""
     import torch
     for _ in range(warmup):
         fn()
@@ -109,6 +120,33 @@ def cuda_ms(fn, iters=20, warmup=3):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def cuda_times(fn, iters=20, warmup=3):
+    """``(ms, device_ms, host_ms)`` of ``fn``, each a mean over ``iters``
+    calls: ``cuda_ms``; the device time alone, from the same calls queued
+    behind a sleeping kernel that outlasts their enqueue (the card then
+    runs them back to back, whatever each call costs the host); and the
+    host's enqueue time a call, read meanwhile."""
+    import torch
+    ms = cuda_ms(fn, iters, warmup)
+    t0 = time.perf_counter()
+    for _ in range(warmup):
+        fn()
+    host_s = (time.perf_counter() - t0) / warmup
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    # ~2 GHz SM clock; twice the enqueue time, at most 0.2 s
+    torch.cuda._sleep(int(2e9 * min(0.2, 2 * host_s * iters)))
+    start.record()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    host_ms = (time.perf_counter() - t0) * 1e3 / iters
+    end.record()
+    torch.cuda.synchronize()
+    return ms, start.elapsed_time(end) / iters, host_ms
 
 
 def rotating(make, nbytes, budget=256 << 20):
@@ -150,19 +188,27 @@ def kernel_phase():
     from repro_torch.kernels import packed_matmul, paged_attention
     from repro_torch.kernels.ref import packed_matmul_ref, paged_attention_ref
     from repro_torch.models.attention import _as_pool, quantize_kv
+    from repro_torch.kernels.tiling import STREAM_MAX_M as SWITCH_M
     from repro_torch.kernels.tiling import fit_block
 
     out = {"packed_matmul": [], "paged_attention": []}
     f32, bf16 = torch.float32, torch.bfloat16
     # f32 x at decode and prefill M; bf16 x (the bf16 path's operands) at
-    # the path's own M = B (decode) and B*P (prefill)
+    # the path's own M = B (decode), B*5 (verify) and B*P (prefill), and at
+    # the regime switch (STREAM_MAX_M streams, one more runs tensor tiles)
     cases = [(m, k, n, bits, 8, 128, None, f32)
              for bits in (8, 4) for m in (1, 16, B * P)
              for k, n in PHI3_SHAPES]
     cases += [(m, k, n, bits, 8, 128, None, bf16)
-              for bits in (8, 4) for m in (B, B * P)
+              for bits in (8, 4) for m in (B, SWITCH_M, SWITCH_M + 1, B * 5,
+                                           B * P)
               for k, n in PHI3_SHAPES]
-    cases += [(5, 27, 44, b, 9, 8, 25, f32) for b in (8, 4)]  # 9x8, odd Kp
+    # edge geometry, each at a stream M and a tensor M: 9x8 with odd Kp and
+    # narrow x; 8x128 with narrow x and N padded from 200 to 256
+    cases += [(m, 27, 44, b, 9, 8, 25, dt) for b in (8, 4)
+              for m in (5, SWITCH_M + 5) for dt in (f32, bf16)]
+    cases += [(m, 72, 200, b, 8, 128, 70, f32) for b in (8, 4)
+              for m in (3, 40)]
     for m, k, n, bits, wbr, wbc, k_x, xdt in cases:
         x, w, s = packed_case(m, k, n, bits, wbr, wbc, k_x, xdt)
         got = packed_matmul(x, w, s, bits=bits, wbr=wbr, wbc=wbc)
@@ -176,6 +222,7 @@ def kernel_phase():
         if not (err <= tol):
             raise AssertionError(f"packed_matmul {m}x{k}x{n} int{bits} "
                                  f"{wbr}x{wbc} {xdt}: err {err} > tol {tol}")
+    out["repeat"] = repeat_phase()
 
     g = torch.Generator(device=DEV).manual_seed(1)
     t = P + 64                                  # generate's cache width
@@ -269,13 +316,16 @@ def bitplane_kernel_phase():
     import torch
     from repro_torch.kernels import bitplane_matmul
     from repro_torch.kernels.ref import bitplane_matmul_ref
+    from repro_torch.kernels.tiling import STREAM_MAX_M as SWITCH_M
     f32, bf16 = torch.float32, torch.bfloat16
     sq, up, down = PHI3_SHAPES
     # (m, k, n, n_bits, wbr, wbc, options); M = B*5 is a verify pass
     cases = [(m, k, n, nb, 8, 128, dict(x_dtype=dt))
              for nb in (8, 4) for k, n in PHI3_SHAPES for m in (B, B * P)
              for dt in (f32, bf16)]
-    cases += [
+    cases += [(m, k, n, 8, 8, 128, dict(x_dtype=bf16))
+              for m in (SWITCH_M, SWITCH_M + 1, B * 5) for k, n in PHI3_SHAPES]
+    edge = [
         (B, *up, 8, 8, 128, dict(draft=4)),                   # draft masks
         (B * 5, *down, 8, 8, 128, dict(draft=6, x_dtype=bf16)),
         (B, *sq, 4, 8, 128, dict(draft=2)),
@@ -286,7 +336,11 @@ def bitplane_kernel_phase():
         (B, 256, 128, 8, 8, 128, dict(n_cols=100)),           # ragged N
         (7, 45, 48, 8, 9, 8, dict(n_cols=41, per_layer=True)),
         (3, 30, 20, 5, 3, 5, {}),    # a byte row spans three WB rows
+        (B, 256, 256, 8, 8, 128, dict(k_x=60)),   # narrow x, fast geometry
     ]
+    # each edge case also at an M of the other regime
+    cases += edge + [(B * 5 if m <= SWITCH_M else B, *rest)
+                     for m, *rest in edge]
     out = []
     for i, (m, k, n, nb, wbr, wbc, opt) in enumerate(cases):
         x, pl, sg, mk, sc = bitplane_case(m, k, n, nb, wbr, wbc, seed=i,
@@ -301,6 +355,37 @@ def bitplane_kernel_phase():
                         tol=tol))
         if not (err <= tol and got.shape == want.shape):
             raise AssertionError(f"bitplane_matmul case {out[-1]}")
+    return out
+
+
+def repeat_phase():
+    """Two launches of each weight-matmul kernel on the same inputs give
+    bit-identical outputs, in both regimes, with K split across blocks at
+    decode M, the stream regime's largest M (4 row tiles) and verify M
+    (the split-K sums are added in slice order, never by float
+    atomics)."""
+    import torch
+    from repro_torch.kernels import bitplane_matmul, packed_matmul
+    from repro_torch.kernels.tiling import STREAM_MAX_M, matmul_plan
+    sq, up, down = PHI3_SHAPES
+    out = []
+    for m in (B, STREAM_MAX_M, B * 5, B * P):
+        x, w, s = packed_case(m, *down, 8, 8, 128, x_dtype=torch.bfloat16)
+        a = packed_matmul(x, w, s, bits=8)
+        b = packed_matmul(x, w, s, bits=8)
+        x, pl, sg, mk, sc = bitplane_case(m, *down, 8, x_dtype=torch.bfloat16)
+        c = bitplane_matmul(x, pl, sg, mk, sc)
+        d = bitplane_matmul(x, pl, sg, mk, sc)
+        torch.cuda.synchronize()
+        plan = matmul_plan(m, down[0], down[1], unit=8, wbr=8)
+        out.append(dict(m=m, k=down[0], n=down[1], regime=plan.regime,
+                        ksplit=plan.ksplit,
+                        packed_identical=bool(torch.equal(a, b)),
+                        bitplane_identical=bool(torch.equal(c, d))))
+        # decode and verify split K across blocks; prefill need not
+        if not (out[-1]["packed_identical"] and out[-1]["bitplane_identical"]
+                and (plan.ksplit > 1 or m > B * 5)):
+            raise AssertionError(f"repeated launches differ: {out[-1]}")
     return out
 
 
@@ -887,17 +972,18 @@ def time_packed(m, k, n, bits):
         it["i"] = (it["i"] + 1) % len(seq)
         return seq[it["i"]]
 
-    ms = cuda_ms(lambda: packed_matmul(x, *nxt(ws), bits=bits))
+    ms, dev, host = cuda_times(lambda: packed_matmul(x, *nxt(ws), bits=bits))
     plain = cuda_ms(lambda: packed_matmul_ref(x, *nxt(ws), bits), iters=5)
-    lib = cuda_ms(lambda: torch.matmul(x, nxt(dense)))
+    lib, lib_dev, lib_host = cuda_times(lambda: torch.matmul(x, nxt(dense)))
     nbytes = w.nbytes + s.nbytes + x.nbytes + m * n * 4
     flops = 2.0 * m * k * n
     bound = max(nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS) * 1e3
     by = "bytes" if nbytes / HBM_BYTES_PER_S >= flops / BF16_FLOPS \
         else "operations"
-    return dict(m=m, k=k, n=n, bits=bits, ms=ms, plain_ms=plain,
-                library_ms=lib, bound_ms=bound, bound_by=by, bytes=nbytes,
-                flops=flops)
+    return dict(m=m, k=k, n=n, bits=bits, ms=ms, device_ms=dev, host_ms=host,
+                plain_ms=plain, library_ms=lib, library_device_ms=lib_dev,
+                library_host_ms=lib_host, bound_ms=bound, bound_by=by,
+                bytes=nbytes, flops=flops)
 
 
 def time_attention(bits, kv_len_val):
@@ -935,10 +1021,11 @@ def time_attention(bits, kv_len_val):
 
     mask = (torch.arange(t, device=DEV) < kv_len_val)[None, None, None]
     qb = q.reshape(B, 32, 1, 96).to(torch.bfloat16)
-    ms = cuda_ms(lambda: paged_attention(q, *nxt()[0], ident, kv_len))
+    ms, dev, host = cuda_times(lambda: paged_attention(q, *nxt()[0], ident,
+                                                       kv_len))
     plain = cuda_ms(lambda: paged_attention_ref(q, *nxt()[0], ident, kv_len))
-    lib = cuda_ms(lambda: F.scaled_dot_product_attention(
-        qb, *nxt()[1], attn_mask=mask))
+    lib, lib_dev, lib_host = cuda_times(
+        lambda: F.scaled_dot_product_attention(qb, *nxt()[1], attn_mask=mask))
     nbytes = B * kv_len_val * 32 * (2 * 96 * bits / 8 + 8) \
         + 2 * q.nbytes + B * 32 * 4
     flops = 4.0 * B * 32 * kv_len_val * 96
@@ -946,8 +1033,10 @@ def time_attention(bits, kv_len_val):
     by = "bytes" if nbytes / HBM_BYTES_PER_S >= flops / BF16_FLOPS \
         else "operations"
     return dict(bits=bits, b=B, kv=32, dh=96, t=t, page=page,
-                kv_len=kv_len_val, ms=ms, plain_ms=plain, library_ms=lib,
-                bound_ms=bound, bound_by=by, bytes=nbytes, flops=flops)
+                kv_len=kv_len_val, ms=ms, device_ms=dev, host_ms=host,
+                plain_ms=plain, library_ms=lib, library_device_ms=lib_dev,
+                library_host_ms=lib_host, bound_ms=bound, bound_by=by,
+                bytes=nbytes, flops=flops)
 
 
 def time_path(deployed, tok):
@@ -1021,14 +1110,14 @@ def time_bitplane(bp, sub, name, m):
     def args(v):
         return v.planes, v.sign, v.mask, v.scale
 
-    ms = cuda_ms(lambda: bitplane_matmul(x, *args(nxt(views)), wbr=wbr,
-                                         wbc=wbc))
+    ms, dev, host = cuda_times(lambda: bitplane_matmul(
+        x, *args(nxt(views)), wbr=wbr, wbc=wbc))
     plain = cuda_ms(lambda: bitplane_matmul_ref(x, *args(nxt(views)), wbr,
                                                 wbc), iters=3, warmup=1)
     dense = rotating(lambda: bitplane_serving_compose(nxt(views),
                                                       torch.bfloat16),
                      2 * k * n)
-    lib = cuda_ms(lambda: torch.matmul(x, nxt(dense)))
+    lib, lib_dev, lib_host = cuda_times(lambda: torch.matmul(x, nxt(dense)))
     del dense
     stream = sum(bitplane_stream_bytes(v) for v in views) / len(views)
     live = float((leaf.mask.sum(dim=-3) > 0).float().mean())
@@ -1037,8 +1126,10 @@ def time_bitplane(bp, sub, name, m):
     bound = max(nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS) * 1e3
     by = "bytes" if nbytes / HBM_BYTES_PER_S >= flops / BF16_FLOPS \
         else "operations"
-    return dict(leaf=name, m=m, k=k, n=n, ms=ms, plain_ms=plain,
-                library_ms=lib, bound_ms=bound, bound_by=by, bytes=nbytes,
+    return dict(leaf=name, m=m, k=k, n=n, ms=ms, device_ms=dev,
+                host_ms=host, plain_ms=plain, library_ms=lib,
+                library_device_ms=lib_dev, library_host_ms=lib_host,
+                bound_ms=bound, bound_by=by, bytes=nbytes,
                 stream_bytes=stream, live_block_share=live, flops=flops)
 
 
@@ -1054,18 +1145,21 @@ def time_pact():
          * 2).to(torch.bfloat16)
     b, levels = 1.5, 127
     beta = torch.tensor([b], device=DEV)
-    ms = cuda_ms(lambda: pact_quant(x, beta, act_bits=8), iters=50)
+    ms, dev, host = cuda_times(lambda: pact_quant(x, beta, act_bits=8),
+                               iters=50)
     plain = cuda_ms(lambda: pact_quant_ref(x, beta, 8), iters=50)
-    lib = cuda_ms(lambda: torch.fake_quantize_per_tensor_affine(
-        x, b / levels, 0, -levels, levels), iters=50)
+    lib, lib_dev, lib_host = cuda_times(
+        lambda: torch.fake_quantize_per_tensor_affine(
+            x, b / levels, 0, -levels, levels), iters=50)
     nbytes = 2 * x.nbytes + beta.nbytes
     ops = 6.0 * x.numel()        # clip (2), divide, scale, round, rescale
     bound = max(nbytes / HBM_BYTES_PER_S, ops / F32_FLOPS) * 1e3
     by = "bytes" if nbytes / HBM_BYTES_PER_S >= ops / F32_FLOPS \
         else "operations"
     return dict(rows=B * P, cols=D_MODEL, dtype="bfloat16", act_bits=8, ms=ms,
-                plain_ms=plain, library_ms=lib, bound_ms=bound, bound_by=by,
-                bytes=nbytes, ops=ops)
+                device_ms=dev, host_ms=host, plain_ms=plain, library_ms=lib,
+                library_device_ms=lib_dev, library_host_ms=lib_host,
+                bound_ms=bound, bound_by=by, bytes=nbytes, ops=ops)
 
 
 def time_bitplane_path(bp, tok):
@@ -1210,7 +1304,7 @@ def run(detail) -> list:
     pm = [time_packed(m, k, n, bits) for bits in (8, 4) for m in (B, B * P)
           for k, n, _ in LAYER_SHAPES]
     pa = [time_attention(bits, P + NEW // 2) for bits in (8, 4)]
-    bm = [time_bitplane(bp, sub, name, m) for m in (B, B * P)
+    bm = [time_bitplane(bp, sub, name, m) for m in (B, 4 * B, B * 5, B * P)
           for sub, name in LAYER_LEAVES]
     pq = time_pact()
     paths = time_path(deployed, tok)
@@ -1259,6 +1353,8 @@ def run(detail) -> list:
          "ms": layer_sum("ms"), "plain_ms": layer_sum("plain_ms"),
          "bound_ms": layer_sum("bound_ms"), "bound_by": "bytes",
          "library_ms": layer_sum("library_ms"),
+         "device_ms": layer_sum("device_ms"),
+         "library_device_ms": layer_sum("library_device_ms"),
          "workload": f"one decode layer's 7 projections, int8, M={B}, bf16 x"},
         {"name": "paged_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
@@ -1268,6 +1364,8 @@ def run(detail) -> list:
          "ms": a8["ms"], "plain_ms": a8["plain_ms"],
          "bound_ms": a8["bound_ms"], "bound_by": a8["bound_by"],
          "library_ms": a8["library_ms"],
+         "device_ms": a8["device_ms"],
+         "library_device_ms": a8["library_device_ms"],
          "workload": f"one layer's decode read, int8 KV, B={B}, KV=32, "
                      f"dh=96, kv_len={a8['kv_len']}, page={a8['page']}"},
         {"name": "bitplane_matmul", "route": "cuda",
@@ -1280,6 +1378,8 @@ def run(detail) -> list:
          "bound_by": "bytes" if all(r["bound_by"] == "bytes"
                                    for r in dec_bp) else "operations",
          "library_ms": bp_sum("library_ms"),
+         "device_ms": bp_sum("device_ms"),
+         "library_device_ms": bp_sum("library_device_ms"),
          "workload": f"one decode layer's 7 projections, mixed bit-plane "
                      f"(bits 8, per-block widths 0..8), M={B}, bf16 x"},
         {"name": "pact_quant", "route": "cuda",
@@ -1290,6 +1390,8 @@ def run(detail) -> list:
          "ms": pq["ms"], "plain_ms": pq["plain_ms"],
          "bound_ms": pq["bound_ms"], "bound_by": pq["bound_by"],
          "library_ms": pq["library_ms"],
+         "device_ms": pq["device_ms"],
+         "library_device_ms": pq["library_device_ms"],
          "workload": f"({B * P}, {D_MODEL}) bf16, 8-bit; on no model path"},
     ]
     detail["kernels"] = kernels

@@ -1,19 +1,14 @@
 #!/usr/bin/env python3
-"""Two quick measurements of the bit-plane path on one NVIDIA GPU, run
-from the repository root:
+"""How the per-block bit-width draw of a full-width phi3 bit-plane tree
+shapes greedy decoding, on one NVIDIA GPU, run from the repository root:
 
-    python3 scripts/bitplane_probe.py [kernels|draws]
+    python3 scripts/bitplane_probe.py
 
-* ``kernels`` — ``bitplane_matmul`` (8 planes, every block's occupancy
-  drawn uniformly from 0..8, bf16 x, weights warm in L2) at each phi3
-  projection shape and M in {4, 512}, beside its plain version (CUDA
-  events, ``chip_smoke.cuda_ms``);
-* ``draws`` — how the per-block bit-width draw of a full-width phi3
-  bit-plane tree shapes greedy decoding (16 tokens, B=4 prompts of 128):
-  the tokens, and the drafts accepted by speculative decoding for each
-  (speculate_planes, draft_gamma) of ``chip_smoke.SPEC``, quantizer-free
-  and with 8-bit activations and an int8 KV cache.  It is the evidence for
-  ``chip_smoke.BW_PROB``.
+For each draw (16 tokens, B=4 prompts of 128): the tokens, and the drafts
+accepted by speculative decoding for each (speculate_planes, draft_gamma)
+of ``chip_smoke.SPEC``, quantizer-free and with 8-bit activations and an
+int8 KV cache.  It is the evidence for ``chip_smoke.BW_PROB``.  (The
+kernel's own timings are ``scripts/matmul_probe.py``'s.)
 """
 import dataclasses
 import sys
@@ -29,19 +24,6 @@ import chip_smoke as cs  # noqa: E402
 
 DRAWS = {"uniform": [1.0] * 9, "high": [1] * 6 + [6] * 3,
          "mostly8": [1] * 8 + [16]}
-
-
-def kernels():
-    from repro_torch.kernels import bitplane_matmul
-    from repro_torch.kernels.ref import bitplane_matmul_ref
-    for k, n in cs.PHI3_SHAPES:
-        for m in (4, 512):
-            x, pl, sg, mk, sc = cs.bitplane_case(m, k, n, 8,
-                                                 x_dtype=torch.bfloat16)
-            ms = cs.cuda_ms(lambda: bitplane_matmul(x, pl, sg, mk, sc))
-            pms = cs.cuda_ms(lambda: bitplane_matmul_ref(x, pl, sg, mk, sc),
-                             iters=3)
-            print("time", m, k, n, "kernel ms", ms, "plain ms", pms)
 
 
 def draws():
@@ -90,9 +72,7 @@ def main() -> int:
         print("bitplane_probe: needs a CUDA device", file=sys.stderr)
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
-    what = sys.argv[1:] or ["kernels", "draws"]
-    for w in what:
-        {"kernels": kernels, "draws": draws}[w]()
+    draws()
     return 0
 
 

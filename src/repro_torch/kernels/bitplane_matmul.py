@@ -8,27 +8,60 @@ and N = ``planes.shape[-1]``, which may be fewer columns than the mask grid
 covers (ragged N).  ``x`` may have fewer than K columns (the missing ones
 are zero).  A CPU tensor runs the plain version
 (:func:`repro_torch.kernels.ref.bitplane_matmul_ref`); a CUDA tensor
-launches the kernel or raises.
+launches the kernel or raises.  The launch geometry (byte-streaming
+split-K at M <= 16, tensor-core tiles above) is
+:func:`repro_torch.kernels.tiling.matmul_plan`'s.
 """
 from __future__ import annotations
 
 import ctypes
+from typing import Dict, Tuple
 
 import torch
 
-from .build import load
+from .build import load, stream_ptr
 from .ref import bitplane_matmul_ref
+from .tiling import matmul_plan, splitk_scratch
+
+
+class _Args(ctypes.Structure):
+    """The launch's fixed geometry (``BitplaneArgs`` in the CUDA source):
+    built once for each call shape, so a call converts eight arguments."""
+    _fields_ = [(f, ctypes.c_int) for f in (
+        "x_bf16", "ldx", "m", "kend", "nbits", "gr", "gc", "per_block", "n",
+        "wbr", "wbc", "regime", "rows", "ksplit", "kchunk")] + [
+        ("pstride", ctypes.c_longlong), ("ws", ctypes.c_void_p),
+        ("cnt", ctypes.c_void_p)]
+
+
+_ARGS: Dict[tuple, Tuple[int, _Args]] = {}
+# the operand pointers, the _Args address and the stream
+_ARGTYPES = [ctypes.c_void_p] * 8
 
 
 def _lib():
     lib = load("bitplane_matmul")
     fn = lib.bitplane_matmul_launch
     if fn.argtypes is None:          # declare once per process
-        P, I, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fn.argtypes = [P, I, I, I, I, P, P, I, LL, P, I, I, P, I, I, I, I,
-                       P, P]
+        fn.argtypes = _ARGTYPES
         fn.restype = ctypes.c_int
     return fn
+
+
+def _args(key) -> int:
+    """Address of the launch arguments of call shape ``key`` (built at its
+    first call and kept, with the split-K scratch they point at)."""
+    hit = _ARGS.get(key)
+    if hit is None:
+        (device, bf16, ldx, m, kend, n_bits, gr, gc, per_block, n, wbr, wbc,
+         pstride) = key
+        plan = matmul_plan(m, kend, n, unit=8, wbr=wbr)
+        ws, cnt = splitk_scratch(device, plan, m, n)
+        a = _Args(bf16, ldx, m, kend, n_bits, gr, gc, per_block, n, wbr, wbc,
+                  int(plan.regime == "tensor"), plan.rows, plan.ksplit,
+                  plan.kchunk, pstride, ws, cnt)
+        hit = _ARGS[key] = (ctypes.addressof(a), a)
+    return hit[0]
 
 
 def bitplane_matmul(x: torch.Tensor, planes: torch.Tensor,
@@ -67,20 +100,24 @@ def bitplane_matmul(x: torch.Tensor, planes: torch.Tensor,
     if planes.dtype != torch.uint8 or sign.dtype != torch.uint8 \
             or mask.dtype != torch.float32 or scale.dtype != torch.float32:
         raise ValueError("planes and sign must be uint8, mask and scale f32")
-    if not all(t.is_contiguous() for t in (planes, sign, mask, scale)):
+    if not (planes.is_contiguous() and sign.is_contiguous()
+            and mask.is_contiguous() and scale.is_contiguous()):
         raise ValueError("planes, sign, mask and scale must be contiguous")
-    if any(t.device != x.device for t in (planes, sign, mask, scale)):
+    dev = x.device
+    if planes.device != dev or sign.device != dev or mask.device != dev \
+            or scale.device != dev:
         raise ValueError("x and the weight tensors must share one device")
     if x.dtype not in (torch.float32, torch.bfloat16):
         x = x.float()
     if x.stride(1) != 1:
         x = x.contiguous()
-    out = torch.empty((m, n), dtype=torch.float32, device=x.device)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    rc = _lib()(x.data_ptr(), int(x.dtype == torch.bfloat16), x.stride(0),
-                m, min(k_x, k), planes.data_ptr(), sign.data_ptr(), n_bits,
-                planes.stride(0), mask.data_ptr(), gr, gc, scale.data_ptr(),
-                int(per_block), n, wbr, wbc, out.data_ptr(), stream)
+    out = torch.empty((m, n), dtype=torch.float32, device=dev)
+    args = _args((dev, int(x.dtype == torch.bfloat16), x.stride(0), m,
+                  min(k_x, k), n_bits, gr, gc, int(per_block), n, wbr, wbc,
+                  planes.stride(0)))
+    rc = _lib()(x.data_ptr(), planes.data_ptr(), sign.data_ptr(),
+                mask.data_ptr(), scale.data_ptr(), out.data_ptr(), args,
+                stream_ptr(dev))
     if rc:
         raise RuntimeError(f"bitplane_matmul kernel launch failed: CUDA "
                            f"error {rc}")

@@ -4,10 +4,11 @@ Each ``csrc/<name>.cu`` exposes a plain C launch function and is compiled
 on its own by ``nvcc`` for Hopper (``sm_90a``) into a shared library that
 ``ctypes`` loads; no PyTorch header is included, so a build takes seconds.
 Libraries land in ``_build/`` beside this module (git-ignored), named by a
-hash of the source and flags, so an edited source rebuilds and an
-unchanged one is reused.  Nothing is built when the module is imported:
-:func:`load` builds at first use, and :func:`build` compiles several
-sources in parallel (one ``nvcc`` process each, all started together).
+hash of the source, the shared headers ``csrc/*.cuh`` and the flags, so an
+edited source or header rebuilds and an unchanged one is reused.  Nothing
+is built when the module is imported: :func:`load` builds at first use,
+and :func:`build` compiles several sources in parallel (one ``nvcc``
+process each, all started together).
 """
 from __future__ import annotations
 
@@ -18,6 +19,8 @@ import shutil
 import subprocess
 from pathlib import Path
 from typing import Dict, Iterable
+
+import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
@@ -44,8 +47,14 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    """Where the library of ``csrc/<name>.cu`` lives: named by a hash of
+    the source, every shared header ``csrc/*.cuh`` and the flags, so an
+    edited header rebuilds too."""
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for hdr in sorted(CSRC.glob("*.cuh")):
+        h.update(hdr.name.encode() + b"\0" + hdr.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    digest = h.hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:12]}.so"
 
 
@@ -76,6 +85,16 @@ def build(names: Iterable[str] = SOURCES) -> Dict[str, Path]:
     if failed:
         raise RuntimeError("\n".join(failed))
     return {name: library_path(name) for name in names}
+
+
+def stream_ptr(device) -> int:
+    """The raw ``cudaStream_t`` of ``device``'s current stream, for a
+    launch function (the direct accessor where the build has it: a
+    ``torch.cuda.Stream`` object costs microseconds a call)."""
+    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    if raw is not None:
+        return raw(device.index)
+    return torch.cuda.current_stream(device).cuda_stream
 
 
 def load(name: str) -> ctypes.CDLL:

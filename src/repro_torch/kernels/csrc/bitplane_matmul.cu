@@ -8,244 +8,413 @@
 // with the planes and the sign plane packed 8 rows per byte (row 8j+r is bit
 // r of byte row j), mask the binary (bit, block) LUT and scale either the
 // per-WB effective f32 LUT (K/wbr, N/wbc), applied as is, or a per-layer
-// scalar divided by 2^n - 1.  x (M, kx) is f32 or bf16, converted to f32
-// before the multiply; f32 accumulation and output.  Rows past
-// kend = min(kx, GR * wbr) are never read: x is zero there (x narrower than
-// K), or they are byte-pad rows with no mask or scale entry (odd
-// block-padded K, e.g. 63 rows of 9x8 blocks packed into 64).
+// scalar divided by 2^n - 1.  x (M, kx) is f32 or bf16; f32 accumulation
+// and output.  Rows past kend = min(kx, GR * wbr) are never used: x is zero
+// there (x narrower than K), or they are byte-pad rows with no mask or
+// scale entry (odd block-padded K, e.g. 63 rows of 9x8 blocks in 64).  The
+// live-plane set and scale of a row are looked up by index (k / wbr,
+// n / wbc), so any WB geometry works; each row's magnitude keeps only its
+// own live planes, so the draft model's truncated masks (which zero the LOW
+// planes) are honoured plane by plane.
 //
-// Bound on an H100 SXM: at decode (M = 1..20) each weight feeds only M
-// FMAs, so the kernel is bound by the bytes it streams over the 3.35 TB/s
-// of HBM: one bit per live (plane, weight) plus the sign bit of every live
-// block, the mask and the scales.  A block with b live planes costs b + 1
-// bits a weight, which is what BWQ's per-block precision buys.  At prefill
-// (M = B*P) it is bound by operations on the f32 FMA units (67 TFLOP/s),
-// not the tensor cores.
+// Two regimes (wmm_common.cuh; the plan from kernels/tiling.py):
 //
-// Design, simple first, after packed_matmul.cu.  One block of 8 warps owns
-// 32 output columns (lane = column) and up to BM rows of x; the 8 warps
-// split K into contiguous ranges of whole byte rows, and their partial sums
-// meet in shared memory in a fixed order.  For each byte row a lane first
-// looks up, by index (k / wbr, n / wbc, so any WB geometry works, 9x8 as
-// well as 8x128), the live-plane set and scale of each of its 8 rows.  It
-// loads only the plane bytes live in one of them (a fully masked block is
-// never read), transposes the 8x8 bit matrix (plane b, row r) in one 64-bit
-// register so that byte r holds row r's magnitude bits, masks each row's
-// magnitude with its own live set (the draft model's truncated masks zero
-// the LOW planes, so every plane is honoured, not a prefix), applies sign
-// and scale and adds x[m, k] * w into BM accumulators.  Tensor cores, TMA
-// and a staged pipeline are later work.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+// * stream, M <= 16 (decode, the draft, short verify).  Bound on an H100 SXM
+//   by the bytes over the 3.35 TB/s of HBM: one bit per live (plane,
+//   weight) plus the sign bit of every live block, which is what BWQ's
+//   per-block precision buys.  A thread takes 16 columns of a byte row:
+//   it looks up the row's live planes, loads 16 bytes of each live plane
+//   only (a fully masked block is not read at all) and of the sign, and
+//   composes 4 columns' magnitudes at once with two 32-bit operations a
+//   plane (shift, and-or: the 8x8 bit transpose, 4 columns at a time); one
+//   fma turns a magnitude into its scaled float exactly.  The next unit's
+//   live set is looked up before this one is used.  Split-K fills the
+//   card, x (4 rows a block; more rows take more row tiles) comes from
+//   shared memory.  The bit work (~12 operations a weight) makes the CUDA
+//   cores, not HBM, the nearer limit at 5-6 live planes.
+// * tensor, M > 16 (longer verify, prefill).  Bound by operations: the
+//   composed weight tile (all planes staged through the cp.async ring) is
+//   decoded once per block into bf16 hi/lo tiles, 4 columns at a time by
+//   the same 32-bit plane arithmetic, and multiplied on the tensor cores,
+//   2 (bf16 x) or 3 (f32 x) products a weight.
+//
+// Left for later: wgmma with a TMA-fed producer warp, TMA multicast of a
+// weight tile to the blocks of a cluster that share it, a persistent
+// schedule, and skipping dead planes in the tensor regime's loads.
+#include "wmm_common.cuh"
 
 namespace {
 
-constexpr int kWarps = 8;
-constexpr int kBN = 32;
+using namespace wmm;
 
-template <bool XBF16>
-__device__ __forceinline__ float load_x(const void* x, size_t i) {
-  if constexpr (XBF16) {
-    return __bfloat162float(static_cast<const __nv_bfloat16*>(x)[i]);
-  } else {
-    return __ldg(static_cast<const float*>(x) + i);
-  }
-}
-
-// 8x8 bit-matrix transpose: bit r of byte b moves to bit b of byte r.
-__device__ __forceinline__ uint64_t transpose8(uint64_t v) {
-  uint64_t t = (v ^ (v >> 7)) & 0x00AA00AA00AA00AAull;
-  v = v ^ t ^ (t << 7);
-  t = (v ^ (v >> 14)) & 0x0000CCCC0000CCCCull;
-  v = v ^ t ^ (t << 14);
-  t = (v ^ (v >> 28)) & 0x00000000F0F0F0F0ull;
-  return v ^ t ^ (t << 28);
-}
-
-template <int BM, bool XBF16, bool PER_BLOCK>
-__global__ void __launch_bounds__(kWarps * 32)
-bitplane_matmul_kernel(const void* __restrict__ x, int ldx, int m, int kend,
-                       const uint8_t* __restrict__ planes,
-                       const uint8_t* __restrict__ sign, int nbits,
-                       long long plane_stride,
-                       const float* __restrict__ mask,
-                       const float* __restrict__ scale, int n, int gr,
-                       int gc, int wbr, int wbc, float* __restrict__ out) {
-  __shared__ float part[kWarps][BM][kBN];
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int col = blockIdx.x * kBN + lane;
-  const int row0 = blockIdx.y * BM;
-  const int rows = min(BM, m - row0);
-
-  float acc[BM];
-#pragma unroll
-  for (int i = 0; i < BM; ++i) acc[i] = 0.f;
-
-  // this warp's contiguous range of byte rows
-  const int nbytes = (kend + 7) >> 3;
-  const int chunk = (nbytes + kWarps - 1) / kWarps;
-  const int j0 = min(nbytes, warp * chunk);
-  const int j1 = min(nbytes, j0 + chunk);
-
-  if (col < n) {
-    const int h = col / wbc;
-    const size_t mstride = static_cast<size_t>(gr) * gc;
-    const float s_layer =
-        PER_BLOCK ? 0.f
-                  : __ldg(scale) / static_cast<float>((1 << nbits) - 1);
-    const uint8_t* pcol = planes + col;
-    const uint8_t* scol = sign + col;
-    int g = (j0 * 8) / wbr;        // WB row of the next row walked
-    int rr = j0 * 8 - g * wbr;     // that row's place inside its WB
-    int g_cur = -1;
-    uint32_t live_cur = 0;
-    float s_cur = s_layer;
-    for (int j = j0; j < j1; ++j) {
-      const int k0 = j * 8;
-      uint32_t live[8];
-      float sc[8];
-      uint32_t any = 0;
-#pragma unroll
-      for (int r = 0; r < 8; ++r) {
-        live[r] = 0;
-        sc[r] = 0.f;
-        if (k0 + r < kend) {
-          if (g != g_cur) {  // a new WB row: its live planes and scale
-            g_cur = g;
-            const float* mp = mask + static_cast<size_t>(g) * gc + h;
-            live_cur = 0;
-            for (int b = 0; b < nbits; ++b) {
-              live_cur |= (__ldg(mp + b * mstride) != 0.f ? 1u : 0u) << b;
-            }
-            if (PER_BLOCK) s_cur = __ldg(scale + static_cast<size_t>(g) * gc + h);
-          }
-          live[r] = live_cur;
-          sc[r] = s_cur;
-          any |= live_cur;
-        }
-        if (++rr == wbr) {
-          rr = 0;
-          ++g;
-        }
-      }
-      if (any == 0) continue;  // every row masked here: read nothing
-      uint64_t pb = 0;
-      for (int b = 0; b < nbits; ++b) {
-        if ((any >> b) & 1u) {
-          pb |= static_cast<uint64_t>(
-                    pcol[b * plane_stride + static_cast<long long>(j) * n])
-                << (8 * b);
-        }
-      }
-      const uint32_t sb = scol[static_cast<size_t>(j) * n];
-      const uint64_t q = transpose8(pb);
-#pragma unroll
-      for (int r = 0; r < 8; ++r) {
-        const uint32_t mag =
-            static_cast<uint32_t>((q >> (8 * r)) & 0xFFu) & live[r];
-        if (mag == 0u) continue;  // also covers rows k >= kend
-        float wv = static_cast<float>(mag) * sc[r];
-        if ((sb >> r) & 1u) wv = -wv;
-        const int k = k0 + r;
-#pragma unroll
-        for (int i = 0; i < BM; ++i) {
-          if (i < rows) {
-            acc[i] = fmaf(
-                load_x<XBF16>(x, static_cast<size_t>(row0 + i) * ldx + k), wv,
-                acc[i]);
-          }
-        }
-      }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < BM; ++i) part[warp][i][lane] = acc[i];
-  __syncthreads();
-  for (int idx = threadIdx.x; idx < BM * kBN; idx += kWarps * 32) {
-    const int i = idx / kBN;
-    const int c = idx - i * kBN;
-    const int oc = blockIdx.x * kBN + c;
-    if (i < rows && oc < n) {
-      float s = 0.f;
-#pragma unroll
-      for (int w = 0; w < kWarps; ++w) s += part[w][i][c];
-      out[static_cast<size_t>(row0 + i) * n + oc] = s;
-    }
-  }
-}
-
-struct Args {
-  const void* x;
-  int ldx, m, kend;
+struct BitplaneDec {
   const uint8_t* planes;
   const uint8_t* sign;
-  int nbits;
-  long long plane_stride;
   const float* mask;
   const float* scale;
-  int n, gr, gc, wbr, wbc;
-  float* out;
-};
+  long long pstride;
+  int nbits, gr, per_block;
+  static constexpr int kSignRow = 8 * (kBK / 8);      // raw row of the sign
+  static constexpr int kRawRows = 9 * (kBK / 8);      // 8 planes + sign
+  static constexpr int kMetaFloats = 1024;  // staged mask planes and scales
 
-template <int BM, bool XBF16, bool PER_BLOCK>
-void launch(const Args& a, cudaStream_t stream) {
-  const dim3 grid((a.n + kBN - 1) / kBN, (a.m + BM - 1) / BM);
-  bitplane_matmul_kernel<BM, XBF16, PER_BLOCK>
-      <<<grid, kWarps * 32, 0, stream>>>(
-          a.x, a.ldx, a.m, a.kend, a.planes, a.sign, a.nbits, a.plane_stride,
-          a.mask, a.scale, a.n, a.gr, a.gc, a.wbr, a.wbc, a.out);
-}
-
-template <bool XBF16, bool PER_BLOCK>
-void launch_rows(const Args& a, cudaStream_t stream) {
-  if (a.m == 1) {
-    launch<1, XBF16, PER_BLOCK>(a, stream);
-  } else if (a.m <= 4) {
-    launch<4, XBF16, PER_BLOCK>(a, stream);
-  } else if (a.m <= 8) {
-    launch<8, XBF16, PER_BLOCK>(a, stream);
-  } else {
-    launch<16, XBF16, PER_BLOCK>(a, stream);
+  // live planes of WB (gi, h) as bits 0..nbits-1
+  __device__ __forceinline__ uint32_t live_at(int gi, int h,
+                                              const Geo& g) const {
+    const float* mp = mask + static_cast<size_t>(gi) * g.gc + h;
+    const size_t ms = static_cast<size_t>(gr) * g.gc;
+    uint32_t live = 0;
+    for (int b = 0; b < nbits; ++b) {
+      live |= (__ldg(mp + b * ms) != 0.f ? 1u : 0u) << b;
+    }
+    return live;
   }
-}
+  __device__ __forceinline__ float layer_scale() const {
+    return per_block ? 0.f
+                     : __ldg(scale) / static_cast<float>((1 << nbits) - 1);
+  }
+  __device__ __forceinline__ float scale_at(int gi, int h, float s_l,
+                                            const Geo& g) const {
+    return per_block ? __ldg(scale + static_cast<size_t>(gi) * g.gc + h)
+                     : s_l;
+  }
+
+  // live planes and scale of WB (gi, h) in the tensor regime, from the
+  // staged box (``meta``) or, for boxes over budget, global memory
+  __device__ __forceinline__ uint32_t wb_lookup(const float* meta,
+                                                const MetaBox& box, int gi,
+                                                int h, float s_l,
+                                                const Geo& g,
+                                                float* sc) const {
+    if (!meta) {
+      *sc = scale_at(gi, h, s_l, g);
+      return live_at(gi, h, g);
+    }
+    const int per = box.size(), at = box.at(gi, h);
+    uint32_t live = 0;
+    for (int b = 0; b < nbits; ++b) {
+      live |= (meta[b * per + at] != 0.f ? 1u : 0u) << b;
+    }
+    *sc = per_block ? meta[nbits * per + at] : s_l;
+    return live;
+  }
+
+  // ---- stream regime: a unit is a byte row (8 K rows)
+  template <int MB, bool FAST, class Stage>
+  __device__ __forceinline__ void stream(float (&acc)[MB][16],
+                                         const float* xs, int kpad, int k0,
+                                         int k1, int rg, int c0, const Geo& g,
+                                         Stage&& stage_x) const {
+    const bool on = c0 < g.n;              // columns past n walk nothing
+    const float s_l = layer_scale();
+    const int j1 = on ? (k1 + 7) >> 3 : 0;
+    int j = (k0 >> 3) + rg;
+    if constexpr (FAST) {
+      // wbr is a power of two >= 8 and wbc % 16 == 0: a unit's 8 x 16
+      // weights share one WB, so one live set and one scale
+      const int h = on ? c0 / g.wbc : 0;
+      uint4 p[8], sg;
+      uint32_t live, live_next;
+      float sc, sc_next;
+      // a unit's live planes and scale (one round trip), then its live
+      // planes' bytes (a second): the next unit's lookup is issued before
+      // this unit's compute, so only the plane bytes wait after it
+      auto lookup = [&](int jj, uint32_t& lv, float& s) {
+        lv = 0;
+        s = 0.f;
+        if (jj >= j1) return;
+        const int gi = (jj * 8) >> g.wshift;
+        lv = live_at(gi, h, g);
+        s = scale_at(gi, h, s_l, g);       // beside the mask, not after it
+      };
+      auto load = [&](int jj) {
+        sg = make_uint4(0, 0, 0, 0);
+#pragma unroll
+        for (int b = 0; b < 8; ++b) p[b] = make_uint4(0, 0, 0, 0);
+        if (live == 0) return;               // fully masked: read nothing
+        const size_t row = static_cast<size_t>(jj) * g.n;
+#pragma unroll
+        for (int b = 0; b < 8; ++b) {
+          if ((live >> b) & 1u) {
+            p[b] = load16<true>(planes + b * pstride + row, c0, g.n);
+          }
+        }
+        sg = load16<true>(sign + row, c0, g.n);
+      };
+      lookup(j, live, sc);
+      load(j);
+      stage_x();
+      for (; j < j1; j += 32) {
+        lookup(j + 32, live_next, sc_next);
+        if constexpr (kProbe & kProbeNoCompute) {
+          acc[0][0] += __uint_as_float(p[0].x ^ p[1].y ^ p[2].z ^ p[3].w ^
+                                       p[4].x ^ p[5].y ^ p[6].z ^ p[7].w ^
+                                       sg.x);
+        } else if (live) {
+          const int kb = j * 8 - k0;
+          const float nsc = -kMagic * sc;    // exact: a power of two times sc
+#pragma unroll
+          for (int r = 0; r < 8; ++r) {
+            float xv[MB];
+#pragma unroll
+            for (int m = 0; m < MB; ++m) xv[m] = xs[m * kpad + kb + r];
+#pragma unroll
+            for (int t = 0; t < 4; ++t) {
+              // byte c of mag: row r's magnitude in column 4t + c, bit b
+              // from bit r of plane b's byte (dead planes are zero)
+              uint32_t mag = 0;
+#pragma unroll
+              for (int b = 0; b < 8; ++b) {
+                const uint32_t wd = word_of(p[b], t);
+                const uint32_t sh = r >= b ? wd >> (r - b) : wd << (b - r);
+                mag |= sh & (0x01010101u << b);
+              }
+              const uint32_t sw = word_of(sg, t);
+#pragma unroll
+              for (int c = 0; c < 4; ++c) {
+                // fma((2^23 + mag), sc, -2^23 sc) = fl(mag * sc) exactly
+                const float v = fmaf(byte_f(mag, c), sc, nsc);
+                const uint32_t neg = (sw << (31 - 8 * c - r)) & 0x80000000u;
+                const float wv = __uint_as_float(__float_as_uint(v) ^ neg);
+#pragma unroll
+                for (int m = 0; m < MB; ++m)
+                  acc[m][t * 4 + c] = fmaf(xv[m], wv, acc[m][t * 4 + c]);
+              }
+            }
+          }
+        }
+        live = live_next;
+        sc = sc_next;
+        load(j + 32);
+      }
+    } else {
+      stage_x();
+      // any geometry: per (row, column) lookups, byte loads
+      for (; j < j1; j += 32) {
+        const int kb = j * 8 - k0;
+        const size_t row = static_cast<size_t>(j) * g.n;
+#pragma unroll
+        for (int jj = 0; jj < 16; ++jj) {
+          const int col = c0 + jj;
+          if (col >= g.n) continue;
+          const int h = col / g.wbc;
+          const uint32_t sb = sign[row + col];
+#pragma unroll 1
+          for (int r = 0; r < 8; ++r) {
+            const int k = j * 8 + r;
+            if (k >= k1) break;
+            const int gi = k / g.wbr;
+            const uint32_t live = live_at(gi, h, g);
+            uint32_t mag = 0;
+            for (int b = 0; b < nbits; ++b) {
+              if ((live >> b) & 1u) {
+                mag |= ((planes[b * pstride + row + col] >> r) & 1u) << b;
+              }
+            }
+            float wv = static_cast<float>(mag) * scale_at(gi, h, s_l, g);
+            if ((sb >> r) & 1u) wv = -wv;
+#pragma unroll
+            for (int m = 0; m < MB; ++m)
+              acc[m][jj] = fmaf(xs[m * kpad + kb + r], wv, acc[m][jj]);
+          }
+        }
+      }
+    }
+  }
+
+  // ---- tensor regime: raw rows of one 32-row K tile, 4 byte rows of each
+  // plane (raw rows 4b..4b+3) and of the sign (raw rows 32..35)
+  __device__ __forceinline__ void load_raw(unsigned char* st, int kt, int k1,
+                                           int n0, const Geo& g) const {
+    const int j0 = kt >> 3;
+    const int jend = (k1 + 7) >> 3;
+    const int rows = (nbits + 1) * 4;
+    if (g.aligned) {
+      for (int c = threadIdx.x; c < rows * (kBN / 16); c += kThreads) {
+        const int ri = c >> 3, col = (c & 7) * 16;
+        const int b = ri >> 2, jr = ri & 3;
+        const bool ok = j0 + jr < jend && n0 + col < g.n;
+        const uint8_t* base = b < nbits ? planes + b * pstride : sign;
+        const int dr = (b < nbits ? b * 4 : kSignRow) + jr;
+        cp_async16(st + dr * kBN + col,
+                   ok ? base + static_cast<size_t>(j0 + jr) * g.n + n0 + col
+                      : base,
+                   ok);
+      }
+    } else {
+      for (int e = threadIdx.x; e < rows * kBN; e += kThreads) {
+        const int ri = e / kBN, col = e - ri * kBN;
+        const int b = ri >> 2, jr = ri & 3;
+        const bool ok = j0 + jr < jend && n0 + col < g.n;
+        const uint8_t* base = b < nbits ? planes + b * pstride : sign;
+        const int dr = (b < nbits ? b * 4 : kSignRow) + jr;
+        st[dr * kBN + col] =
+            ok ? base[static_cast<size_t>(j0 + jr) * g.n + n0 + col]
+               : uint8_t(0);
+      }
+    }
+    // mask planes 0..nbits-1, then (per-WB scale) the scale as plane nbits
+    const MetaBox box(kt, k1, n0, g);
+    const int planes_m = nbits + (per_block ? 1 : 0);
+    if (box.size() * planes_m <= kMetaFloats) {
+      float* meta = reinterpret_cast<float*>(st + kRawRows * kBN);
+      const size_t ms = static_cast<size_t>(gr) * g.gc;
+      stage_meta(meta, mask, nbits, ms, box, g);
+      if (per_block) stage_meta(meta + nbits * box.size(), scale, 1, 0, box, g);
+    }
+  }
+
+  // thread: 4 adjacent columns x 4 rows of the 32-row tile.  One 4-byte
+  // shared load a plane holds the 4 columns' bytes; row r's 4 magnitudes
+  // come out of them together, two 32-bit operations a plane (the 8x8 bit
+  // transpose of 4 columns at once), then one fma a weight scales them
+  // exactly; packed bf16 stores.
+  __device__ __forceinline__ void decode(const unsigned char* st, int kt,
+                                         int k1, int n0, const Geo& g,
+                                         __nv_bfloat16* whi,
+                                         __nv_bfloat16* wlo) const {
+    const int cq = (threadIdx.x & 31) * 4, rq = (threadIdx.x >> 5) * 4;
+    const int jr = rq >> 3, r0 = rq & 7;      // byte row, first bit row
+    int h[4];
+    bool ok[4];
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      ok[c] = n0 + cq + c < g.n;
+      h[c] = ok[c] ? div_r(n0 + cq + c, g.rwbc) : 0;
+    }
+    const float s_l = layer_scale();
+    const MetaBox box(kt, k1, n0, g);
+    const int per = box.size();
+    const float* meta =
+        per * (nbits + (per_block ? 1 : 0)) <= kMetaFloats
+            ? reinterpret_cast<const float*>(st + kRawRows * kBN)
+            : nullptr;
+
+    uint32_t wp[8];
+#pragma unroll
+    for (int b = 0; b < 8; ++b) {
+      wp[b] = b < nbits ? *reinterpret_cast<const uint32_t*>(
+                              st + (b * 4 + jr) * kBN + cq)
+                        : 0u;
+    }
+    const uint32_t sw =
+        *reinterpret_cast<const uint32_t*>(st + (kSignRow + jr) * kBN + cq);
+    const int kk = kt + rq;
+    int gi = div_r(kk, g.rwbr), rr = kk - gi * g.wbr;
+    int gcur = -1;
+    uint32_t live4 = 0;                       // byte c: column c's live set
+    float sc[4] = {0.f, 0.f, 0.f, 0.f}, nsc[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = r0 + i, k = kk + i, tr = rq + i;
+      float v[4] = {0.f, 0.f, 0.f, 0.f};
+      if (k < k1) {
+        if (gi != gcur) {
+          gcur = gi;
+          live4 = 0;
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            const bool same = c > 0 && h[c] == h[0] && ok[0];
+            uint32_t lv = same ? (live4 & 0xFFu) : 0u;
+            if (same) {
+              sc[c] = sc[0];
+            } else if (ok[c]) {
+              lv = wb_lookup(meta, box, gi, h[c], s_l, g, &sc[c]);
+            } else {
+              sc[c] = 0.f;
+            }
+            live4 |= lv << (8 * c);
+            nsc[c] = -kMagic * sc[c];         // exact: a power of two
+          }
+        }
+        uint32_t mag = 0;
+#pragma unroll
+        for (int b = 0; b < 8; ++b) {
+          const uint32_t sh = r >= b ? wp[b] >> (r - b) : wp[b] << (b - r);
+          mag |= sh & (0x01010101u << b);
+        }
+        mag &= live4;
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          // fma((2^23 + mag), sc, -2^23 sc) = fl(mag * sc) exactly
+          const float f = fmaf(byte_f(mag, c), sc[c], nsc[c]);
+          const uint32_t neg = (sw << (31 - 8 * c - r)) & 0x80000000u;
+          v[c] = __uint_as_float(__float_as_uint(f) ^ neg);
+        }
+      }
+      store_split4(whi + tr * kWPitch + cq, wlo + tr * kWPitch + cq, v);
+      if (++rr == g.wbr) {
+        rr = 0;
+        ++gi;
+      }
+    }
+  }
+};
 
 }  // namespace
 
-// x: (m, ldx) row-major, the first kend columns used (kend <= kx and
-// kend <= gr * wbr); planes: uint8 (nbits, >= ceil(kend/8), n) with plane
-// stride plane_stride bytes and row stride n; sign: uint8 (>= ceil(kend/8),
-// n); mask: f32 (nbits, gr, gc) in {0, 1}; scale: f32 (gr, gc) when
-// per_block, else (1,); out: f32 (m, n).  Launches on ``stream``, does not
-// synchronise, returns cudaGetLastError() (0 when the launch was accepted).
-extern "C" int bitplane_matmul_launch(const void* x, int x_bf16, int ldx,
-                                      int m, int kend, const void* planes,
-                                      const void* sign, int nbits,
-                                      long long plane_stride,
-                                      const void* mask, int gr, int gc,
-                                      const void* scale, int per_block, int n,
-                                      int wbr, int wbc, void* out,
-                                      void* stream) {
-  if (m <= 0 || n <= 0) return 0;
-  if (nbits < 1 || nbits > 8 || wbr < 1 || wbc < 1) {
+// The launch's fixed geometry, built once for each call shape by the
+// wrapper (kernels/bitplane_matmul.py::_Args mirrors it).  x: (m, ldx)
+// row-major, the first kend columns used (kend <= kx and kend <= gr *
+// wbr); planes: uint8 (nbits, >= ceil(kend/8), n) with plane stride
+// ``pstride`` bytes and row stride n; sign: uint8 (>= ceil(kend/8), n);
+// mask: f32 (nbits, gr, gc) in {0, 1}; scale: f32 (gr, gc) when
+// per_block, else (1,); out: f32 (m, n).  The plan, ws and cnt as in
+// packed_matmul.cu.
+struct BitplaneArgs {
+  int x_bf16, ldx, m, kend, nbits, gr, gc, per_block, n, wbr, wbc, regime,
+      rows, ksplit, kchunk;
+  long long pstride;
+  void* ws;
+  void* cnt;
+};
+
+// Launches on ``stream``, does not synchronise, returns cudaGetLastError()
+// (0 when the launch was accepted).
+extern "C" int bitplane_matmul_launch(const void* x, const void* planes,
+                                      const void* sign, const void* mask,
+                                      const void* scale, void* out,
+                                      const BitplaneArgs* a, void* stream) {
+  if (a->m <= 0 || a->n <= 0) return 0;
+  if (a->nbits < 1 || a->nbits > 8 || a->wbr < 1 || a->wbc < 1 ||
+      a->ksplit < 1 || a->kchunk < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const Args a{x, ldx, m, kend, static_cast<const uint8_t*>(planes),
-               static_cast<const uint8_t*>(sign), nbits, plane_stride,
-               static_cast<const float*>(mask),
-               static_cast<const float*>(scale), n, gr, gc, wbr, wbc,
-               static_cast<float*>(out)};
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (x_bf16 && per_block) {
-    launch_rows<true, true>(a, st);
-  } else if (x_bf16) {
-    launch_rows<true, false>(a, st);
-  } else if (per_block) {
-    launch_rows<false, true>(a, st);
-  } else {
-    launch_rows<false, false>(a, st);
-  }
-  return static_cast<int>(cudaGetLastError());
+  Geo g;
+  g.x = x;
+  g.ldx = a->ldx;
+  g.m = a->m;
+  g.kend = a->kend;
+  g.x_bf16 = a->x_bf16;
+  g.n = a->n;
+  g.gc = a->gc;
+  g.wbr = a->wbr;
+  g.wbc = a->wbc;
+  g.rwbr = 1.f / static_cast<float>(a->wbr);
+  g.rwbc = 1.f / static_cast<float>(a->wbc);
+  g.out = static_cast<float*>(out);
+  g.ws = static_cast<float*>(a->ws);
+  g.cnt = static_cast<int*>(a->cnt);
+  g.ksplit = a->ksplit;
+  g.kchunk = a->kchunk;
+  const int wbr = a->wbr;
+  const bool pow2 = (wbr & (wbr - 1)) == 0;
+  g.wshift = pow2 ? __builtin_ctz(wbr) : 0;
+  const bool w16 = a->n % 16 == 0 && a->pstride % 16 == 0 &&
+                   (reinterpret_cast<uintptr_t>(planes) & 15) == 0 &&
+                   (reinterpret_cast<uintptr_t>(sign) & 15) == 0;
+  const int esz = a->x_bf16 ? 2 : 4;
+  g.aligned = w16 && (reinterpret_cast<uintptr_t>(x) & 15) == 0 &&
+              (a->ldx * esz) % 16 == 0 && a->kend % (16 / esz) == 0;
+  const bool fast = w16 && pow2 && wbr >= 8 && a->wbc % 16 == 0;
+  const BitplaneDec dec{static_cast<const uint8_t*>(planes),
+                        static_cast<const uint8_t*>(sign),
+                        static_cast<const float*>(mask),
+                        static_cast<const float*>(scale),
+                        a->pstride,
+                        a->nbits,
+                        a->gr,
+                        a->per_block};
+  return launch(g, dec, a->regime, a->rows, fast,
+                static_cast<cudaStream_t>(stream));
 }

@@ -7,26 +7,58 @@ N = scale.shape[1] * wbc.  ``x`` may have fewer than K columns (the true
 fan-in; the missing ones are zero), and int4 with an odd block-padded K
 carries one zero nibble row.  A CPU tensor runs the plain version
 (:func:`repro_torch.kernels.ref.packed_matmul_ref`); a CUDA tensor launches
-the kernel or raises.
+the kernel or raises.  The launch geometry (byte-streaming split-K at
+M <= 16, tensor-core tiles above) is :func:`repro_torch.kernels.tiling.
+matmul_plan`'s.
 """
 from __future__ import annotations
 
 import ctypes
+from typing import Dict, Tuple
 
 import torch
 
-from .build import load
+from .build import load, stream_ptr
 from .ref import packed_matmul_ref
+from .tiling import matmul_plan, splitk_scratch
+
+
+class _Args(ctypes.Structure):
+    """The launch's fixed geometry (``PackedArgs`` in the CUDA source):
+    built once for each call shape, so a call converts six arguments."""
+    _fields_ = [(f, ctypes.c_int) for f in (
+        "x_bf16", "ldx", "m", "kx", "bits", "n", "gc", "wbr", "wbc",
+        "regime", "rows", "ksplit", "kchunk")] + [
+        ("ws", ctypes.c_void_p), ("cnt", ctypes.c_void_p)]
+
+
+_ARGS: Dict[tuple, Tuple[int, _Args]] = {}
+# the operand pointers, the _Args address and the stream
+_ARGTYPES = [ctypes.c_void_p] * 6
 
 
 def _lib():
     lib = load("packed_matmul")
     fn = lib.packed_matmul_launch
     if fn.argtypes is None:          # declare once per process
-        P, I = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [P, I, I, I, I, P, I, P, I, I, I, I, P, P]
+        fn.argtypes = _ARGTYPES
         fn.restype = ctypes.c_int
     return fn
+
+
+def _args(key) -> int:
+    """Address of the launch arguments of call shape ``key`` (built at its
+    first call and kept, with the split-K scratch they point at)."""
+    hit = _ARGS.get(key)
+    if hit is None:
+        device, bf16, ldx, m, k_x, bits, n, gc, wbr, wbc = key
+        plan = matmul_plan(m, k_x, n, unit=1 if bits == 8 else 2, wbr=wbr)
+        ws, cnt = splitk_scratch(device, plan, m, n)
+        a = _Args(bf16, ldx, m, k_x, bits, n, gc, wbr, wbc,
+                  int(plan.regime == "tensor"), plan.rows, plan.ksplit,
+                  plan.kchunk, ws, cnt)
+        hit = _ARGS[key] = (ctypes.addressof(a), a)
+    return hit[0]
 
 
 def packed_matmul(x: torch.Tensor, w_int: torch.Tensor, scale: torch.Tensor,
@@ -58,17 +90,18 @@ def packed_matmul(x: torch.Tensor, w_int: torch.Tensor, scale: torch.Tensor,
     if not (w_int.is_contiguous() and scale.is_contiguous()
             and scale.dtype == torch.float32):
         raise ValueError("w_int and scale must be contiguous, scale f32")
-    if w_int.device != x.device or scale.device != x.device:
+    dev = x.device
+    if w_int.device != dev or scale.device != dev:
         raise ValueError("x, w_int and scale must share one device")
     if x.dtype not in (torch.float32, torch.bfloat16):
         x = x.float()
     if x.stride(1) != 1:
         x = x.contiguous()
-    out = torch.empty((m, n), dtype=torch.float32, device=x.device)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    rc = _lib()(x.data_ptr(), int(x.dtype == torch.bfloat16), x.stride(0),
-                m, k_x, w_int.data_ptr(), bits, scale.data_ptr(), n, gc,
-                wbr, wbc, out.data_ptr(), stream)
+    out = torch.empty((m, n), dtype=torch.float32, device=dev)
+    args = _args((dev, int(x.dtype == torch.bfloat16), x.stride(0), m,
+                  k_x, bits, n, gc, wbr, wbc))
+    rc = _lib()(x.data_ptr(), w_int.data_ptr(), scale.data_ptr(),
+                out.data_ptr(), args, stream_ptr(dev))
     if rc:
         raise RuntimeError(f"packed_matmul kernel launch failed: CUDA error "
                            f"{rc}")

@@ -19,7 +19,7 @@ import ctypes
 
 import torch
 
-from .build import load
+from .build import load, stream_ptr
 from .ref import pact_quant_ref
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
@@ -56,7 +56,7 @@ def pact_quant(x: torch.Tensor, beta: torch.Tensor, *,
     x = x.contiguous()
     beta = beta.reshape(1).to(torch.float32).contiguous()
     out = torch.empty_like(x)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
+    stream = stream_ptr(x.device)
     rc = _lib()(x.data_ptr(), _DTYPES[x.dtype], beta.data_ptr(),
                 out.data_ptr(), x.numel(), act_bits, stream)
     if rc:

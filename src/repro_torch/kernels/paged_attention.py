@@ -16,7 +16,7 @@ from typing import Optional
 
 import torch
 
-from .build import load
+from .build import load, stream_ptr
 from .ref import paged_attention_ref
 
 NEG_INF = -2.0e38
@@ -85,7 +85,7 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
     table = table.to(torch.int32).contiguous()
     kv_len = kv_len.to(torch.int32).reshape(b).contiguous()
     out = torch.empty((b, kv, g, dh), dtype=torch.float32, device=q.device)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
+    stream = stream_ptr(q.device)
     rc = _lib()(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
                 k_scale.data_ptr() if quantized else None,
                 v_scale.data_ptr() if quantized else None,

@@ -171,6 +171,52 @@ def test_cpu_tensors_take_plain_versions_and_launch_nothing():
                                   "bitplane_matmul": 0, "pact_quant": 0}
 
 
+def test_library_path_changes_with_a_shared_header(tmp_path, monkeypatch):
+    """A kernel's library is named by its source, the shared headers
+    ``csrc/*.cuh`` and the flags: editing a header must not load a stale
+    library."""
+    from repro_torch.kernels import build
+    (tmp_path / "k.cu").write_text('#include "common.cuh"\n')
+    (tmp_path / "common.cuh").write_text("// v1\n")
+    monkeypatch.setattr(build, "CSRC", tmp_path)
+    first = build.library_path("k")
+    assert build.library_path("k") == first
+    (tmp_path / "common.cuh").write_text("// v2\n")
+    second = build.library_path("k")
+    assert second != first
+    (tmp_path / "other.cuh").write_text("// new header\n")
+    assert build.library_path("k") not in (first, second)
+    (tmp_path / "k.cu").write_text('#include "common.cuh"\n// edited\n')
+    assert build.library_path("k").parent == build.BUILD_DIR
+
+
+@pytest.mark.parametrize("name,struct", [
+    ("packed_matmul", "PackedArgs"), ("bitplane_matmul", "BitplaneArgs")])
+def test_launch_declarations_mirror_the_cuda_source(name, struct):
+    """Each matmul wrapper's ctypes view of its launch function (argument
+    count) and of the launch-argument struct (field order and C types)
+    matches the CUDA source, which is compiled only on a card."""
+    import ctypes
+    import importlib
+    import re
+    from repro_torch.kernels import build
+    mod = importlib.import_module(f"repro_torch.kernels.{name}")
+    src = (build.CSRC / f"{name}.cu").read_text()
+    params = re.search(rf'extern "C" int {name}_launch\(([^)]*)\)', src)
+    assert params and len(params.group(1).split(",")) == len(mod._ARGTYPES)
+    body = re.search(rf"struct {struct} \{{([^}}]*)\}};", src).group(1)
+    ctype = {"int": ctypes.c_int, "long long": ctypes.c_longlong,
+             "void*": ctypes.c_void_p}
+    fields = []
+    for decl in body.split(";"):
+        decl = " ".join(decl.split())
+        if decl:
+            kind = next(k for k in ctype if decl.startswith(k + " "))
+            fields += [(f.strip(), ctype[kind])
+                       for f in decl[len(kind):].split(",")]
+    assert fields == list(mod._Args._fields_)
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():

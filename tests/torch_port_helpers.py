@@ -37,3 +37,28 @@ def np_of(x):
     if isinstance(x, torch.Tensor):
         return x.detach().cpu().numpy()
     return np.asarray(x)
+
+
+def tensor_regime_emulation(x, w, *, split_weight=True):
+    """The arithmetic of the weight-matmul kernels' tensor-core regime, in
+    plain torch on the CPU: the dequantized f32 weight ``w`` (K, N) as a
+    pair of bf16 tiles, hi = bf16(w) and lo = bf16(w - hi); bf16 ``x`` times
+    both, or f32 ``x`` split the same way and x_hi*hi + x_hi*lo + x_lo*hi;
+    every product exact in f32 and summed in f32.  ``split_weight=False``
+    keeps only hi (one bf16 weight), the design the tolerance rules out."""
+    bf16, f32 = torch.bfloat16, torch.float32
+    w = w.to(f32)
+    hi = w.to(bf16)
+    lo = (w - hi.to(f32)).to(bf16) if split_weight else torch.zeros_like(hi)
+    if x.dtype == bf16:
+        xs = [(x, (hi, lo))]
+    else:
+        x = x.to(f32)
+        xh = x.to(bf16)
+        xl = (x - xh.to(f32)).to(bf16)
+        xs = [(xh, (hi, lo)), (xl, (hi,))]
+    y = torch.zeros((x.shape[0], w.shape[1]), dtype=f32)
+    for xa, ws in xs:
+        for wb in ws:
+            y = y + xa.to(f32) @ wb.to(f32)
+    return y

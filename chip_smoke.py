@@ -10,13 +10,18 @@ It builds the four CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
 
 1. kernel phase — holds each kernel against its plain PyTorch version on
    the card at the serving path's shapes, f32 and bf16 activations, with
-   stated tolerances: ``packed_matmul``, ``paged_attention``,
+   stated tolerances: ``packed_matmul``, ``paged_attention`` (the decode
+   cache; long context, ~4096 of 4224 positions, in the contiguous
+   identity view and in a shuffled 16-token pool with trash-page tails,
+   for int8, int4, bf16 and f32 pools; kv_len 1 and on split boundaries;
+   windows that empty the leading splits; G=4 with softcap),
    ``bitplane_matmul`` (mixed, fully masked and truncated draft masks, both
    scale modes, 9x8 blocks with byte-pad rows, ragged N) and ``pact_quant``.
    The two matmuls run every edge case in both of their regimes (byte
    streaming at M <= ``kernels.tiling.STREAM_MAX_M``, tensor-core tiles
    above), the phi3 shapes at the switch point, one past it and the verify
-   M, and two launches on the same inputs must agree bit for bit;
+   M; two launches on the same inputs must agree bit for bit (the matmuls,
+   and ``paged_attention`` at kv_len 144 and 4096);
 2. path phase — serves full-width ``phi3-mini-3.8b`` (all 32 layers,
    random weights from seed 0) in float32.
 
@@ -49,7 +54,9 @@ It builds the four CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
    tokens identical, kernels vs plain versions, paged vs contiguous and
    speculative vs not;
 3. time phase — in bfloat16 (the config's compute dtype): each kernel at
-   the path's shapes (``bitplane_matmul`` also at the verify M) with CUDA
+   the path's shapes (``bitplane_matmul`` also at the verify M;
+   ``paged_attention`` also at kv_len 1040 and 4096, and in a 16-token
+   pool at 4096; ``pact_quant`` also at 16384 rows, past L2) with CUDA
    events around back-to-back calls (``ms``: the host's cost a call shows
    where it exceeds the device's) and around the same calls queued behind
    a sleeping kernel (``device_ms``), with the host's enqueue time a call,
@@ -185,13 +192,11 @@ D_MODEL = 3072
 
 def kernel_phase():
     import torch
-    from repro_torch.kernels import packed_matmul, paged_attention
-    from repro_torch.kernels.ref import packed_matmul_ref, paged_attention_ref
-    from repro_torch.models.attention import _as_pool, quantize_kv
+    from repro_torch.kernels import packed_matmul
+    from repro_torch.kernels.ref import packed_matmul_ref
     from repro_torch.kernels.tiling import STREAM_MAX_M as SWITCH_M
-    from repro_torch.kernels.tiling import fit_block
 
-    out = {"packed_matmul": [], "paged_attention": []}
+    out = {"packed_matmul": []}
     f32, bf16 = torch.float32, torch.bfloat16
     # f32 x at decode and prefill M; bf16 x (the bf16 path's operands) at
     # the path's own M = B (decode), B*5 (verify) and B*P (prefill), and at
@@ -224,54 +229,134 @@ def kernel_phase():
                                  f"{wbr}x{wbc} {xdt}: err {err} > tol {tol}")
     out["repeat"] = repeat_phase()
 
-    g = torch.Generator(device=DEV).manual_seed(1)
-    t = P + 64                                  # generate's cache width
-    page = fit_block(min(128, t), t, 1)         # contiguous page size: 96
-    kv_len = torch.tensor([P + 1, P + 17, P + 40, t][:B], dtype=torch.int32,
-                          device=DEV)
-    for bits in (8, 4, 32):
-        kf = torch.randn((B, t, 32, 96), generator=g, device=DEV)
-        vf = torch.randn((B, t, 32, 96), generator=g, device=DEV)
-        q = torch.randn((B, 32, 1, 96), generator=g, device=DEV)
-        if bits < 32:
-            (kq, ks), (vq, vs) = quantize_kv(kf, bits), quantize_kv(vf, bits)
-            pool = [_as_pool(a, page) for a in (kq, vq, ks, vs)]
-        else:
-            pool = [_as_pool(kf, page), _as_pool(vf, page), None, None]
-        ident = torch.arange(B * t // page, dtype=torch.int32,
-                             device=DEV).reshape(B, -1)
-        got = paged_attention(q, *pool, ident, kv_len)
-        torch.cuda.synchronize()
-        want = paged_attention_ref(q, *pool, ident, kv_len)
-        err = float((got - want).abs().max())
-        out["paged_attention"].append(dict(bits=bits, kv=32, g=1, dh=96,
-                                           page=page, err=err, tol=PA_TOL))
-        assert err <= PA_TOL, (bits, err)
-    # GQA G=4 with window and softcap; blocks past kv_len route to page 0
-    kvh, gq, nb = 8, 4, 6
-    n_pages = 1 + B * nb
-    kf = torch.randn((n_pages, PAGE, kvh, 96), generator=g, device=DEV)
-    vf = torch.randn((n_pages, PAGE, kvh, 96), generator=g, device=DEV)
-    (kq, ks), (vq, vs) = quantize_kv(kf, 8), quantize_kv(vf, 8)
-    q = torch.randn((B, kvh, gq, 96), generator=g, device=DEV)
-    lens = torch.tensor([5, 33, 60, 96][:B], dtype=torch.int32, device=DEV)
-    table = torch.randperm(n_pages - 1, generator=g, device=DEV)[
-        :B * nb].reshape(B, nb).to(torch.int32) + 1
-    live = -(-lens.long() // PAGE)
-    blk = torch.arange(nb, device=DEV)[None, :]
-    table = torch.where(blk < live[:, None], table, torch.zeros_like(table))
-    got = paged_attention(q, kq, vq, ks, vs, table, lens, window=40,
-                          softcap=30.0)
-    torch.cuda.synchronize()
-    want = paged_attention_ref(q, kq, vq, ks, vs, table, lens, window=40,
-                               softcap=30.0)
-    err = float((got - want).abs().max())
-    out["paged_attention"].append(dict(bits=8, kv=kvh, g=gq, dh=96,
-                                       page=PAGE, window=40, softcap=30.0,
-                                       err=err, tol=PA_TOL))
-    assert err <= PA_TOL, ("gqa", err)
+    out["paged_attention"] = attention_kernel_phase()
     out["bitplane_matmul"] = bitplane_kernel_phase()
     out["pact_quant"] = pact_kernel_phase()
+    return out
+
+
+T_LONG = 4224                   # a long context's cache width (page 128)
+
+
+def attention_pool(bits, kvh, t, page, *, g=1, paged=False, seed=1,
+                   b=B):
+    """Random K/V for ``b`` slots of ``t`` positions, quantized as the
+    cache stores them, as a page pool with its block table: the contiguous
+    cache's identity view (``page`` = the cache's page), or ``paged``: the
+    same pages shuffled behind a random table with the trash page 0 in
+    front.  Returns (q, pool leaves, table)."""
+    import torch
+    from repro_torch.models.attention import _as_pool, quantize_kv
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    kf = torch.randn((b, t, kvh, 96), generator=gen, device=DEV)
+    vf = torch.randn((b, t, kvh, 96), generator=gen, device=DEV)
+    q = torch.randn((b, kvh, g, 96), generator=gen, device=DEV)
+    if bits in (8, 4):
+        (kq, ks), (vq, vs) = quantize_kv(kf, bits), quantize_kv(vf, bits)
+        pool = [_as_pool(a, page) for a in (kq, vq, ks, vs)]
+    else:
+        dt = torch.bfloat16 if bits == 16 else torch.float32
+        pool = [_as_pool(kf.to(dt), page), _as_pool(vf.to(dt), page), None,
+                None]
+    nb = t // page
+    table = torch.arange(b * nb, dtype=torch.int32, device=DEV)
+    if paged:
+        perm = torch.randperm(b * nb, generator=gen, device=DEV) + 1
+        shuffled = []
+        for leaf in pool:
+            if leaf is None:
+                shuffled.append(None)
+                continue
+            s = torch.zeros((1 + b * nb, *leaf.shape[1:]), dtype=leaf.dtype,
+                            device=DEV)
+            s[perm] = leaf
+            shuffled.append(s)
+        pool, table = shuffled, perm.to(torch.int32)
+    return q, pool, table.reshape(b, nb)
+
+
+def trash_tails(table, kv_len, page):
+    """Blocks past each slot's fill level route to the trash page 0."""
+    import torch
+    live = -(-kv_len.long() // page)
+    blk = torch.arange(table.shape[1], device=table.device)[None, :]
+    return torch.where(blk < live[:, None], table, torch.zeros_like(table))
+
+
+def attention_kernel_phase():
+    """``paged_attention`` against its plain version, |err| <= PA_TOL: the
+    decode shape (t = 192, page 96, identity table) for int8, int4 and f32
+    pools; GQA G=4 with window and softcap over 16-token pages; long
+    context (t = 4224, kv_len ~4096) in the contiguous identity view (page
+    128) and in a shuffled 16-token pool with trash-page tails, for int8,
+    int4, bf16 and f32; the split edges (kv_len 1 and on split
+    boundaries, a window that empties the leading splits or spans a
+    boundary); G=4 with softcap at long context."""
+    import torch
+    from repro_torch.kernels import paged_attention
+    from repro_torch.kernels.ref import paged_attention_ref
+    from repro_torch.kernels.tiling import attention_plan, fit_block
+    out = []
+    t = P + 64                                  # generate's cache width
+    page = fit_block(min(128, t), t, 1)         # contiguous page size: 96
+
+    def case(name, bits, q, pool, table, kv_len, **kw):
+        got = paged_attention(q, *pool, table, kv_len, **kw)
+        torch.cuda.synchronize()
+        want = paged_attention_ref(q, *pool, table, kv_len, **kw)
+        err = float((got - want).abs().max())
+        b, kvh, g, dh = q.shape
+        plan = attention_plan(b, kvh, g, dh, pool[0].shape[1],
+                              table.shape[1], {torch.int8: 8, torch.uint8: 4,
+                                               torch.bfloat16: 16,
+                                               torch.float32: 32}[
+                                                   pool[0].dtype])
+        out.append(dict(case=name, bits=bits, kv=kvh, g=g, dh=dh,
+                        page=pool[0].shape[1], nb=table.shape[1],
+                        kv_len=kv_len.tolist(), splits=plan.splits,
+                        chunk=plan.chunk, err=err, tol=PA_TOL, **kw))
+        if not (err <= PA_TOL and bool(torch.isfinite(got).all())):
+            raise AssertionError(f"paged_attention case {out[-1]}")
+
+    def lens(*v):
+        return torch.tensor(v[:B], dtype=torch.int32, device=DEV)
+
+    for bits in (8, 4, 32):
+        q, pool, ident = attention_pool(bits, 32, t, page, seed=1 + bits)
+        case("decode", bits, q, pool, ident, lens(P + 1, P + 17, P + 40, t))
+    # split edges at the decode shape (4 splits of 48): kv_len 1, on a
+    # boundary, one past it
+    q, pool, ident = attention_pool(8, 32, t, page, seed=3)
+    case("decode edges", 8, q, pool, ident, lens(1, 48, 96, 49))
+    # GQA G=4 with window and softcap; blocks past kv_len route to page 0
+    kvh, gq, nb = 8, 4, 6
+    q, pool, table = attention_pool(8, kvh, PAGE * nb, PAGE, g=gq,
+                                    paged=True, seed=4)
+    kv_len = lens(5, 33, 60, 96)
+    case("gqa window softcap", 8, q, pool,
+         trash_tails(table, kv_len, PAGE), kv_len, window=40, softcap=30.0)
+    long_page = fit_block(min(128, T_LONG), T_LONG, 1)    # 128
+    long_lens = lens(4096, 4095, T_LONG, 3071)
+    for bits in (8, 4, 16, 32):
+        q, pool, ident = attention_pool(bits, 32, T_LONG, long_page,
+                                        seed=5 + bits)
+        case("long contiguous", bits, q, pool, ident, long_lens)
+        q, pool, table = attention_pool(bits, 32, T_LONG, PAGE, paged=True,
+                                        seed=6 + bits)
+        kv_len = lens(4096, 4000, 2049, T_LONG)
+        case("long paged", bits, q, pool, trash_tails(table, kv_len, PAGE),
+             kv_len)
+    # long split edges (4 splits of 1056) and windows that empty the
+    # leading splits (4096 - 200) or span a split boundary (900..1099)
+    q, pool, ident = attention_pool(8, 32, T_LONG, long_page, seed=7)
+    case("long edges", 8, q, pool, ident, lens(1056, 2112, 1, 3168))
+    case("long window", 8, q, pool, ident, lens(4096, 2200, 1100, 60),
+         window=200)
+    for bits in (8, 4):
+        q, pool, ident = attention_pool(bits, 8, T_LONG, long_page, g=4,
+                                        seed=8 + bits)
+        case("long gqa softcap", bits, q, pool, ident, long_lens,
+             softcap=30.0)
     return out
 
 
@@ -363,7 +448,8 @@ def repeat_phase():
     bit-identical outputs, in both regimes, with K split across blocks at
     decode M, the stream regime's largest M (4 row tiles) and verify M
     (the split-K sums are added in slice order, never by float
-    atomics)."""
+    atomics); so do two launches of ``paged_attention`` at kv_len 144 and
+    4096 (the KV split across CTAs, combined in split order)."""
     import torch
     from repro_torch.kernels import bitplane_matmul, packed_matmul
     from repro_torch.kernels.tiling import STREAM_MAX_M, matmul_plan
@@ -385,6 +471,25 @@ def repeat_phase():
         # decode and verify split K across blocks; prefill need not
         if not (out[-1]["packed_identical"] and out[-1]["bitplane_identical"]
                 and (plan.ksplit > 1 or m > B * 5)):
+            raise AssertionError(f"repeated launches differ: {out[-1]}")
+    # paged_attention: the splits of a (slot, head group) are combined in
+    # split order, at the decode fill and at a long context
+    from repro_torch.kernels import paged_attention
+    from repro_torch.kernels.tiling import attention_plan, fit_block
+    for kv_len, t in ((P + NEW // 2, P + 64), (4096, T_LONG)):
+        page = fit_block(min(128, t), t, 1)
+        q, pool, ident = attention_pool(8, 32, t, page, seed=9)
+        lens = torch.full((B,), kv_len, dtype=torch.int32, device=DEV)
+        a = paged_attention(q, *pool, ident, lens)
+        b = paged_attention(q, *pool, ident, lens)
+        torch.cuda.synchronize()
+        plan = attention_plan(B, 32, 1, 96, page, t // page, 8)
+        out.append(dict(kernel="paged_attention", kv_len=kv_len, t=t,
+                        splits=plan.splits,
+                        identical=bool(torch.equal(a, b))))
+        # the long context splits across CTAs (the decode fill walks its
+        # short cache unsplit)
+        if not (out[-1]["identical"] and (plan.splits > 1 or t <= 1024)):
             raise AssertionError(f"repeated launches differ: {out[-1]}")
     return out
 
@@ -986,31 +1091,36 @@ def time_packed(m, k, n, bits):
                 bytes=nbytes, flops=flops)
 
 
-def time_attention(bits, kv_len_val):
+def time_attention(bits, kv_len_val, t=P + 64, paged=0):
+    """One layer's decode read at B=4, KV=32, dh=96, every slot filled to
+    ``kv_len_val`` of a ``t``-position cache: the contiguous cache's
+    identity view (page ``fit_block(min(128, t), t, 1)``), or ``paged``
+    positions a page behind a shuffled table.  KV cold (rotated past the
+    50 MB L2).  Library: SDPA on the same K/V dequantized to bf16, (B, 32,
+    t, 96), masked to the fill.  Bound: the KV bytes and scales the slots
+    fill, q and the output, over HBM."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import paged_attention
     from repro_torch.kernels.ref import paged_attention_ref
-    from repro_torch.kernels.tiling import fit_block
-    from repro_torch.models.attention import _as_pool, dequantize_kv, \
-        quantize_kv
+    from repro_torch.kernels.tiling import attention_plan, fit_block
+    from repro_torch.models.attention import dequantize_kv
 
-    t = P + 64
-    page = fit_block(min(128, t), t, 1)
-    g = torch.Generator(device=DEV).manual_seed(2)
-    q = torch.randn((B, 32, 1, 96), generator=g, device=DEV)
+    page = paged or fit_block(min(128, t), t, 1)
     kv_len = torch.full((B,), kv_len_val, dtype=torch.int32, device=DEV)
-    ident = torch.arange(B * t // page, dtype=torch.int32,
-                         device=DEV).reshape(B, -1)
+    seeds = iter(range(100, 1000))
 
     def make():
-        kf = torch.randn((B, t, 32, 96), generator=g, device=DEV)
-        vf = torch.randn((B, t, 32, 96), generator=g, device=DEV)
-        (kq, ks), (vq, vs) = quantize_kv(kf, bits), quantize_kv(vf, bits)
-        pool = [_as_pool(a, page) for a in (kq, vq, ks, vs)]
-        kd = dequantize_kv(kq, ks, torch.bfloat16).transpose(1, 2)
-        vd = dequantize_kv(vq, vs, torch.bfloat16).transpose(1, 2)
-        return pool, (kd.contiguous(), vd.contiguous())
+        q, pool, table = attention_pool(bits, 32, t, page, paged=bool(paged),
+                                        seed=next(seeds))
+        kq, vq, ks, vs = pool
+        order = table.reshape(-1).long()       # slot-major pages
+        kd = dequantize_kv(kq[order].reshape(B, t, 32, -1),
+                           ks[order].reshape(B, t, 32), torch.bfloat16)
+        vd = dequantize_kv(vq[order].reshape(B, t, 32, -1),
+                           vs[order].reshape(B, t, 32), torch.bfloat16)
+        return (q, pool, table), (kd.transpose(1, 2).contiguous(),
+                                  vd.transpose(1, 2).contiguous())
 
     sets = rotating(make, 2 * B * t * 32 * (96 * bits // 8 + 4))
     it = {"i": 0}
@@ -1019,24 +1129,38 @@ def time_attention(bits, kv_len_val):
         it["i"] = (it["i"] + 1) % len(sets)
         return sets[it["i"]]
 
+    def kern():
+        q, pool, table = nxt()[0]
+        return paged_attention(q, *pool, table, kv_len)
+
+    def plain():
+        q, pool, table = nxt()[0]
+        return paged_attention_ref(q, *pool, table, kv_len)
+
     mask = (torch.arange(t, device=DEV) < kv_len_val)[None, None, None]
-    qb = q.reshape(B, 32, 1, 96).to(torch.bfloat16)
-    ms, dev, host = cuda_times(lambda: paged_attention(q, *nxt()[0], ident,
-                                                       kv_len))
-    plain = cuda_ms(lambda: paged_attention_ref(q, *nxt()[0], ident, kv_len))
+    qb = sets[0][0][0].reshape(B, 32, 1, 96).to(torch.bfloat16)
+    ms, dev, host = cuda_times(kern)
+    plain_ms = cuda_ms(plain, iters=5 if t > 2048 else 20)
     lib, lib_dev, lib_host = cuda_times(
         lambda: F.scaled_dot_product_attention(qb, *nxt()[1], attn_mask=mask))
     nbytes = B * kv_len_val * 32 * (2 * 96 * bits / 8 + 8) \
-        + 2 * q.nbytes + B * 32 * 4
+        + 2 * B * 32 * 96 * 4 + B * 4
     flops = 4.0 * B * 32 * kv_len_val * 96
     bound = max(nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS) * 1e3
     by = "bytes" if nbytes / HBM_BYTES_PER_S >= flops / BF16_FLOPS \
         else "operations"
+    plan = attention_plan(B, 32, 1, 96, page, t // page, bits)
     return dict(bits=bits, b=B, kv=32, dh=96, t=t, page=page,
-                kv_len=kv_len_val, ms=ms, device_ms=dev, host_ms=host,
-                plain_ms=plain, library_ms=lib, library_device_ms=lib_dev,
+                leg="paged" if paged else "contiguous",
+                kv_len=kv_len_val, splits=plan.splits, chunk=plan.chunk,
+                ms=ms, device_ms=dev, host_ms=host,
+                plain_ms=plain_ms, library_ms=lib, library_device_ms=lib_dev,
                 library_host_ms=lib_host, bound_ms=bound, bound_by=by,
                 bytes=nbytes, flops=flops)
+
+
+# (kv_len, cache width t): the smoke's decode fill, then longer contexts
+ATTN_TIMED = ((P + NEW // 2, P + 64), (1040, 1152), (4096, T_LONG))
 
 
 def time_path(deployed, tok):
@@ -1133,14 +1257,15 @@ def time_bitplane(bp, sub, name, m):
                 stream_bytes=stream, live_block_share=live, flops=flops)
 
 
-def time_pact():
-    """``pact_quant`` at (B*P, D_MODEL) bf16, 8-bit: one read and one write
-    of x bound it; the library call is PyTorch's fake quantizer with the
-    same levels (scale b/L, zero point 0, range [-L, L])."""
+def time_pact(rows=B * P):
+    """``pact_quant`` at (rows, D_MODEL) bf16, 8-bit: one read and one
+    write of x bound it; the library call is PyTorch's fake quantizer with
+    the same levels (scale b/L, zero point 0, range [-L, L]).  At B*P rows
+    x is 3 MB and stays in L2; 16384 rows (100 MB) stream from HBM."""
     import torch
     from repro_torch.kernels import pact_quant
     from repro_torch.kernels.ref import pact_quant_ref
-    x = (torch.randn((B * P, D_MODEL), device=DEV,
+    x = (torch.randn((rows, D_MODEL), device=DEV,
                      generator=torch.Generator(device=DEV).manual_seed(6))
          * 2).to(torch.bfloat16)
     b, levels = 1.5, 127
@@ -1156,7 +1281,7 @@ def time_pact():
     bound = max(nbytes / HBM_BYTES_PER_S, ops / F32_FLOPS) * 1e3
     by = "bytes" if nbytes / HBM_BYTES_PER_S >= ops / F32_FLOPS \
         else "operations"
-    return dict(rows=B * P, cols=D_MODEL, dtype="bfloat16", act_bits=8, ms=ms,
+    return dict(rows=rows, cols=D_MODEL, dtype="bfloat16", act_bits=8, ms=ms,
                 device_ms=dev, host_ms=host, plain_ms=plain, library_ms=lib,
                 library_device_ms=lib_dev, library_host_ms=lib_host,
                 bound_ms=bound, bound_by=by, bytes=nbytes, ops=ops)
@@ -1303,14 +1428,17 @@ def run(detail) -> list:
     t0 = time.perf_counter()
     pm = [time_packed(m, k, n, bits) for bits in (8, 4) for m in (B, B * P)
           for k, n, _ in LAYER_SHAPES]
-    pa = [time_attention(bits, P + NEW // 2) for bits in (8, 4)]
+    pa = [time_attention(bits, kv_len, t) for kv_len, t in ATTN_TIMED
+          for bits in (8, 4)]
+    pa.append(time_attention(8, 4096, T_LONG, paged=PAGE))
     bm = [time_bitplane(bp, sub, name, m) for m in (B, 4 * B, B * 5, B * P)
           for sub, name in LAYER_LEAVES]
     pq = time_pact()
+    pq_hbm = time_pact(16384)
     paths = time_path(deployed, tok)
     bp_paths = time_bitplane_path(bp, tok)
     detail["time_phase"] = {"packed_matmul": pm, "paged_attention": pa,
-                            "bitplane_matmul": bm, "pact_quant": pq,
+                            "bitplane_matmul": bm, "pact_quant": [pq, pq_hbm],
                             "path": paths, "bitplane_path": bp_paths}
     detail["time_phase_s"] = time.perf_counter() - t0
     detail["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
@@ -1336,7 +1464,8 @@ def run(detail) -> list:
     def bp_sum(key):
         return sum(r[key] for r in dec_bp)
 
-    a8 = next(r for r in pa if r["bits"] == 8)
+    a8 = next(r for r in pa if r["bits"] == 8 and r["leg"] == "contiguous"
+              and r["kv_len"] == P + NEW // 2)
     launches = next(p for p in paths if p["bits"] == 8 and
                     p["backend"] == "kernel" and
                     p["leg"] == "contiguous")["launches"]

@@ -191,9 +191,10 @@ def test_library_path_changes_with_a_shared_header(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("name,struct", [
-    ("packed_matmul", "PackedArgs"), ("bitplane_matmul", "BitplaneArgs")])
+    ("packed_matmul", "PackedArgs"), ("bitplane_matmul", "BitplaneArgs"),
+    ("paged_attention", "AttentionArgs")])
 def test_launch_declarations_mirror_the_cuda_source(name, struct):
-    """Each matmul wrapper's ctypes view of its launch function (argument
+    """Each kernel wrapper's ctypes view of its launch function (argument
     count) and of the launch-argument struct (field order and C types)
     matches the CUDA source, which is compiled only on a card."""
     import ctypes
@@ -205,8 +206,9 @@ def test_launch_declarations_mirror_the_cuda_source(name, struct):
     params = re.search(rf'extern "C" int {name}_launch\(([^)]*)\)', src)
     assert params and len(params.group(1).split(",")) == len(mod._ARGTYPES)
     body = re.search(rf"struct {struct} \{{([^}}]*)\}};", src).group(1)
+    body = re.sub(r"//[^\n]*", "", body)
     ctype = {"int": ctypes.c_int, "long long": ctypes.c_longlong,
-             "void*": ctypes.c_void_p}
+             "void*": ctypes.c_void_p, "float": ctypes.c_float}
     fields = []
     for decl in body.split(";"):
         decl = " ".join(decl.split())
@@ -241,9 +243,14 @@ def test_packed_matmul_kernel_matches_plain_on_card(cuda_device, bits, m):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("bits", [8, 4, 32])
-def test_paged_attention_kernel_matches_plain_on_card(cuda_device, bits):
+@pytest.mark.parametrize("pool", [
+    (3, 2, 4, 24, 5, 3),       # a short capacity: one CTA a KV head
+    (2, 4, 1, 96, 16, 80),     # 1280 positions: split, 4-head groups
+])
+def test_paged_attention_kernel_matches_plain_on_card(cuda_device, bits,
+                                                      pool):
     torch.backends.cuda.matmul.allow_tf32 = False
-    case = _pool_case(3, 2, 4, 24, 5, 3, bits, seed=11)
+    case = _pool_case(*pool, bits, seed=11)
     args = [None if a is None else _t(a).to(cuda_device) for a in case]
     got = paged_attention(*args, window=7, softcap=25.0)
     torch.cuda.synchronize()

@@ -19,9 +19,11 @@ It builds the four CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
    scale modes, 9x8 blocks with byte-pad rows, ragged N) and ``pact_quant``.
    The two matmuls run every edge case in both of their regimes (byte
    streaming at M <= ``kernels.tiling.STREAM_MAX_M``, tensor-core tiles
-   above), the phi3 shapes at the switch point, one past it and the verify
-   M; two launches on the same inputs must agree bit for bit (the matmuls,
-   and ``paged_attention`` at kv_len 144 and 4096);
+   above), the phi3 shapes at the switch point, one past it, the verify M
+   and the scheduler's M (decode, chunk, narrowest prompt; the
+   speculative drive's draft, verify and prompt M); two launches on the
+   same inputs must agree bit for bit (the matmuls, and
+   ``paged_attention`` at kv_len 144 and 4096);
 2. path phase — serves full-width ``phi3-mini-3.8b`` (all 32 layers,
    random weights from seed 0) in float32.
 
@@ -61,9 +63,34 @@ It builds the four CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
    where it exceeds the device's) and around the same calls queued behind
    a sleeping kernel (``device_ms``), with the host's enqueue time a call,
    beside its bound, its plain version and one PyTorch library call (both
-   ways); and each path's prefill ms, decode ms/step and
+   ways), the two matmuls also at the scheduler's M (packed: decode and
+   chunk; bit-plane: draft and verify, f32 x); and each path's prefill
+   ms, decode ms/step and
    tokens/s, each run counted, with the speculative runs' acceptance
    rate.
+
+4. scheduler phase — request-level serving through the launcher's
+   ``main`` (``python -m repro_torch.launch.serve``), in process, on
+   full-width phi3 in bfloat16 with int8 weights, 8-bit activations and an
+   int8 KV cache through the kernels: 24 requests (prompts 64-1920 wide,
+   half behind a common 512-token system prompt, budgets 16-128, arriving
+   every 2 ticks), 8 slots, 16-token pages, 256-token chunks, priorities
+   {0, 1}, prefix cache, overcommit 1.5 over a pool that forces parking.
+   Every request finishes with its budget; ``validate()`` is empty every
+   16 ticks and at the end; the pool drains; preemptions, resumes and
+   prefix hits occur; the launches equal those of the scheduler's tick
+   log; in every drive the first weight-matmul call at each M is held
+   against the plain version.  One decode tick's layer-0 attention state
+   (ragged fill levels, free rows, shared pages, capacity past 1024) is
+   captured and held against the plain version, twice bit for bit, and
+   timed against the same tick with the free rows' kv_len at 0, the plain
+   version and SDPA.  Ticks are timed from outside the scheduler, tokens/s
+   over the whole run.  The same trace with
+   quantizers off in float32 keeps the ledger and, against one-shot runs
+   at B=1 of 8 of its requests, parts only at near-tied steps (a top-two
+   gap under ``EXACT_TOL_REL``).  A speculative drive on the bit-plane
+   tree (k=6, γ=3, quantizers off) gives the non-speculative drive's
+   tokens.
 
 Output: a ``{"kernels": [...]}`` JSON line, the card's name and power
 limit, and as the last line ``{"ok": true, "device": {...}}``.  Details go
@@ -199,14 +226,18 @@ def kernel_phase():
     out = {"packed_matmul": []}
     f32, bf16 = torch.float32, torch.bfloat16
     # f32 x at decode and prefill M; bf16 x (the bf16 path's operands) at
-    # the path's own M = B (decode), B*5 (verify) and B*P (prefill), and at
-    # the regime switch (STREAM_MAX_M streams, one more runs tensor tiles)
+    # the one-shot path's M = B (decode), B*5 (verify) and B*P (prefill),
+    # at the regime switch (STREAM_MAX_M streams, one more runs tensor
+    # tiles) and at the scheduler's M: n_slots (decode), a chunk and the
+    # narrowest prompt (the scheduler drives also hold every M they ran
+    # against the plain version: MatmulCapture)
     cases = [(m, k, n, bits, 8, 128, None, f32)
              for bits in (8, 4) for m in (1, 16, B * P)
              for k, n in PHI3_SHAPES]
     cases += [(m, k, n, bits, 8, 128, None, bf16)
               for bits in (8, 4) for m in (B, SWITCH_M, SWITCH_M + 1, B * 5,
-                                           B * P)
+                                           B * P, SCHED_SLOTS, SCHED_CHUNK,
+                                           min(SCHED_WIDTHS))
               for k, n in PHI3_SHAPES]
     # edge geometry, each at a stream M and a tensor M: 9x8 with odd Kp and
     # narrow x; 8x128 with narrow x and N padded from 200 to 256
@@ -410,6 +441,13 @@ def bitplane_kernel_phase():
              for dt in (f32, bf16)]
     cases += [(m, k, n, 8, 8, 128, dict(x_dtype=bf16))
               for m in (SWITCH_M, SWITCH_M + 1, B * 5) for k, n in PHI3_SHAPES]
+    # the scheduler's speculative drive, f32 x: drafts at M = n_slots
+    # (top-k plane masks), verify at n_slots*(gamma+1), prompts at P
+    k_spec, gamma = SCHED_SPEC
+    cases += [(m, k, n, 8, 8, 128, dict(x_dtype=f32, draft=d))
+              for m, d in ((SCHED_SLOTS, k_spec),
+                           (SCHED_SLOTS * (gamma + 1), 0), (P, 0))
+              for k, n in PHI3_SHAPES]
     edge = [
         (B, *up, 8, 8, 128, dict(draft=4)),                   # draft masks
         (B * 5, *down, 8, 8, 128, dict(draft=6, x_dtype=bf16)),
@@ -1056,6 +1094,493 @@ def check_bitplane(res, spec, timed):
 
 
 # ---------------------------------------------------------------------------
+# scheduler phase: request-level serving through the launcher
+# ---------------------------------------------------------------------------
+
+# 24 prompt widths (64..1920), budgets cycled {16, 32, 64, 128}; the even
+# uids start with a common 512-token system prompt.  The page schedule
+# depends only on widths, budgets, arrivals and prompt content (no EOS):
+# unconstrained, this trace peaks at 297 live pages; a pool of 240 pages
+# (239 live) under overcommit 1.5 parks 4 requests (a tiny-width CPU replay
+# of the same trace through the launcher).
+SCHED_WIDTHS = (1920, 64, 640, 128, 768, 256, 1024, 96, 576, 300, 896, 200,
+                1536, 160, 700, 450, 600, 80, 1100, 1000, 800, 72, 530, 384)
+SCHED_BUDGETS = (16, 32, 64, 128)
+SCHED_PAGES = 240
+SCHED_CHUNK = 256
+SCHED_SHARED = 512
+SCHED_SLOTS = 8
+SCHED_VALIDATE_EVERY = 16
+SCHED_ONESHOT = 8               # quantizer-free requests rerun one-shot
+# the speculative drive: 8 requests of 128 tokens, 32 new each, paged
+SCHED_SPEC = (6, 3)             # (speculate_planes, draft_gamma)
+
+
+def sched_argv(size=("--no-tiny",), extra=()):
+    """The scheduler phase's launcher flags: full-width phi3 (``size``)
+    through the kernels, 8 slots, 16-token pages, 256-token chunks,
+    overcommit 1.5 over ``SCHED_PAGES`` pages, prefix cache, priorities
+    cycling {0, 1}, 24 requests from seed 0 arriving every 2 ticks."""
+    return ["--arch", ARCH, *size, "--device", DEV, "--requests",
+            "--backend", "kernel", "--attn-backend", "fused",
+            "--batch", str(len(SCHED_WIDTHS)), "--n-slots", str(SCHED_SLOTS),
+            "--arrival-gap", "2", "--page-size", str(PAGE),
+            "--prefill-chunk", str(SCHED_CHUNK),
+            "--n-pages", str(SCHED_PAGES), "--overcommit", "1.5",
+            "--prefix-cache", "--priority", "0,1",
+            "--prompt-lens", ",".join(map(str, SCHED_WIDTHS)),
+            "--max-news", ",".join(map(str, SCHED_BUDGETS)),
+            "--shared-prefix", str(SCHED_SHARED), "--shared-every", "2",
+            "--validate-every", str(SCHED_VALIDATE_EVERY), "--seed", "0",
+            *extra]
+
+
+class TickTimer:
+    """Observer around ``Scheduler.step`` and ``Scheduler.run``: each
+    tick's host-clock ms, the card synchronized at its end (the scheduler
+    itself never waits for the card), and the wall time of the whole
+    ``run``, its contract checks included, from a synchronized start to a
+    synchronized end."""
+
+    def __init__(self):
+        from repro_torch.serve.scheduler import Scheduler
+        self.cls = Scheduler
+        self.orig = (Scheduler.step, Scheduler.run)
+        self.ms, self.run_s = [], None
+
+    def __enter__(self):
+        import torch
+        step, run = self.orig
+
+        def timed_step(sched):
+            t0 = time.perf_counter()
+            step(sched)
+            torch.cuda.synchronize()
+            self.ms.append((time.perf_counter() - t0) * 1e3)
+
+        def timed_run(sched, *a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = run(sched, *a, **kw)
+            torch.cuda.synchronize()
+            self.run_s = time.perf_counter() - t0
+            return res
+        self.cls.step, self.cls.run = timed_step, timed_run
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.step, self.cls.run = self.orig
+
+
+class MatmulCapture:
+    """Observer around the model's two weight-matmul wrappers
+    (``models.common.packed_matmul`` and ``bitplane_matmul``): the first
+    call of a drive at each (kernel, M, K, N, x dtype) is kept (x and the
+    output copied, the weight operands referenced) and, after the drive,
+    held against the plain version within ``PM_TOL_REL`` / ``BM_TOL_REL``
+    of its largest |value|.  Every call still goes to the wrapper."""
+
+    NAMES = ("packed_matmul", "bitplane_matmul")
+
+    def __init__(self):
+        from repro_torch.models import common
+        self.mod = common
+        self.orig = {n: getattr(common, n) for n in self.NAMES}
+        self.calls = {}
+
+    def __enter__(self):
+        for name, fn in self.orig.items():
+            setattr(self.mod, name, self.observer(name, fn))
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self.orig.items():
+            setattr(self.mod, name, fn)
+
+    def observer(self, name, fn):
+        def call(x, *ops, **kw):
+            y = fn(x, *ops, **kw)
+            key = (name, x.shape[0], x.shape[1], y.shape[1], str(x.dtype))
+            if key not in self.calls:
+                self.calls[key] = (x.clone(), ops, kw, y.clone())
+            return y
+        return call
+
+    def check(self):
+        from repro_torch.kernels.ref import (bitplane_matmul_ref,
+                                             packed_matmul_ref)
+        rows = []
+        for key in sorted(self.calls):
+            name, m, k, n, dt = key
+            x, ops, kw, got = self.calls[key]
+            if name == "packed_matmul":
+                want = packed_matmul_ref(x, *ops, kw["bits"], kw["wbr"],
+                                         kw["wbc"])
+                rel = PM_TOL_REL
+            else:
+                want = bitplane_matmul_ref(x, *ops, kw["wbr"], kw["wbc"])
+                rel = BM_TOL_REL
+            err = float((got.float() - want.float()).abs().max())
+            tol = rel * float(want.abs().max())
+            rows.append(dict(kernel=name, case="captured drive call", m=m,
+                             k=k, n=n, x=dt, err=err, tol=tol))
+            if not (err <= tol and got.shape == want.shape and
+                    bool(got.isfinite().all())):
+                raise AssertionError(f"{name} on a drive's call: {rows[-1]}")
+        self.calls.clear()
+        return rows
+
+
+def launch(argv, params=None):
+    """``repro_torch.launch.serve.main(argv)`` in this process, its
+    printout kept, with the launch counters zeroed just before and read
+    just after, each tick timed (:class:`TickTimer`) and the first
+    weight-matmul call at each shape held against the plain version
+    (:class:`MatmulCapture`) after the counts are read."""
+    import contextlib
+    import io
+    import torch
+    from repro_torch import kernels as tk
+    from repro_torch.launch.serve import main as serve_main
+    buf = io.StringIO()
+    tk.reset_launch_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf), TickTimer() as timer, \
+            MatmulCapture() as mm:
+        out = serve_main(argv, params=params)
+    torch.cuda.synchronize()
+    out["launches"] = tk.launch_counts()
+    out["main_s"] = time.perf_counter() - t0
+    out["tick_ms"], out["run_s"] = timer.ms, timer.run_s
+    out["stdout"] = buf.getvalue()
+    out["matmul_calls"] = mm.check()
+    return out
+
+
+def tick_launches(sched, matmul):
+    """Launches a drive makes, from the scheduler's own tick log: 7 per
+    layer for every forward (a prompt insert or chunk, a decode step, a
+    draft step, a verify), one ``paged_attention`` per layer for every
+    single-token forward (decode, draft, a 1-token chunk)."""
+    log = sched.tick_log
+    fwd = sum(len(r["inserts"]) + r["decode"] + r["draft"]
+              + (r["verify"] > 0) for r in log)
+    single = sum(r["decode"] + r["draft"]
+                 + sum(w == 1 for w in r["inserts"]) for r in log)
+    return expected_launches(sched.engine.api.cfg.n_layers, fwd, single,
+                             matmul)
+
+
+class TickCapture:
+    """Observer around ``models.attention.paged_attention`` (the fused
+    read every decode step makes): the first layer-0 call whose state has
+    ragged fill levels, a free row, two slots aliasing one page and a
+    capacity past 1024 is copied out (query, layer-0 pool, table, kv_len).
+    Copies only; every call still goes to the wrapper."""
+
+    def __init__(self):
+        from repro_torch.models import attention
+        self.mod, self.orig = attention, attention.paged_attention
+        self.case, self.layer0_calls = None, 0
+
+    def __enter__(self):
+        self.mod.paged_attention = self
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.paged_attention = self.orig
+
+    def __call__(self, q, k, v, ks, vs, table, kv_len, **kw):
+        out = self.orig(q, k, v, ks, vs, table, kv_len, **kw)
+        if self.case is None and k.storage_offset() == 0:
+            self.layer0_calls += 1
+            tab, lens = table.cpu(), kv_len.cpu()
+            cap = tab.shape[1] * k.shape[1]
+            live = (tab != 0).any(1)
+            pages = [set(r[r != 0].tolist()) for r in tab]
+            aliased = any(pages[a] & pages[b]
+                          for a in range(len(pages))
+                          for b in range(a + 1, len(pages)))
+            if cap > 1024 and bool((~live).any()) and aliased and \
+                    len(set(lens[live].tolist())) >= 2:
+                self.case = dict(
+                    q=q.clone(), pool=[x.clone() for x in (k, v, ks, vs)],
+                    table=table.clone(), kv_len=kv_len.clone(),
+                    window=kw.get("window"), softcap=kw.get("softcap", 0.0),
+                    call=self.layer0_calls)
+        return out
+
+
+def captured_tick_case(case):
+    """``paged_attention`` on the captured decode tick against its plain
+    version (within ``PA_TOL``), twice bit for bit; then timed, the pool
+    rotated through copies past the 50 MB L2 (each layer's pool is read
+    once a tick, behind the other layers' weights), beside the same tick
+    with the free rows' kv_len set to 0 (what decoding the trash rows
+    costs; the semantics stay the reference's), the plain version, SDPA
+    on the slots' K/V gathered and dequantized to bf16 under each row's
+    mask, and the bound: every pool position the rows read, read once
+    (aliased and trash positions counted once), q, the table, kv_len and
+    the f32 output over HBM, or each row's dot products over the bf16
+    peak."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import paged_attention
+    from repro_torch.kernels.ref import paged_attention_ref
+    from repro_torch.kernels.tiling import attention_plan
+    from repro_torch.models.attention import dequantize_kv
+    q, pool, table, kv_len = (case["q"], case["pool"], case["table"],
+                              case["kv_len"])
+    kw = dict(window=case["window"], softcap=case["softcap"])
+    a = paged_attention(q, *pool, table, kv_len, **kw)
+    b = paged_attention(q, *pool, table, kv_len, **kw)
+    torch.cuda.synchronize()
+    want = paged_attention_ref(q, *pool, table, kv_len, **kw)
+    err = float((a - want).abs().max())
+    row_err = (a - want).abs().amax(dim=(1, 2, 3)).tolist()
+    free = ~(table != 0).any(1)
+    kv0 = torch.where(free, torch.zeros_like(kv_len), kv_len)
+
+    bsz, kvh, g, dh = q.shape
+    page, nb = pool[0].shape[1], table.shape[1]
+    cap = page * nb
+    pos = torch.arange(cap, device=q.device)
+    valid = pos[None] < kv_len[:, None].long()
+    if kw["window"]:
+        valid &= pos[None] >= kv_len[:, None].long() - int(kw["window"])
+    phys = table.long()[:, pos // page] * page + pos % page
+    read = int(torch.unique(phys[valid]).numel())
+    pos_bytes = sum(t[0, 0].numel() * t.element_size() for t in pool)
+    nbytes = read * pos_bytes + q.nbytes + a.nbytes + table.nbytes \
+        + kv_len.nbytes
+    flops = 4.0 * g * dh * kvh * int(valid.sum())
+    bound = max(nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS) * 1e3
+    by = "bytes" if nbytes / HBM_BYTES_PER_S >= flops / BF16_FLOPS \
+        else "operations"
+
+    def gathered(p):
+        order = table.reshape(-1).long()
+        kd = dequantize_kv(p[0][order].reshape(bsz, cap, kvh, -1),
+                           p[2][order].reshape(bsz, cap, kvh), torch.bfloat16)
+        vd = dequantize_kv(p[1][order].reshape(bsz, cap, kvh, -1),
+                           p[3][order].reshape(bsz, cap, kvh), torch.bfloat16)
+        return kd.transpose(1, 2).contiguous(), vd.transpose(1, 2).contiguous()
+
+    pools = rotating(lambda: [t.clone() for t in pool],
+                     sum(t.nbytes for t in pool))
+    dense = rotating(lambda: gathered(pool), 4 * bsz * cap * kvh * dh)
+    it = {"i": 0}
+
+    def nxt(seq):
+        it["i"] = (it["i"] + 1) % len(seq)
+        return seq[it["i"]]
+
+    ms, dev, host = cuda_times(lambda: paged_attention(q, *nxt(pools), table,
+                                                       kv_len, **kw))
+    ms0, dev0, host0 = cuda_times(lambda: paged_attention(q, *nxt(pools),
+                                                          table, kv0, **kw))
+    plain = cuda_ms(lambda: paged_attention_ref(q, *nxt(pools), table, kv_len,
+                                                **kw), iters=5)
+    qb = q.reshape(bsz, kvh * g, 1, dh).to(torch.bfloat16)
+    mask = valid[:, None, None]
+    lib, lib_dev, lib_host = cuda_times(lambda: F.scaled_dot_product_attention(
+        qb, *nxt(dense), attn_mask=mask, enable_gqa=g > 1))
+    del pools, dense
+    plan = attention_plan(bsz, kvh, g, dh, page, nb,
+                          8 if pool[0].dtype == torch.int8 else 4)
+    shared = torch.unique(table[table != 0], return_counts=True)[1]
+    rec = dict(case="captured scheduler tick", bits=8, b=bsz, kv=kvh, g=g,
+               dh=dh, page=page, nb=nb, kv_len=kv_len.tolist(),
+               free_rows=int(free.sum()),
+               aliased_pages=int((shared > 1).sum()),
+               splits=plan.splits, chunk=plan.chunk, err=err, tol=PA_TOL,
+               row_err=row_err, ref_max=float(want.abs().max()),
+               identical=bool(torch.equal(a, b)),
+               finite=bool(torch.isfinite(a).all()),
+               ms=ms, device_ms=dev, host_ms=host,
+               free_rows_zero_ms=ms0, free_rows_zero_device_ms=dev0,
+               free_rows_zero_host_ms=host0, plain_ms=plain, library_ms=lib,
+               library_device_ms=lib_dev, library_host_ms=lib_host,
+               bound_ms=bound, bound_by=by, bytes=nbytes, flops=flops,
+               positions_read=read, layer0_call=case["call"])
+    if not (err <= PA_TOL and rec["identical"] and rec["finite"]):
+        raise AssertionError(f"paged_attention on the captured tick: {rec}")
+    return rec
+
+
+def drive_record(out, matmul):
+    """Checks every drive of the phase passes, and the readings: every
+    request finishes ``length`` with its budget; ``validate()`` empty (the
+    launcher checked it every ``SCHED_VALIDATE_EVERY`` ticks and at the
+    end); the pool drained (nothing in use or reserved, no refcount, every
+    table row trash); launches equal those of the tick log.  Timing (host
+    clock, :class:`TickTimer`): tokens/s over the whole ``run`` window,
+    tick ms each ending synchronized."""
+    sched, reqs = out["scheduler"], out["requests"]
+    rep = sched.cache_report()
+    for r, q in zip(out["results"], reqs):
+        assert r.finish_reason == "length" and \
+            len(r.tokens) == q.sampling.max_new_tokens, (r.uid, r)
+    assert not sched.validate(), sched.validate()
+    al = sched.allocator
+    assert al.in_use == 0 and al.reserved == 0 and \
+        al.free_count == al.n_pages - 1, rep
+    if sched.prefix_cache is not None:
+        assert sched.prefix_cache.outstanding_refs == 0 and \
+            len(sched.prefix_cache) == 0, rep
+    assert not sched.tables.any()
+    want = tick_launches(sched, matmul)
+    assert out["launches"] == want, (out["launches"], want)
+    log, ms = sched.tick_log, out["tick_ms"]
+    assert len(ms) == len(log) == sched.tick, (len(ms), len(log))
+    total_ms = sum(ms)
+    first = {u: r["tick"] for r in log for u in r["first"]}
+    ttft_ticks = [first[q.uid] - q.arrival for q in reqs]
+    ttft_ms = [sum(ms[q.arrival:first[q.uid] + 1]) for q in reqs]
+    dec = [t for r, t in zip(log, ms) if r["decode"] and not r["inserts"]]
+    chunk = [t for r, t in zip(log, ms) if r["inserts"]]
+    spec = [t for r, t in zip(log, ms) if r["verify"]]
+    gen = sum(len(r.tokens) for r in out["results"])
+    return dict(
+        ticks=sched.tick, launches=out["launches"], cache_report=rep,
+        spec_stats=dict(sched.spec_stats), max_len=sched.max_len,
+        capacity=sched.total_len,
+        admitted=[r.admitted_tick for r in out["results"]],
+        finished=[r.finished_tick for r in out["results"]],
+        parked=[u for r in log for u in r["parked"]],
+        generated_tokens=gen, run_s=out["run_s"],
+        tokens_per_s=gen / out["run_s"], tick_ms_total=total_ms,
+        tick_tokens_per_s=gen * 1e3 / total_ms,
+        matmul_calls=out["matmul_calls"],
+        decode_ticks=len(dec), decode_tick_ms=sum(dec) / max(len(dec), 1),
+        chunk_ticks=len(chunk), chunk_tick_ms=sum(chunk) / max(len(chunk), 1),
+        spec_ticks=len(spec), spec_tick_ms=sum(spec) / max(len(spec), 1),
+        inserts=sum(len(r["inserts"]) for r in log),
+        ttft_ticks=ttft_ticks, ttft_ms=ttft_ms,
+        ttft_ms_mean=sum(ttft_ms) / len(ttft_ms), ttft_ms_max=max(ttft_ms),
+        main_s=out["main_s"])
+
+
+def oneshot_rule(out, n=SCHED_ONESHOT):
+    """The quantizer-free trace's tokens against one-shot greedy runs at
+    B=1 of ``n`` of its requests (the longest, two prefix sharers, a parked
+    one, then the cheapest).  A request may part from its one-shot tokens
+    only at a step where the one-shot run's top-two logit gap is below
+    ``EXACT_TOL_REL`` of that step's largest |logit| (the kernels' plans
+    differ with the batch shape, so sums run in another order); every part
+    is recorded with its gap, and any other fails."""
+    import torch
+    eng, reqs = out["engine"], out["requests"]
+    res = {r.uid: r for r in out["results"]}
+    ticks = out["scheduler"].tick_log
+    width = {q.uid: q.inputs["tokens"].shape[1] for q in reqs}
+    budget = {q.uid: q.sampling.max_new_tokens for q in reqs}
+    pick = [max(width, key=lambda u: (width[u], -u))]
+    sharers = sorted((u for u in width if u % 2 == 0 and u not in pick
+                      and width[u] > SCHED_SHARED),
+                     key=lambda u: (budget[u], u))
+    pick += sharers[:2]
+    parked = [u for r in ticks for u in r["parked"] if u not in pick]
+    pick += parked[:1]
+    rest = sorted((u for u in width if u not in pick),
+                  key=lambda u: (budget[u] + width[u] / SCHED_CHUNK, u))
+    pick += rest[:n - len(pick)]
+    rows = []
+    for uid in pick:
+        tok = torch.from_numpy(reqs[uid].inputs["tokens"]).to(DEV)
+        one = greedy(eng, tok, budget[uid])
+        got = res[uid].tokens
+        want = one["tokens"][0].tolist()
+        part = next((j for j in range(len(want)) if got[j] != want[j]), None)
+        row = dict(uid=uid, width=width[uid], budget=budget[uid],
+                   parted_at=part, parked=uid in parked)
+        if part is not None:
+            lg = one["logits"][part, 0]
+            top2 = lg.topk(2).values
+            row["gap"] = float(top2[0] - top2[1])
+            row["gap_rel"] = row["gap"] / float(lg.abs().max())
+            row["allowed"] = row["gap_rel"] < EXACT_TOL_REL
+        rows.append(row)
+        log(f"one-shot uid {uid} (w {width[uid]}, {budget[uid]} new): " +
+            ("identical" if part is None else
+             f"parts at {part}, gap {row['gap_rel']:.3g}"))
+    return rows
+
+
+def scheduler_phase(bp, size=("--no-tiny",)):
+    """Request-level serving through ``python -m repro_torch.launch.serve``
+    (its ``main``, in process): the registered bf16 phi3 with int8 weights,
+    8-bit activations and an int8 KV cache, every drive counted against
+    its tick log and checked by :func:`drive_record`; the captured decode
+    tick; the same trace with quantizers off in f32, its ledger equal to
+    the quantized one's, against one-shot runs (:func:`oneshot_rule`); and
+    a speculative drive on the bit-plane tree against the same drive
+    without speculation (quantizers off, f32)."""
+    import torch
+    out = {}
+    with TickCapture() as cap:
+        main = launch(sched_argv(size, ["--kv-bits", "8"]))
+    rec = out["main"] = drive_record(main, "packed_matmul")
+    rep = rec["cache_report"]
+    assert rep["preemptions"] >= 1 and \
+        rep["resumes"] == rep["preemptions"], rep
+    assert rep["prefix_hits"] >= 1, rep
+    assert rec["capacity"] > 1024 and max(SCHED_WIDTHS) >= 1536, rec
+    assert main["engine"].api.cfg.dtype == "bfloat16" or size != (
+        "--no-tiny",)
+    assert cap.case is not None, "no decode tick met the capture rule"
+    assert {SCHED_SLOTS, SCHED_CHUNK} <= {r["m"] for r in rec["matmul_calls"]}
+    out["captured_tick"] = captured_tick_case(cap.case)
+    del main, cap
+    torch.cuda.empty_cache()
+    log(f"scheduler drive: {rec['ticks']} ticks, {rec['generated_tokens']} "
+        f"tokens, {rec['tokens_per_s']:.1f} tok/s, preemptions "
+        f"{rep['preemptions']}, prefix hits {rep['prefix_hits']}, captured "
+        f"tick err {out['captured_tick']['err']:.3g}")
+
+    off = launch(sched_argv(size, ["--kv-bits", "32", "--act-bits", "32",
+                                   "--dtype", "float32"]))
+    rec_off = out["quantizers_off"] = drive_record(off, "packed_matmul")
+    for key in ("ticks", "admitted", "finished", "parked"):
+        assert rec_off[key] == rec[key], (key, rec_off[key], rec[key])
+    out["oneshot"] = oneshot_rule(off)
+    del off
+    torch.cuda.empty_cache()
+    bad = [r for r in out["oneshot"]
+           if r["parted_at"] is not None and not r["allowed"]]
+    assert not bad, ("scheduler tokens part from one-shot", bad)
+
+    spec_argv = ["--arch", ARCH, *size, "--device", DEV, "--requests",
+                 "--backend", "bitplane", "--attn-backend", "fused",
+                 "--batch", "8", "--n-slots", "8", "--prompt-len", str(P),
+                 "--max-new", str(NEW), "--arrival-gap", "1",
+                 "--page-size", str(PAGE), "--kv-bits", "32",
+                 "--act-bits", "32", "--dtype", "float32",
+                 "--validate-every", str(SCHED_VALIDATE_EVERY)]
+    k, gamma = SCHED_SPEC
+    spec = launch(spec_argv + ["--speculate-planes", str(k),
+                               "--draft-gamma", str(gamma)], params=bp)
+    plain = launch(spec_argv, params=bp)
+    out["speculative"] = drive_record(spec, "bitplane_matmul")
+    out["speculative_plain"] = drive_record(plain, "bitplane_matmul")
+    st = out["speculative"]["spec_stats"]
+    assert {SCHED_SLOTS, SCHED_SLOTS * (gamma + 1), P} <= {
+        r["m"] for r in out["speculative"]["matmul_calls"]}
+    out["speculative"]["acceptance"] = st["accepted_drafts"] / max(
+        st["drafted"], 1)
+    same = [a.tokens == b.tokens for a, b in zip(spec["results"],
+                                                 plain["results"])]
+    out["speculative"]["tokens_equal"] = all(same)
+    assert st["rounds"] > 0 and all(same), (st, same)
+    del spec, plain
+    torch.cuda.empty_cache()
+    log(f"scheduler speculative k={k} gamma={gamma}: {st['rounds']} rounds, "
+        f"acceptance {out['speculative']['acceptance']:.3f}; tokens equal "
+        f"the non-speculative drive's")
+    return out
+
+
+# ---------------------------------------------------------------------------
 # time phase
 # ---------------------------------------------------------------------------
 
@@ -1207,13 +1732,15 @@ def time_path(deployed, tok):
     return out
 
 
-def time_bitplane(bp, sub, name, m):
-    """``bitplane_matmul`` on one leaf of the mixed bit-plane tree at M=m,
-    bf16 x, cycling through the 32 layers' views so each call reads its
-    weights cold.  Bound: the bytes ``bitplane_stream_bytes`` bills (live
-    planes, the sign of live blocks, mask bits, scales) plus x and the
-    output over HBM, or the operations of the live blocks over the bf16
-    peak, whichever is larger."""
+def time_bitplane(bp, sub, name, m, x_dtype=None):
+    """``bitplane_matmul`` on one leaf of a bit-plane tree (the mixed tree,
+    or its speculative draft) at M=m, bf16 x unless ``x_dtype``, cycling
+    through the 32 layers' views so each call reads its weights cold.
+    Library: ``torch.matmul`` on the weight composed to x's dtype.  Bound:
+    the bytes ``bitplane_stream_bytes`` bills (live planes, the sign of
+    live blocks, mask bits, scales) plus x and the output over HBM, or the
+    operations of the live blocks over x's type's peak (bf16 tensor cores,
+    f32 outside them), whichever is larger."""
     import torch
     from repro_torch.kernels import bitplane_matmul
     from repro_torch.kernels.ref import bitplane_matmul_ref
@@ -1223,7 +1750,9 @@ def time_bitplane(bp, sub, name, m):
     views = [leaf.layer(i) for i in range(leaf.planes.shape[0])]
     k, n = leaf.shape[-2:]
     wbr, wbc = leaf.spec.wb_rows, leaf.spec.wb_cols
-    x = torch.randn((m, k), device=DEV, dtype=torch.bfloat16,
+    dt = x_dtype or torch.bfloat16
+    peak = BF16_FLOPS if dt == torch.bfloat16 else F32_FLOPS
+    x = torch.randn((m, k), device=DEV, dtype=dt,
                     generator=torch.Generator(device=DEV).manual_seed(5))
     it = {"i": 0}
 
@@ -1238,19 +1767,18 @@ def time_bitplane(bp, sub, name, m):
         x, *args(nxt(views)), wbr=wbr, wbc=wbc))
     plain = cuda_ms(lambda: bitplane_matmul_ref(x, *args(nxt(views)), wbr,
                                                 wbc), iters=3, warmup=1)
-    dense = rotating(lambda: bitplane_serving_compose(nxt(views),
-                                                      torch.bfloat16),
-                     2 * k * n)
+    dense = rotating(lambda: bitplane_serving_compose(nxt(views), dt),
+                     x.element_size() * k * n)
     lib, lib_dev, lib_host = cuda_times(lambda: torch.matmul(x, nxt(dense)))
     del dense
     stream = sum(bitplane_stream_bytes(v) for v in views) / len(views)
     live = float((leaf.mask.sum(dim=-3) > 0).float().mean())
     nbytes = stream + x.nbytes + m * n * 4
     flops = 2.0 * m * k * n * live
-    bound = max(nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS) * 1e3
-    by = "bytes" if nbytes / HBM_BYTES_PER_S >= flops / BF16_FLOPS \
+    bound = max(nbytes / HBM_BYTES_PER_S, flops / peak) * 1e3
+    by = "bytes" if nbytes / HBM_BYTES_PER_S >= flops / peak \
         else "operations"
-    return dict(leaf=name, m=m, k=k, n=n, ms=ms, device_ms=dev,
+    return dict(leaf=name, m=m, k=k, n=n, x=str(dt), ms=ms, device_ms=dev,
                 host_ms=host, plain_ms=plain, library_ms=lib,
                 library_device_ms=lib_dev, library_host_ms=lib_host,
                 bound_ms=bound, bound_by=by, bytes=nbytes,
@@ -1386,7 +1914,7 @@ def main() -> int:
 
 
 def run(detail) -> list:
-    """The three phases; fills ``detail`` and returns the kernels entries."""
+    """The four phases; fills ``detail`` and returns the kernels entries."""
     import torch
     t0 = time.perf_counter()
     detail["kernel_phase"] = kernel_phase()
@@ -1424,21 +1952,49 @@ def run(detail) -> list:
     del base
     log(f"speculative phase ran in {detail['speculative_phase_s']:.1f} s")
     save_detail(detail)
+    t0 = time.perf_counter()
+    sched = detail["scheduler_phase"] = scheduler_phase(bp)
+    detail["scheduler_phase_s"] = time.perf_counter() - t0
+    kp = detail["kernel_phase"]
+    kp["paged_attention"].append(sched["captured_tick"])
+    for drive in ("main", "quantizers_off", "speculative",
+                  "speculative_plain"):
+        for row in sched[drive]["matmul_calls"]:
+            kp[row["kernel"]].append(dict(row, drive=drive))
+    log(f"scheduler phase ran in {detail['scheduler_phase_s']:.1f} s")
+    save_detail(detail)
 
     t0 = time.perf_counter()
     pm = [time_packed(m, k, n, bits) for bits in (8, 4) for m in (B, B * P)
           for k, n, _ in LAYER_SHAPES]
+    # the scheduler drive's decode and chunk M
+    pm += [time_packed(m, k, n, 8) for m in (SCHED_SLOTS, SCHED_CHUNK)
+           for k, n, _ in LAYER_SHAPES]
     pa = [time_attention(bits, kv_len, t) for kv_len, t in ATTN_TIMED
           for bits in (8, 4)]
     pa.append(time_attention(8, 4096, T_LONG, paged=PAGE))
     bm = [time_bitplane(bp, sub, name, m) for m in (B, 4 * B, B * 5, B * P)
           for sub, name in LAYER_LEAVES]
+    # the scheduler's speculative drive, f32 x: a draft step (the top
+    # planes' masks) at M = n_slots and a verify at n_slots*(gamma+1)
+    from repro_torch.serve.autotune.speculative import make_draft_params
+    k_spec, gamma = SCHED_SPEC
+    draft = make_draft_params(bp, k_spec)
+    bm_sched = [time_bitplane(draft, sub, name, SCHED_SLOTS, torch.float32)
+                for sub, name in LAYER_LEAVES]
+    bm_sched += [time_bitplane(bp, sub, name, SCHED_SLOTS * (gamma + 1),
+                               torch.float32) for sub, name in LAYER_LEAVES]
+    for r in bm_sched:
+        r["tree"] = f"draft k={k_spec}" if r["m"] == SCHED_SLOTS else "full"
+    del draft
     pq = time_pact()
     pq_hbm = time_pact(16384)
     paths = time_path(deployed, tok)
     bp_paths = time_bitplane_path(bp, tok)
     detail["time_phase"] = {"packed_matmul": pm, "paged_attention": pa,
-                            "bitplane_matmul": bm, "pact_quant": [pq, pq_hbm],
+                            "bitplane_matmul": bm,
+                            "bitplane_matmul_scheduler": bm_sched,
+                            "pact_quant": [pq, pq_hbm],
                             "path": paths, "bitplane_path": bp_paths}
     detail["time_phase_s"] = time.perf_counter() - t0
     detail["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
@@ -1449,14 +2005,15 @@ def run(detail) -> list:
             f"{p['decode_ms_per_step']:.3f} ms/step, "
             f"{p['decode_tokens_per_s']:.1f} tok/s")
 
-    # one kernels entry per kernel: the main path's decode workload
-    # (int8 weights, int8 KV): a layer's 7 projections at M=B, and one
-    # layer's attention read at mid-decode fill.  Launches: the counted
-    # bf16 int8/int8-KV contiguous run of the registered configuration
-    # (bit-plane run for bitplane_matmul; pact_quant is on no model path)
+    # one kernels entry per kernel, timed at the shapes of the run its
+    # launches come from: this slice's main path, the counted scheduler
+    # drive (bf16, int8 weights and KV): a decode tick's layer (7
+    # projections at M = n_slots, the captured tick's attention read); its
+    # speculative drive for bitplane_matmul (f32, quantizers off): a draft
+    # step's layer at M = n_slots.  pact_quant is on no model path.
     per_layer = {(k, n): c for k, n, c in LAYER_SHAPES}
-    dec8 = [r for r in pm if r["bits"] == 8 and r["m"] == B]
-    dec_bp = [r for r in bm if r["m"] == B]
+    dec8 = [r for r in pm if r["bits"] == 8 and r["m"] == SCHED_SLOTS]
+    dec_bp = [r for r in bm_sched if r["m"] == SCHED_SLOTS]
 
     def layer_sum(key):
         return sum(r[key] * per_layer[(r["k"], r["n"])] for r in dec8)
@@ -1464,43 +2021,46 @@ def run(detail) -> list:
     def bp_sum(key):
         return sum(r[key] for r in dec_bp)
 
-    a8 = next(r for r in pa if r["bits"] == 8 and r["leg"] == "contiguous"
-              and r["kv_len"] == P + NEW // 2)
-    launches = next(p for p in paths if p["bits"] == 8 and
-                    p["backend"] == "kernel" and
-                    p["leg"] == "contiguous")["launches"]
-    bp_launches = next(p for p in bp_paths
-                       if p["backend"] == "bitplane" and "k" not in p
-                       )["launches"]
+    a8 = sched["captured_tick"]
+    launches = sched["main"]["launches"]
+    bp_launches = sched["speculative"]["launches"]
+    sched_run = "scheduler drive (chip_smoke.scheduler_phase)"
+    spec_run = "scheduler speculative drive (chip_smoke.scheduler_phase)"
     errs = detail["kernel_phase"]
     kernels = [
         {"name": "packed_matmul", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/packed_matmul.cu",
          "replaces": "src/repro/kernels/packed_matmul.py:61",
-         "launches": launches["packed_matmul"],
+         "launches": launches["packed_matmul"], "launches_run": sched_run,
          "max_abs_err": max(c["err"] for c in errs["packed_matmul"]),
          "ms": layer_sum("ms"), "plain_ms": layer_sum("plain_ms"),
          "bound_ms": layer_sum("bound_ms"), "bound_by": "bytes",
          "library_ms": layer_sum("library_ms"),
          "device_ms": layer_sum("device_ms"),
          "library_device_ms": layer_sum("library_device_ms"),
-         "workload": f"one decode layer's 7 projections, int8, M={B}, bf16 x"},
+         "workload": f"a scheduler decode tick's layer: 7 projections, "
+                     f"int8, M={SCHED_SLOTS}, bf16 x"},
         {"name": "paged_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
          "replaces": "src/repro/kernels/paged_attention.py:117",
          "launches": launches["paged_attention"],
+         "launches_run": sched_run,
          "max_abs_err": max(c["err"] for c in errs["paged_attention"]),
          "ms": a8["ms"], "plain_ms": a8["plain_ms"],
          "bound_ms": a8["bound_ms"], "bound_by": a8["bound_by"],
          "library_ms": a8["library_ms"],
          "device_ms": a8["device_ms"],
          "library_device_ms": a8["library_device_ms"],
-         "workload": f"one layer's decode read, int8 KV, B={B}, KV=32, "
-                     f"dh=96, kv_len={a8['kv_len']}, page={a8['page']}"},
+         "workload": f"the captured scheduler tick's layer-0 decode read, "
+                     f"int8 KV, B={a8['b']}, KV={a8['kv']}, dh={a8['dh']}, "
+                     f"{a8['nb']} pages of {a8['page']}, kv_len "
+                     f"{min(a8['kv_len'])}-{max(a8['kv_len'])}, "
+                     f"{a8['free_rows']} free rows"},
         {"name": "bitplane_matmul", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/bitplane_matmul.cu",
          "replaces": "src/repro/kernels/bitplane_matmul.py:65",
          "launches": bp_launches["bitplane_matmul"],
+         "launches_run": spec_run,
          "max_abs_err": max(c["err"] for c in errs["bitplane_matmul"]),
          "ms": bp_sum("ms"), "plain_ms": bp_sum("plain_ms"),
          "bound_ms": bp_sum("bound_ms"),
@@ -1509,12 +2069,13 @@ def run(detail) -> list:
          "library_ms": bp_sum("library_ms"),
          "device_ms": bp_sum("device_ms"),
          "library_device_ms": bp_sum("library_device_ms"),
-         "workload": f"one decode layer's 7 projections, mixed bit-plane "
-                     f"(bits 8, per-block widths 0..8), M={B}, bf16 x"},
+         "workload": f"a scheduler draft step's layer: 7 projections, mixed "
+                     f"bit-plane tree's top-{SCHED_SPEC[0]} plane masks, "
+                     f"M={SCHED_SLOTS}, f32 x"},
         {"name": "pact_quant", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/pact_quant.cu",
          "replaces": "src/repro/kernels/pact_kernel.py:27",
-         "launches": bp_launches["pact_quant"],
+         "launches": launches["pact_quant"], "launches_run": sched_run,
          "max_abs_err": max(c["err"] for c in errs["pact_quant"]),
          "ms": pq["ms"], "plain_ms": pq["plain_ms"],
          "bound_ms": pq["bound_ms"], "bound_by": pq["bound_by"],

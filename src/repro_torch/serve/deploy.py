@@ -201,6 +201,18 @@ def to_serving_params(params: Any, bits: int = 8, layout: str = "packed",
         x.to(dev) if hasattr(x, "to") else x, bits, layout), params)
 
 
+def default_deploy_bits(backend: str, deploy_bits: int) -> int:
+    """CLI rule: the integer execution backends need deployed weights, so
+    an unset ``--deploy-bits`` defaults to int8 for them."""
+    return deploy_bits or (8 if backend != "dense" else 0)
+
+
+def default_deploy_layout(backend: str) -> str:
+    """The wire format a backend executes natively: ``bitplane`` streams
+    plane-sliced weights, everything else the packed integer form."""
+    return "bitplane" if backend == "bitplane" else "packed"
+
+
 def bitplane_stream_bytes(sw: BitplaneServingWeight) -> int:
     """Streamed bytes for one pass over a bit-plane leaf, by occupancy.
 

@@ -1,5 +1,6 @@
-"""Serving engine: prefill / decode / generate over the ModelAPI (port of
-the one-shot and slot-insertion surface of ``repro.serve.engine``).
+"""Serving engine: prefill / decode / generate over the ModelAPI, and
+request-level serving through the continuous-batching scheduler (port of
+``repro.serve.engine``).
 
 ``kv_quant_bits`` of 8 or 4 rebuilds the model config so the KV cache
 stores int8 / nibble-packed int4 entries plus per-token scales; each
@@ -21,8 +22,19 @@ another; it raises when no card is present and the caller did not ask for
 the CPU.  At construction it moves the params there and casts plain float
 leaves to the compute dtype once, so no step repeats that cast.
 
-Not ported yet: mesh placement, the scheduler (``serve``) and its
-speculative path, park/restore and construction-time contract validation.
+Two call surfaces, as in the reference:
+
+* ``generate(batch, max_new)`` — one-shot static-batch decoding;
+* ``serve(requests)`` — request-level continuous batching through
+  :class:`repro_torch.serve.scheduler.Scheduler` (its speculative ticks
+  included); the ``page_size`` / ``n_pages`` / ``prefill_chunk`` /
+  ``overcommit`` / ``prefix_cache`` fields (or per-call overrides) select
+  the paged block-table cache, chunked prompt insertion, reservation
+  overcommit with park/restore preemption, and prompt-page sharing.
+
+Not ported yet: mesh placement and construction-time contract validation
+of the deployed tree (the decode-state and scheduler contracts are in
+``analysis/contracts.py``).
 """
 from __future__ import annotations
 
@@ -55,6 +67,11 @@ class ServeEngine:
     kv_quant_bits: int = 32       # 8 / 4 select the quantized-at-rest cache
     backend: str = "dense"        # 'dense'|'kernel'|'bitplane'|'ref' matmul
     attn_backend: str = "gather"  # 'gather' | 'fused' | 'ref' decode attn
+    page_size: int = 0            # >0: paged KV cache (tokens per page)
+    n_pages: Optional[int] = None  # page-pool capacity (None = worst case)
+    prefill_chunk: int = 0        # >0: insert prompts in chunks this wide
+    overcommit: float = 1.0       # >1: admit past capacity, park victims
+    prefix_cache: bool = False    # share full prompt pages by content hash
     device: Any = None            # None = the CUDA card
     speculate_planes: int = 0     # >0: self-speculative decode, top-k draft
     draft_gamma: int = 4          # draft tokens proposed per round
@@ -180,6 +197,83 @@ class ServeEngine:
         return self.api.verify_step(self.params, tokens.to(self.device),
                                     state, index, **self._be)
 
+    # ---- preemption / prefix-cache state plumbing ------------------------
+    def park_slot(self, state: Any, slot: int, pages) -> Dict[str, Any]:
+        """Snapshot everything batch row ``slot`` holds to host memory:
+        its pool pages (in ``pages``/block order) from every paged KV
+        sub-dict and its row of every non-paged per-slot cache leaf.  The
+        stored representation is copied as raw bytes (quantized payloads
+        and scales, no dequantization), so :meth:`restore_slot`
+        round-trips bit-identically.  Every entry is a copy: the live
+        state is written in place, and a view of it (``cache[:, slot]``,
+        or a CPU tensor's ``.cpu()``) would read back later writes."""
+        ids = torch.as_tensor(np.asarray(pages, np.int64))
+        rec: Dict[str, Any] = {"pages": {}, "rows": {}, "n_pages": len(ids)}
+
+        def walk(cache, path):
+            if isinstance(cache, dict):
+                if "table" in cache:
+                    for name, leaf in cache["pages"].items():
+                        rec["pages"][f"{path}.{name}"] = leaf[
+                            :, ids.to(leaf.device)].to("cpu", copy=True)
+                    return
+                for k, v in cache.items():
+                    walk(v, f"{path}.{k}")
+                return
+            rec["rows"][path] = cache[:, slot].to("cpu", copy=True)
+
+        walk(state["cache"], "cache")
+        return rec
+
+    def restore_slot(self, state: Any, slot: int, pages,
+                     record: Dict[str, Any]) -> Any:
+        """Write a :meth:`park_slot` snapshot back into batch row ``slot``,
+        landing the parked pool pages on the freshly allocated ``pages``
+        (same count, any ids — the caller rewrites its block-table row to
+        match).  The inverse of parking, bit for bit, written into the
+        live state in place."""
+        if len(pages) != record["n_pages"]:
+            raise ValueError(f"snapshot holds {record['n_pages']} pages, "
+                             f"restore got {len(pages)} page ids")
+        ids = torch.as_tensor(np.asarray(pages, np.int64))
+
+        def walk(cache, path):
+            if isinstance(cache, dict):
+                if "table" in cache:
+                    if record["n_pages"]:
+                        for name, leaf in cache["pages"].items():
+                            leaf[:, ids.to(leaf.device)] = record["pages"][
+                                f"{path}.{name}"].to(leaf.device)
+                    return
+                for k, v in cache.items():
+                    walk(v, f"{path}.{k}")
+                return
+            cache[:, slot] = record["rows"][path].to(cache.device)
+
+        walk(state["cache"], "cache")
+        return state
+
+    def copy_pool_page(self, state: Any, src: int, dst: int) -> Any:
+        """Copy pool page ``src`` onto ``dst`` in every paged KV sub-dict
+        (payloads and scales alike), in place — the scheduler's
+        copy-on-write primitive for diverging from a shared prefix
+        page."""
+        def walk(cache):
+            if isinstance(cache, dict):
+                if "table" in cache:
+                    for leaf in cache["pages"].values():
+                        leaf[:, dst] = leaf[:, src]
+                    return
+                for v in cache.values():
+                    walk(v)
+        walk(state["cache"])
+        return state
+
+    def prompt_width(self, batch: Dict[str, Any]) -> int:
+        """Cache positions a prompt occupies (its tokens: the dense family
+        has no vision prefix)."""
+        return int(batch["tokens"].shape[1])
+
     # ---- one-shot API (static batch) ------------------------------------
     def generate(self, batch: Dict[str, Any], max_new: int = 16,
                  greedy: bool = True,
@@ -282,3 +376,51 @@ class ServeEngine:
         tokens = torch.tensor([o[:max_new] for o in outs], dtype=torch.int32,
                               device=self.device)
         return tokens, kept
+
+    # ---- request-level API ----------------------------------------------
+    def make_scheduler(self, requests, n_slots: int = 8,
+                       max_len: Optional[int] = None,
+                       page_size: Optional[int] = None,
+                       n_pages: Optional[int] = None,
+                       prefill_chunk: Optional[int] = None,
+                       overcommit: Optional[float] = None,
+                       prefix_cache: Optional[bool] = None):
+        """Continuous-batching scheduler sized for ``requests``, on the
+        engine's device.
+
+        ``max_len`` (total per-slot cache width) defaults to the widest
+        request's prompt plus 64-rounded generation headroom — the same
+        rounding ``generate`` uses.  ``page_size`` / ``n_pages`` /
+        ``prefill_chunk`` / ``overcommit`` / ``prefix_cache`` default to
+        the engine's settings (0 = contiguous slots / monolithic prefill;
+        1.0 = reservation-safe admission; False = no prompt-page sharing).
+        The scheduler is the stats surface too (``cache_report()``)."""
+        from .scheduler import Scheduler
+        if max_len is None:
+            max_len = max(self.prompt_width(r.inputs) +
+                          _roundup64(r.sampling.max_new_tokens)
+                          for r in requests)
+        return Scheduler(
+            self, n_slots=n_slots, max_len=max_len,
+            page_size=self.page_size if page_size is None else page_size,
+            n_pages=self.n_pages if n_pages is None else n_pages,
+            prefill_chunk=(self.prefill_chunk if prefill_chunk is None
+                           else prefill_chunk),
+            overcommit=self.overcommit if overcommit is None else overcommit,
+            prefix_cache=(self.prefix_cache if prefix_cache is None
+                          else prefix_cache))
+
+    def serve(self, requests, n_slots: int = 8,
+              max_len: Optional[int] = None,
+              page_size: Optional[int] = None,
+              n_pages: Optional[int] = None,
+              prefill_chunk: Optional[int] = None,
+              overcommit: Optional[float] = None,
+              prefix_cache: Optional[bool] = None):
+        """Run ``requests`` through a continuous-batching scheduler (see
+        :meth:`make_scheduler`); results come back in submission order."""
+        return self.make_scheduler(
+            requests, n_slots=n_slots, max_len=max_len,
+            page_size=page_size, n_pages=n_pages,
+            prefill_chunk=prefill_chunk, overcommit=overcommit,
+            prefix_cache=prefix_cache).run(requests)

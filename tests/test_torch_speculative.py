@@ -27,8 +27,6 @@ summation orders can move a value by a level at a rounding tie, and the
 greedy tokens of the two packages can part at a near-tied step.  As in
 tests/test_torch_slice.py, prompt seed 1 has no such step.
 """
-import dataclasses
-
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -38,7 +36,6 @@ import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 
 from repro.configs import REGISTRY as JREG  # noqa: E402
-from repro.core.fakequant import FakeQuantTensor as JFQ  # noqa: E402
 from repro.models.api import build as jbuild  # noqa: E402
 from repro.models.common import QuantConfig as JQ  # noqa: E402
 from repro.serve import ServeEngine as JEngine  # noqa: E402
@@ -54,27 +51,14 @@ from repro_torch.serve.autotune.speculative import (greedy_verify,  # noqa: E402
 from repro_torch.serve.deploy import BitplaneServingWeight, tree_leaves  # noqa: E402
 from repro_torch.serve.deploy import to_serving_params as t_deploy  # noqa: E402
 from repro_torch.serve.engine import ServeEngine as TEngine  # noqa: E402
-from torch_port_helpers import np_of, tree_to_numpy  # noqa: E402
+from torch_port_helpers import (mixed_bitwidths, np_of,  # noqa: E402
+                                tree_to_numpy)
 
 torch.set_num_threads(2)
 LOGIT_TOL = dict(rtol=2e-4, atol=2e-4)
 PROMPT_SEED = 1
 MAX_NEW = 8
 KV = 8
-
-
-BW_PROB = np.array([1] * 6 + [6] * 3) / 24       # P(bit-width = 0..8)
-
-
-def _mixed_bitwidths(tree, rng):
-    """The QAT tree with each block's bit-width drawn from {0..8}."""
-    if isinstance(tree, JFQ):
-        bw = rng.choice(9, size=tree.bitwidth.shape, p=BW_PROB).astype(
-            np.float32)
-        return dataclasses.replace(tree, bitwidth=jnp.asarray(bw))
-    if isinstance(tree, dict):
-        return {k: _mixed_bitwidths(v, rng) for k, v in tree.items()}
-    return tree
 
 
 @pytest.fixture(scope="module")
@@ -84,7 +68,7 @@ def fx():
     tcfg = TREG["phi3-mini-3.8b"].tiny(dtype="float32").with_quant(
         TQ(mode="fake", n_bits=8, act_bits=8))
     japi, tapi = jbuild(jcfg), tbuild(tcfg)
-    qat = _mixed_bitwidths(japi.init(jax.random.PRNGKey(0)),
+    qat = mixed_bitwidths(japi.init(jax.random.PRNGKey(0)),
                            np.random.default_rng(0))
     tqat = params_from_numpy(tree_to_numpy(qat), device="cpu")
     tok = np.random.default_rng(PROMPT_SEED).integers(

@@ -197,7 +197,22 @@ def test_entry_points_without_device_raise_when_no_card(monkeypatch):
         ServeEngine(api, params)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         params_from_numpy({"a": np.zeros(2, np.float32)})
-    ServeEngine(api, t_deploy(params, 8, device="cpu"), device="cpu")
+    eng = ServeEngine(api, t_deploy(params, 8, device="cpu"), device="cpu")
+    # the scheduler runs on its engine's device: an engine bound to the
+    # card (here, one whose card is gone) raises instead of serving
+    import copy
+    from repro_torch.launch.serve import main as serve_main
+    from repro_torch.serve import Request, Scheduler
+    reqs = [Request(uid=0, inputs={"tokens": np.zeros((1, 3), np.int32)})]
+    card = copy.copy(eng)
+    card.device = torch.device("cuda")
+    for call in (lambda: card.make_scheduler(reqs),
+                 lambda: card.serve(reqs), lambda: Scheduler(card),
+                 lambda: serve_main(["--arch", "phi3-mini-3.8b",
+                                     "--requests", "--batch", "1"])):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+    assert len(eng.serve(reqs, n_slots=1)[0].tokens) == 16
 
 
 def _port_modules():

@@ -62,3 +62,128 @@ def tensor_regime_emulation(x, w, *, split_weight=True):
         for wb in ws:
             y = y + xa.to(f32) @ wb.to(f32)
     return y
+
+
+# P(bit-width = 0..8) of a block in the mixed bit-plane fixtures: widths
+# 6-8 with odds 1/4 each, 0-5 with 1/24 each (a uniform draw clips most
+# blocks so hard that the tiny model repeats one token and accepts every
+# draft)
+BW_PROB = np.array([1] * 6 + [6] * 3) / 24
+
+
+def mixed_bitwidths(tree, rng):
+    """A JAX QAT tree with each block's bit-width drawn from {0..8}."""
+    import dataclasses
+    import jax.numpy as jnp
+    if isinstance(tree, FakeQuantTensor):
+        bw = rng.choice(9, size=tree.bitwidth.shape, p=BW_PROB).astype(
+            np.float32)
+        return dataclasses.replace(tree, bitwidth=jnp.asarray(bw))
+    if isinstance(tree, dict):
+        return {k: mixed_bitwidths(v, rng) for k, v in tree.items()}
+    return tree
+
+
+def run_lockstep(jsched, tsched, jreqs, treqs, validate=True):
+    """Drive the JAX scheduler and the port's tick by tick on the same
+    requests, holding after every tick: the tick, which request holds
+    which slot, the block tables, and (``validate``) the rules the two
+    ``validate()`` report.  At the end: every result field, ``sched_stats``,
+    ``spec_stats`` and ``cache_report()``.  Returns the number of ticks."""
+    for r in jreqs:
+        jsched.submit(r)
+    for r in treqs:
+        tsched.submit(r)
+
+    def occupancy(s):
+        return [None if x is None else x.req.uid for x in s.slots]
+
+    def rules(s):
+        return sorted((f.severity, f.rule) for f in s.validate())
+
+    while jsched.waiting or any(x is not None for x in jsched.slots):
+        jsched.step()
+        tsched.step()
+        assert tsched.tick == jsched.tick
+        assert occupancy(tsched) == occupancy(jsched), jsched.tick
+        assert [getattr(e, "req", e).uid for e in tsched.waiting] == \
+            [getattr(e, "req", e).uid for e in jsched.waiting], jsched.tick
+        if jsched.paged:
+            np.testing.assert_array_equal(tsched.tables, jsched.tables,
+                                          err_msg=f"tick {jsched.tick}")
+        if validate:
+            assert rules(tsched) == rules(jsched), jsched.tick
+    assert not tsched.waiting and all(x is None for x in tsched.slots)
+    assert tsched.results.keys() == jsched.results.keys()
+    for uid, want in jsched.results.items():
+        got = tsched.results[uid]
+        assert (got.tokens, got.finish_reason, got.prompt_len,
+                got.admitted_tick, got.finished_tick) == \
+            (want.tokens, want.finish_reason, want.prompt_len,
+             want.admitted_tick, want.finished_tick), uid
+    assert tsched.sched_stats == jsched.sched_stats
+    assert tsched.spec_stats == jsched.spec_stats
+    assert tsched.cache_report() == jsched.cache_report()
+    return jsched.tick
+
+
+def tiny_fixture():
+    """The scheduler tests' fixture: ``phi3-mini-3.8b`` at
+    ``tiny(dtype="float32")`` with 9x8 blocks and 8-bit activations in both
+    packages, the reference's ``init(PRNGKey(0))`` QAT tree, its int8
+    deploy, and that deploy carried across through numpy."""
+    import jax
+    from repro.configs import REGISTRY as JREG
+    from repro.models.api import build as jbuild
+    from repro.models.common import QuantConfig as JQ
+    from repro.serve.deploy import to_serving_params as j_deploy
+    from repro_torch.bridge import params_from_numpy
+    from repro_torch.configs import REGISTRY as TREG
+    from repro_torch.configs.base import QuantConfig as TQ
+    from repro_torch.models.api import build as tbuild
+    jcfg = JREG["phi3-mini-3.8b"].tiny(dtype="float32").with_quant(
+        JQ(mode="fake", n_bits=8, act_bits=8))
+    tcfg = TREG["phi3-mini-3.8b"].tiny(dtype="float32").with_quant(
+        TQ(mode="fake", n_bits=8, act_bits=8))
+    japi, tapi = jbuild(jcfg), tbuild(tcfg)
+    qat = japi.init(jax.random.PRNGKey(0))
+    jdep = j_deploy(qat, 8)
+    return dict(japi=japi, tapi=tapi, qat=qat, jdep=jdep,
+                tdep=params_from_numpy(tree_to_numpy(jdep), device="cpu"),
+                vocab=jcfg.vocab, engines={})
+
+
+def engine_pair(fx, kv=8):
+    """(reference, port) engines over ``tiny_fixture``'s int8 deploy at KV
+    width ``kv``, built once: the reference through its ``ref`` matmuls and
+    ``gather`` attention, the port through its ``kernel``/``fused``
+    wrappers (their plain versions on the CPU)."""
+    from repro.serve import ServeEngine as JEngine
+    from repro_torch.serve.engine import ServeEngine as TEngine
+    if kv not in fx["engines"]:
+        fx["engines"][kv] = (
+            JEngine(fx["japi"], fx["jdep"], kv_quant_bits=kv, backend="ref",
+                    attn_backend="gather"),
+            TEngine(fx["tapi"], fx["tdep"], kv_quant_bits=kv,
+                    backend="kernel", attn_backend="fused", device="cpu"))
+    return fx["engines"][kv]
+
+
+def request_pair(uid, toks, max_new=4, arrival=0, priority=0):
+    """The same greedy request for the reference and for the port."""
+    import jax.numpy as jnp
+    from repro.serve import Request as JRequest
+    from repro.serve import SamplingParams as JSP
+    from repro_torch.serve import Request, SamplingParams
+    sp = dict(max_new_tokens=max_new, priority=priority)
+    return (JRequest(uid=uid, inputs={"tokens": jnp.asarray(toks)},
+                     sampling=JSP(**sp), arrival=arrival),
+            Request(uid=uid, inputs={"tokens": toks},
+                    sampling=SamplingParams(**sp), arrival=arrival))
+
+
+def prompt(vocab, n, seed, b=1):
+    """(b, n) int32 prompt tokens from prompt seed 1 (see
+    tests/test_torch_slice.py on rounding ties) and ``seed``."""
+    return np.random.default_rng((1, seed)).integers(
+        0, vocab, (b, n)).astype(np.int32)

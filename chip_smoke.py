@@ -14,7 +14,8 @@ It builds the four CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
    cache; long context, ~4096 of 4224 positions, in the contiguous
    identity view and in a shuffled 16-token pool with trash-page tails,
    for int8, int4, bf16 and f32 pools; kv_len 1 and on split boundaries;
-   windows that empty the leading splits; G=4 with softcap),
+   windows that empty the leading splits; G=4 with softcap; G=12, two
+   query-head groups, with softcap),
    ``bitplane_matmul`` (mixed, fully masked and truncated draft masks, both
    scale modes, 9x8 blocks with byte-pad rows, ragged N) and ``pact_quant``.
    The two matmuls run every edge case in both of their regimes (byte
@@ -92,7 +93,26 @@ It builds the four CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
    tree (k=6, γ=3, quantizers off) gives the non-speculative drive's
    tokens.
 
-Output: a ``{"kernels": [...]}`` JSON line, the card's name and power
+5. train phase — with every serving tree freed, BWQ-A training through
+   the train launcher's ``main`` (``python -m repro_torch.launch.train``),
+   in process: full-width phi3 (32 layers, bf16 compute, f32 master
+   weights, 8x128 blocks, 8-bit PACT, remat) in fake mode, 8 steps of
+   4 x 256 tokens, maintenance and an alpha round every 4.  Every step's
+   loss and gradient norm finite, the frozen leaves (scale, bit-width)
+   unchanged bit for bit across each step, each maintenance leaving no
+   LUT larger and every weight on its grid.  The trained tree is deployed
+   to int8 and served greedily through the kernels against the plain
+   versions (launches counted, ``QUANT_TOL_REL``).  One f32 step (2
+   layers, activations unquantized) on the card and on the host CPU from
+   the same tree and batch: the loss within 1e-4 relative, every gradient
+   leaf within ``GRAD_TOL_REL``.  Bit-plane mode at 2 layers: 2 steps, a
+   maintenance (requantize + adjust_precision), a ``layout="bitplane"``
+   deploy served through ``backend="bitplane"`` against the plain
+   versions.  Step ms (median after the first), tokens/s, maintenance ms,
+   deploy s, peak memory, bit-width and compression are reported.
+
+Output: a ``{"train": {...}}`` line with the train phase's figures and
+the card, a ``{"kernels": [...]}`` JSON line, the card's name and power
 limit, and as the last line ``{"ok": true, "device": {...}}``.  Details go
 to ``chiprun_out/chip_smoke_detail.json``.  Any failure exits non-zero; so
 does a machine without CUDA, or a directory without the repository.
@@ -101,6 +121,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import subprocess
 import sys
 import time
@@ -322,7 +343,9 @@ def attention_kernel_phase():
     128) and in a shuffled 16-token pool with trash-page tails, for int8,
     int4, bf16 and f32; the split edges (kv_len 1 and on split
     boundaries, a window that empties the leading splits or spans a
-    boundary); G=4 with softcap at long context."""
+    boundary); G=4 with softcap at long context; G=12 (two query-head
+    groups a launch) with softcap, int8 and f32 pools, at the decode
+    shape and at long context paged."""
     import torch
     from repro_torch.kernels import paged_attention
     from repro_torch.kernels.ref import paged_attention_ref
@@ -388,6 +411,18 @@ def attention_kernel_phase():
                                         seed=8 + bits)
         case("long gqa softcap", bits, q, pool, ident, long_lens,
              softcap=30.0)
+    # G = 12 (starcoder2-15b: 48 query heads over 4 KV heads): two groups
+    # of 6 query heads in one launch, at the decode shape and at long
+    # context in a shuffled pool
+    for bits in (8, 32):
+        q, pool, ident = attention_pool(bits, 4, t, page, g=12,
+                                        seed=10 + bits)
+        case("G=12 decode softcap", bits, q, pool, ident,
+             lens(P + 1, P + 17, 1, t), softcap=30.0)
+        q, pool, table = attention_pool(bits, 4, T_LONG, PAGE, g=12,
+                                        paged=True, seed=11 + bits)
+        case("G=12 long paged softcap", bits, q, pool,
+             trash_tails(table, long_lens, PAGE), long_lens, softcap=30.0)
     return out
 
 
@@ -1247,7 +1282,7 @@ def launch(argv, params=None):
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(buf), TickTimer() as timer, \
             MatmulCapture() as mm:
-        out = serve_main(argv, params=params)
+        out = serve_main(argv, params=params, record_ticks=True)
     torch.cuda.synchronize()
     out["launches"] = tk.launch_counts()
     out["main_s"] = time.perf_counter() - t0
@@ -1581,6 +1616,372 @@ def scheduler_phase(bp, size=("--no-tiny",)):
 
 
 # ---------------------------------------------------------------------------
+# train phase
+# ---------------------------------------------------------------------------
+
+# BWQ-A training through ``python -m repro_torch.launch.train`` (its
+# ``main``, in process): the registered phi3 (bf16 compute, f32 master
+# weights, 8x128 blocks, 8-bit PACT, remat), fake mode at full depth;
+# maintenance and an alpha round every 4 steps.  Alpha rises from 0 to
+# TRAIN_DELTA_ALPHA at step 4: a group-Lasso term of order 1 beside a
+# cross entropy of ~10 at full width.
+TRAIN_STEPS, TRAIN_EVERY, TRAIN_SEQ, TRAIN_BATCH = 8, 4, 256, 4
+TRAIN_DELTA_ALPHA = 1e-7
+TRAIN_DEPTH_CUT = 2             # layers of the bit-plane and host legs
+HOST_B, HOST_SEQ = 2, 128       # the card-against-host step's batch
+# Card against host, one f32 step without activation quantization: the
+# loss within 1e-4 relative; each gradient leaf within GRAD_TOL_REL of its
+# largest magnitude.  Set from the noise of two summation orders (H100,
+# f32): the card alone, the same step as two microbatches, parts by up to
+# 3.40e-6 of a leaf's largest magnitude, and the host by 3.43e-6 (losses
+# equal); 1e-4 leaves ~30x for other batches and seeds.  A fault in a
+# gradient path (a term lost, a layer's gradient misplaced) moves a leaf
+# by the order of its own magnitude.
+HOST_LOSS_TOL_REL = 1e-4
+GRAD_TOL_REL = 1e-4
+
+
+def train_argv(size=("--no-tiny",), extra=()):
+    return ["--arch", ARCH, *size, "--device", DEV, "--steps",
+            str(TRAIN_STEPS), "--requant-every", str(TRAIN_EVERY), "--seq",
+            str(TRAIN_SEQ), "--batch", str(TRAIN_BATCH), "--delta-alpha",
+            str(TRAIN_DELTA_ALPHA), *extra]
+
+
+def _frozen_leaves(params):
+    from repro_torch.core.state import tensor_leaves
+    from repro_torch.train.step import FROZEN_FIELDS
+    return {p: t.clone() for p, t in tensor_leaves(params)
+            if p.endswith(FROZEN_FIELDS)}
+
+
+def checked_trainer(base):
+    """``base`` (the port's Trainer) with each train step timed
+    (synchronized) and its frozen leaves held unchanged bit for bit, and
+    each maintenance timed and held: no LUT grows, and every weight is on
+    its grid (fake mode: maintenance again changes no ``w``; bit-plane
+    mode: every plane is 0 or 1)."""
+    import torch
+    from repro_torch.core.bitrep import QuantizedTensor, bitwidths
+    from repro_torch.core.fakequant import fq_maintenance
+    from repro_torch.core.state import quant_nodes
+
+    def luts(params):
+        return {k: (bitwidths(q) if isinstance(q, QuantizedTensor)
+                    else q.bitwidth).clone()
+                for k, q in quant_nodes(params).items()}
+
+    class Checked(base):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            self.step_ms, self.maint_ms = [], []
+            step, maint = self.train_step, self.maintenance
+
+            def timed_step(state, batch):
+                frozen = _frozen_leaves(state.params)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = step(state, batch)
+                torch.cuda.synchronize()
+                self.step_ms.append((time.perf_counter() - t0) * 1e3)
+                now = _frozen_leaves(out[0].params)
+                bad = [p for p in frozen if not torch.equal(frozen[p],
+                                                            now[p])]
+                assert not bad, ("frozen leaves changed in a step", bad)
+                return out
+
+            def checked_maint(state):
+                before = luts(state.params)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = maint(state)
+                torch.cuda.synchronize()
+                self.maint_ms.append((time.perf_counter() - t0) * 1e3)
+                after = luts(out.params)
+                for k in before:
+                    assert bool((after[k] <= before[k]).all()), \
+                        ("a LUT grew", k)
+                for k, q in quant_nodes(out.params).items():
+                    if isinstance(q, QuantizedTensor):
+                        assert bool(((q.planes == 0) | (q.planes == 1))
+                                    .all()), ("planes off binary", k)
+                        continue
+                    for i in range(q.shape[0]):
+                        lay = q.layer(i)
+                        assert torch.equal(fq_maintenance(lay).w, lay.w), \
+                            ("w off its grid", k, i)
+                return out
+
+            self.train_step, self.maintenance = timed_step, checked_maint
+
+    return Checked
+
+
+def run_trainer(argv):
+    """``repro_torch.launch.train.main(argv)`` with the port's Trainer
+    replaced by :func:`checked_trainer`'s for the call; its printout kept.
+    Returns the trainer and the run's summary."""
+    import contextlib
+    import io
+    import torch
+    import repro_torch.train as rt
+    from repro_torch.launch.train import main as train_main
+    buf = io.StringIO()
+    base = rt.Trainer
+    rt.Trainer = checked_trainer(base)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(buf):
+            trainer = train_main(argv)
+    finally:
+        rt.Trainer = base
+    run_s = time.perf_counter() - t0
+    hist = trainer.history
+    for h in hist:
+        assert all(math.isfinite(v) for v in h.values()), h
+    steady = sorted(trainer.step_ms[1:]) or trainer.step_ms
+    step_ms = steady[len(steady) // 2]
+    def arg(flag):
+        return int(argv[argv.index(flag) + 1])
+    assert [h["step"] for h in hist] == list(range(1, arg("--steps") + 1))
+    return trainer, dict(
+        argv=list(argv), run_s=run_s, step_ms=trainer.step_ms,
+        step_ms_median_after_first=step_ms,
+        tokens_per_s=arg("--batch") * arg("--seq") / (step_ms / 1e3),
+        maintenance_ms=trainer.maint_ms,
+        peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+        stdout=buf.getvalue(), **{k: [h[k] for h in hist] for k in (
+            "loss", "ce", "reg", "grad_norm", "lr", "avg_bitwidth")},
+        compression_x=hist[-1]["compression_x"],
+        alpha=float(trainer.state.alpha))
+
+
+def profile_step(trainer, cfg):
+    """One more train step of ``trainer`` (the next batch of its stream)
+    under ``torch.profiler``: its wall time, the device time of its
+    kernels by kind (matmuls, elementwise, reductions, the rest; summed
+    self device time of the CUDA kernel events, one stream) and the
+    device's idle share of the wall time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.data import SyntheticLM
+    batch = SyntheticLM(cfg.vocab, TRAIN_SEQ, TRAIN_BATCH).batch_at(
+        trainer.state.step)
+    batch = {k: v.to(DEV) for k, v in batch.items()}
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        trainer.train_step(trainer.state, batch)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kinds = {"matmul": 0.0, "elementwise": 0.0, "reduction": 0.0,
+             "other": 0.0}
+    top = []
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        ms = e.self_device_time_total / 1e3
+        name = e.key.lower()
+        kind = "matmul" if any(t in name for t in (
+            "gemm", "nvjet", "cutlass", "xmma", "sm90")) else \
+            "elementwise" if "elementwise" in name else \
+            "reduction" if "reduce" in name else "other"
+        kinds[kind] += ms
+        top.append((ms, e.key[:100], e.count))
+    device_ms = sum(kinds.values())
+    return dict(wall_ms=wall_ms, device_ms=device_ms,
+                idle_share=max(0.0, 1 - device_ms / wall_ms),
+                device_ms_by_kind=kinds,
+                top_kernels=[dict(ms=m, kernel=k, calls=c)
+                             for m, k, c in sorted(top, reverse=True)[:12]])
+
+
+def serve_trained(trainer, cfg, layout, backend):
+    """Deploy the trained tree (int8, ``layout``) after freeing the
+    optimizer state, then serve it greedily (int8 KV) through the kernels
+    (``backend``, ``attn_backend="fused"``; launches counted) against the
+    plain versions; the logit error while token prefixes agree must be
+    within ``QUANT_TOL_REL``."""
+    import torch
+    from repro_torch.models.api import build
+    from repro_torch.serve.deploy import to_serving_params
+    from repro_torch.serve.engine import ServeEngine
+    params = trainer.state.params
+    trainer.state = None
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    dep = to_serving_params(params, 8, layout=layout, device=DEV)
+    torch.cuda.synchronize()
+    deploy_s = time.perf_counter() - t0
+    del params
+    torch.cuda.empty_cache()
+    api = build(cfg)
+    tok = torch.randint(0, cfg.vocab, (B, P),
+                        generator=torch.Generator(device=DEV).manual_seed(4),
+                        device=DEV, dtype=torch.int32)
+    ker = ServeEngine(api, dep, kv_quant_bits=8, backend=backend,
+                      attn_backend="fused", device=DEV)
+    ref = ServeEngine(api, dep, kv_quant_bits=8, backend="ref",
+                      attn_backend="ref", device=DEV)
+    matmul = "bitplane_matmul" if layout == "bitplane" else "packed_matmul"
+    run = counted(lambda: greedy(ker, tok, NEW),
+                  expected_launches(cfg.n_layers, NEW, NEW - 1, matmul))
+    plain = greedy(ref, tok, NEW)
+    res = compare(run, plain)
+    out = dict(layout=layout, backend=backend, deploy_s=deploy_s,
+               launches=run["launches"], kernel_vs_plain=res,
+               tokens=run["tokens"].tolist(),
+               prefill_ms=run["prefill_ms"],
+               decode_ms_per_step=run["decode_ms_per_step"])
+    toks = run["tokens"]
+    assert toks.shape == (B, NEW) and 0 <= int(toks.min()) and \
+        int(toks.max()) < cfg.vocab, out
+    assert res["finite"] and res["err"] <= QUANT_TOL_REL[8], out
+    del ker, ref, dep
+    torch.cuda.empty_cache()
+    return out
+
+
+def card_vs_host(size=("--no-tiny",)):
+    """One f32 train step without activation quantization (fake mode,
+    depth cut to TRAIN_DEPTH_CUT, remat on as registered, alpha at
+    TRAIN_DELTA_ALPHA) on the card and on the host CPU, from the same
+    tree and batch: the loss within HOST_LOSS_TOL_REL and each gradient
+    leaf within GRAD_TOL_REL of its largest magnitude.  The witness of the
+    card's own summation noise is the same step run as two microbatches."""
+    import dataclasses as dc
+    import torch
+    from repro_torch.core.state import map_tensors, tensor_leaves
+    from repro_torch.data import SyntheticLM
+    from repro_torch.launch import train as tl
+    from repro_torch.models.api import build
+    from repro_torch.train.step import (microbatched_value_and_grad,
+                                        quant_reg_loss)
+    args = tl.build_parser().parse_args(
+        ["--arch", ARCH, *size, "--act-bits", "32", "--layers",
+         str(TRAIN_DEPTH_CUT)])
+    cfg = dc.replace(tl.config(args), dtype="float32")
+    api = build(cfg)
+    alpha = torch.tensor(TRAIN_DELTA_ALPHA, dtype=torch.float32)
+
+    def total(p, b):
+        reg = quant_reg_loss(p, alpha)
+        loss, m = api.loss(p, b)
+        return loss + reg, (m, reg)
+
+    batch = SyntheticLM(cfg.vocab, HOST_SEQ, HOST_B, seed=2).batch_at(0)
+    params = api.init(seed=1, device=DEV)
+    card_b = {k: v.to(DEV) for k, v in batch.items()}
+    t0 = time.perf_counter()
+    (loss_c, (_, reg_c)), g_card = microbatched_value_and_grad(total)(
+        params, card_b)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    (loss_w, _), g_wit = microbatched_value_and_grad(total, 2)(params,
+                                                               card_b)
+    host_params = map_tensors(lambda t: t.cpu(), params)
+    t0 = time.perf_counter()
+    (loss_h, (_, reg_h)), g_host = microbatched_value_and_grad(total)(
+        host_params, batch)
+    host_s = time.perf_counter() - t0
+    host = dict(tensor_leaves(g_host))
+    wit = dict(tensor_leaves(g_wit))
+    leaves = []
+    for path, g in tensor_leaves(g_card):
+        gc, gh = g.cpu(), host[path]
+        scale = float(gh.abs().max())
+        if scale == 0.0:
+            assert not gc.any(), path
+            continue
+        leaves.append(dict(
+            leaf=path, max_abs=scale,
+            err=float((gc - gh).abs().max()) / scale,
+            witness=float((gc - wit[path].cpu()).abs().max()) / scale))
+    out = dict(layers=cfg.n_layers, dtype=cfg.dtype, batch=HOST_B,
+               seq=HOST_SEQ, loss_card=float(loss_c), loss_host=float(loss_h),
+               loss_witness=float(loss_w), reg_card=float(reg_c),
+               reg_host=float(reg_h),
+               loss_err=abs(float(loss_c) - float(loss_h)) / abs(
+                   float(loss_h)),
+               grad_err_max=max(r["err"] for r in leaves),
+               grad_witness_max=max(r["witness"] for r in leaves),
+               grad_tol=GRAD_TOL_REL, loss_tol=HOST_LOSS_TOL_REL,
+               card_s=card_s, host_s=host_s, leaves=leaves)
+    del params, g_card, g_wit, host_params, g_host
+    torch.cuda.empty_cache()
+    assert float(reg_c) > 0 and out["loss_err"] <= HOST_LOSS_TOL_REL, out
+    assert out["grad_err_max"] <= GRAD_TOL_REL, out
+    return out
+
+
+def train_phase(size=("--no-tiny",)):
+    """Training through the port's launcher on the card, its trained trees
+    served through the kernels, and one step held against the host.
+
+    * fake mode at full depth (:data:`TRAIN_STEPS` steps of
+      ``TRAIN_BATCH`` x ``TRAIN_SEQ`` tokens), every step finite, frozen
+      leaves unchanged, maintenance monotone and on the grid; one more
+      step profiled (:func:`profile_step`); the trained tree deployed to
+      packed int8 and served through ``backend="kernel"`` against the
+      plain versions;
+    * the card-against-host step (:func:`card_vs_host`);
+    * bit-plane mode at ``TRAIN_DEPTH_CUT`` layers: 2 steps and a
+      maintenance (requantize + adjust_precision), deployed to
+      ``layout="bitplane"`` and served through ``backend="bitplane"``."""
+    import torch
+    from repro_torch.launch import train as tl
+    out = {"mem_before_gb": torch.cuda.memory_allocated() / 1e9}
+    argv = train_argv(size)
+    trainer, out["fake"] = run_trainer(argv)
+    f = out["fake"]
+    assert f["reg"][0] == 0.0 and f["reg"][-1] > 0, f["reg"]
+    log(f"train fake full depth: step {f['step_ms_median_after_first']:.1f}"
+        f" ms (median after the first), {f['tokens_per_s']:.0f} tok/s, "
+        f"maintenance {[round(m) for m in f['maintenance_ms']]} ms, peak "
+        f"{f['peak_mem_gb']:.1f} GB, loss {f['loss'][0]:.3f} -> "
+        f"{f['loss'][-1]:.3f}, bits {f['avg_bitwidth'][-1]:.3f}, "
+        f"{f['compression_x']:.2f}x")
+    cfg = tl.config(tl.build_parser().parse_args(argv))
+    out["fake_profile"] = fp = profile_step(trainer, cfg)
+    log(f"profiled step: {fp['wall_ms']:.1f} ms wall, device "
+        f"{fp['device_ms']:.1f} ms (" + ", ".join(
+            f"{k} {v:.1f}" for k, v in fp["device_ms_by_kind"].items())
+        + f"), idle {fp['idle_share']:.3f}")
+    out["fake_serve"] = serve_trained(trainer, cfg, "packed", "kernel")
+    del trainer
+    fs = out["fake_serve"]
+    log(f"trained tree deployed in {fs['deploy_s']:.1f} s, served through "
+        f"the kernels: err {fs['kernel_vs_plain']['err']:.3g}, tokens "
+        f"{fs['kernel_vs_plain']['token_agreement']:.3f}")
+
+    out["card_vs_host"] = cvh = card_vs_host(size)
+    log(f"card vs host step: loss err {cvh['loss_err']:.3g}, grad err "
+        f"{cvh['grad_err_max']:.3g} (witness {cvh['grad_witness_max']:.3g},"
+        f" limit {GRAD_TOL_REL})")
+
+    bp_argv = train_argv(size, ["--quant-mode", "bitplane", "--layers",
+                                str(TRAIN_DEPTH_CUT)])
+    bp_argv[bp_argv.index("--steps") + 1] = "2"
+    bp_argv[bp_argv.index("--requant-every") + 1] = "2"
+    trainer, out["bitplane"] = run_trainer(bp_argv)
+    b = out["bitplane"]
+    assert len(trainer.maint_ms) == 1, trainer.maint_ms
+    cfg = tl.config(tl.build_parser().parse_args(bp_argv))
+    out["bitplane_serve"] = serve_trained(trainer, cfg, "bitplane",
+                                          "bitplane")
+    del trainer
+    bs = out["bitplane_serve"]
+    log(f"train bit-plane {TRAIN_DEPTH_CUT} layers: step "
+        f"{b['step_ms_median_after_first']:.1f} ms, peak "
+        f"{b['peak_mem_gb']:.1f} GB, bits {b['avg_bitwidth'][-1]:.3f}; served "
+        f"through bitplane_matmul: err {bs['kernel_vs_plain']['err']:.3g}")
+    return out
+
+
+# ---------------------------------------------------------------------------
 # time phase
 # ---------------------------------------------------------------------------
 
@@ -1905,6 +2306,7 @@ def main() -> int:
     detail["build_logs"] = kbuild.BUILD_LOGS
 
     kernels = run(detail)
+    print(json.dumps({"train": train_summary(detail)}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
@@ -2089,7 +2491,42 @@ def run(detail) -> list:
     check_path(detail["path_phase"], paths)
     check_bitplane(detail["bitplane_phase"], detail["speculative_phase"],
                    bp_paths)
+
+    del deployed, bp, tok
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    detail["train_phase"] = train_phase()
+    detail["train_phase_s"] = time.perf_counter() - t0
+    log(f"train phase ran in {detail['train_phase_s']:.1f} s")
+    save_detail(detail)
     return kernels
+
+
+def train_summary(detail) -> dict:
+    """The train phase's figures for the printout, beside the card."""
+    tp = detail["train_phase"]
+    f, b = tp["fake"], tp["bitplane"]
+    return {"card": detail["card"], "phase_s": detail["train_phase_s"],
+            "fake_full_depth": {
+                "step_ms_median_after_first": f["step_ms_median_after_first"],
+                "tokens_per_s": f["tokens_per_s"],
+                "maintenance_ms": f["maintenance_ms"],
+                "peak_mem_gb": f["peak_mem_gb"],
+                "deploy_s": tp["fake_serve"]["deploy_s"],
+                "avg_bitwidth": f["avg_bitwidth"][-1],
+                "compression_x": f["compression_x"],
+                "profiled_step_idle_share": tp["fake_profile"]["idle_share"],
+                "serve_err": tp["fake_serve"]["kernel_vs_plain"]["err"]},
+            "bitplane_depth_cut": {
+                "step_ms_median_after_first": b["step_ms_median_after_first"],
+                "maintenance_ms": b["maintenance_ms"],
+                "peak_mem_gb": b["peak_mem_gb"],
+                "deploy_s": tp["bitplane_serve"]["deploy_s"],
+                "serve_err":
+                    tp["bitplane_serve"]["kernel_vs_plain"]["err"]},
+            "card_vs_host": {k: tp["card_vs_host"][k] for k in (
+                "loss_err", "grad_err_max", "grad_witness_max",
+                "grad_tol")}}
 
 
 def save_detail(detail):

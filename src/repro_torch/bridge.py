@@ -6,13 +6,17 @@ weight arrives as a dict of its arrays plus its static fields:
 
 * FakeQuantTensor: ``w``, ``scale``, ``bitwidth``, ``shape``, ``wb_rows``,
   ``wb_cols``, ``n_bits``;
+* QuantizedTensor: ``planes``, ``sign``, ``scale``, ``mask``, ``shape``,
+  ``wb_rows``, ``wb_cols`` (and no ``bits``);
 * ServingWeight: ``w_int``, ``scale``, ``shape``, ``wb_rows``, ``wb_cols``,
   ``bits``;
 * BitplaneServingWeight: ``planes``, ``sign``, ``mask``, ``scale``,
   ``shape``, ``wb_rows``, ``wb_cols``, ``bits``.
 
-Both a QAT tree (to deploy in the port) and a deployed tree are accepted.
-Dtypes are kept (int8, uint8, float32), so wire formats cross bit for bit.
+Both a QAT tree (to deploy or train in the port) and a deployed tree are
+accepted, and so is any other tree of the same form, such as an
+optimizer state (whose ``m`` and ``v`` mirror the params).  Dtypes are
+kept (int8, uint8, int32, float32), so wire formats cross bit for bit.
 """
 from __future__ import annotations
 
@@ -21,6 +25,7 @@ from typing import Any
 import numpy as np
 import torch
 
+from .core.bitrep import QuantizedTensor
 from .core.blocking import BlockingSpec
 from .core.device import resolve_device
 from .core.fakequant import FakeQuantTensor
@@ -45,6 +50,11 @@ def params_from_numpy(tree: Any, device=None) -> Any:
                                      scale=t(node["scale"]),
                                      shape=tuple(node["shape"]), spec=spec,
                                      bits=int(node["bits"]))
+            if "planes" in node and "bits" not in node:
+                return QuantizedTensor(
+                    planes=t(node["planes"]), sign=t(node["sign"]),
+                    scale=t(node["scale"]), mask=t(node["mask"]),
+                    shape=tuple(node["shape"]), spec=spec)
             if "planes" in node:
                 return BitplaneServingWeight(
                     planes=t(node["planes"]), sign=t(node["sign"]),

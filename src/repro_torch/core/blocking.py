@@ -61,3 +61,22 @@ def expand_block_map(per_block: torch.Tensor,
     """Broadcast a per-block map (..., GR, GC) to elements (..., Kp, Np)."""
     x = torch.repeat_interleave(per_block, spec.wb_rows, dim=-2)
     return torch.repeat_interleave(x, spec.wb_cols, dim=-1)
+
+
+def block_count(shape_kn: Tuple[int, int], spec: BlockingSpec) -> int:
+    gr, gc = spec.grid(*shape_kn)
+    return gr * gc
+
+
+def block_elem_counts(shape_kn: Tuple[int, int], spec: BlockingSpec,
+                      device=None) -> torch.Tensor:
+    """(GR, GC) int64 count of *real* (unpadded) weight elements in each
+    block: edge blocks are partial when K/N are not block multiples, and
+    bit counts must not bill the padding."""
+    k, n = shape_kn
+    gr, gc = spec.grid(k, n)
+    rows = torch.clamp(k - torch.arange(gr, device=device) * spec.wb_rows,
+                       0, spec.wb_rows)
+    cols = torch.clamp(n - torch.arange(gc, device=device) * spec.wb_cols,
+                       0, spec.wb_cols)
+    return rows[:, None] * cols[None, :]

@@ -1,0 +1,88 @@
+"""Deterministic, index-addressable synthetic LM data (port of the LM part
+of ``repro.data.synthetic``).
+
+Every global batch is a pure function of (seed, step), so any process can
+regenerate any batch without coordination and a restart at step N needs
+no replay.  The stream has planted bigram structure (a peaked random
+successor table), so cross-entropy decreases under training.
+
+The successor table comes from ``numpy.random.default_rng(seed)``, as the
+reference's does, and equals it bit for bit.  The walk's start tokens and
+successor choices are drawn by ``jax.random`` in the reference, which
+torch cannot reproduce: here they come from a ``torch.Generator`` seeded
+from (seed, step), so the port's batches follow the same table and law but
+are not the reference's.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Iterator
+
+import numpy as np
+import torch
+
+
+@dataclasses.dataclass
+class SyntheticLM:
+    vocab: int
+    seq_len: int
+    batch: int
+    seed: int = 0
+    branching: int = 4          # candidate successors per token
+
+    def __post_init__(self):
+        rng = np.random.default_rng(self.seed)
+        self.succ = rng.integers(0, self.vocab,
+                                 size=(self.vocab, self.branching))
+
+    def generator(self, step: int) -> torch.Generator:
+        """The host generator of batch ``step``: seeded from (seed, step)
+        through ``numpy.random.SeedSequence``."""
+        key = np.random.SeedSequence([self.seed, step]).generate_state(
+            2, np.uint32)
+        return torch.Generator().manual_seed(
+            int(key[0]) << 32 | int(key[1]))
+
+    def batch_at(self, step: int) -> Dict[str, torch.Tensor]:
+        """Pure function of step: (tokens, labels) int32 host tensors with
+        labels = next token."""
+        gen = self.generator(step)
+        start = torch.randint(0, self.vocab, (self.batch,), generator=gen)
+        choices = torch.randint(0, self.branching,
+                                (self.batch, self.seq_len + 1),
+                                generator=gen)
+        succ = torch.from_numpy(self.succ)
+        seq = torch.empty((self.batch, self.seq_len + 1), dtype=torch.int64)
+        tok = start
+        for t in range(self.seq_len + 1):
+            tok = succ[tok, choices[:, t]]
+            seq[:, t] = tok
+        return {"tokens": seq[:, :-1].to(torch.int32),
+                "labels": seq[:, 1:].to(torch.int32)}
+
+    def __iter__(self) -> Iterator[Dict[str, torch.Tensor]]:
+        step = 0
+        while True:
+            yield self.batch_at(step)
+            step += 1
+
+
+def lm_batch_for(cfg, cell, step: int = 0, seed: int = 0):
+    """Concrete batch for a cell's ``seq_len`` and ``global_batch`` (the
+    dense family only: the VLM and encoder-decoder inputs are not ported
+    yet)."""
+    if cfg.family == "vlm" or cfg.is_encdec:
+        raise NotImplementedError(f"family {cfg.family!r} is not ported yet")
+    return SyntheticLM(cfg.vocab, cell.seq_len, cell.global_batch,
+                       seed).batch_at(step)
+
+
+def make_lm_pipeline(cfg, seq_len: int, batch: int, seed: int = 0,
+                     start_step: int = 0):
+    """Resumable iterator of (step, batch); a restart at ``start_step``
+    continues the same sequence."""
+    gen = SyntheticLM(cfg.vocab, seq_len, batch, seed)
+    step = start_step
+    while True:
+        yield step, gen.batch_at(step)
+        step += 1

@@ -23,7 +23,7 @@ import torch
 
 from .build import load, stream_ptr
 from .ref import paged_attention_ref
-from .tiling import attention_plan, attention_scratch
+from .tiling import attention_groups, attention_plan, attention_scratch
 
 _POOL_BITS = {torch.int8: 8, torch.uint8: 4, torch.bfloat16: 16,
               torch.float32: 32}
@@ -55,15 +55,19 @@ def _lib():
 
 def _args(key) -> int:
     """Address of the launch arguments of call shape ``key`` (built at its
-    first call, with its plan and the split workspace, and kept)."""
+    first call, with its plan and the split workspace, and kept); G >
+    ATTN_MAX_G launches its query-head groups as slots
+    (:func:`group_queries`)."""
     hit = _ARGS.get(key)
     if hit is None:
         device, b, kv, g, dh, page, nb, bits, window, softcap = key
         plan = attention_plan(b, kv, g, dh, page, nb, bits)
-        ws, cnt = attention_scratch(device, plan, b, kv, g, dh)
-        a = _Args(b, kv, g, dh, page, nb, bits, window, plan.splits,
-                  plan.split_len, plan.heads, plan.chunk, plan.n_tab,
-                  plan.smem, 1.0 / math.sqrt(dh), softcap, ws, cnt)
+        groups, gs = attention_groups(g)
+        ws, cnt = attention_scratch(device, plan, b * groups, kv, gs, dh)
+        a = _Args(b * groups, kv, gs, dh, page, nb, bits, window,
+                  plan.splits, plan.split_len, plan.heads, plan.chunk,
+                  plan.n_tab, plan.smem, 1.0 / math.sqrt(dh), softcap, ws,
+                  cnt)
         hit = _ARGS[key] = (ctypes.addressof(a), a)
     return hit[0]
 
@@ -121,9 +125,12 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
     if kv_len.dtype != torch.int32 or kv_len.dim() != 1 \
             or not kv_len.is_contiguous():
         kv_len = kv_len.to(torch.int32).reshape(b).contiguous()
-    out = torch.empty((b, kv, g, dh), dtype=torch.float32, device=dev)
     args = _args((dev, b, kv, g, dh, k_pages.shape[1], table.shape[1], bits,
                   int(window or 0), float(softcap)))
+    groups = attention_groups(g)[0]
+    if groups > 1:
+        q, table, kv_len = group_queries(q, table, kv_len, groups)
+    out = torch.empty(q.shape, dtype=torch.float32, device=dev)
     rc = _lib()(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
                 k_scale.data_ptr() if quantized else None,
                 v_scale.data_ptr() if quantized else None,
@@ -133,7 +140,30 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
         raise RuntimeError(f"paged_attention kernel launch failed: CUDA "
                            f"error {rc}")
     paged_attention.launches += 1
-    return out
+    return ungroup_queries(out, g) if groups > 1 else out
+
+
+def group_queries(q: torch.Tensor, table: torch.Tensor,
+                  kv_len: torch.Tensor, groups: int):
+    """More query heads per KV head than the kernel takes (G >
+    ``tiling.ATTN_MAX_G``): each slot's G heads as ``groups`` slots of
+    ceil(G / groups) heads, zero queries padding the last, each sharing
+    the slot's table row and fill level.  Returns q (B, groups, KV, gs,
+    dh) contiguous, the launch's (B * groups, KV, gs, dh) layout, and the
+    repeated table and fill levels."""
+    b, kv, g, dh = q.shape
+    gs = -(-g // groups)
+    q = torch.nn.functional.pad(q, (0, 0, 0, groups * gs - g))
+    q = q.reshape(b, kv, groups, gs, dh).transpose(1, 2).contiguous()
+    return (q, table.repeat_interleave(groups, dim=0),
+            kv_len.repeat_interleave(groups))
+
+
+def ungroup_queries(out: torch.Tensor, g: int) -> torch.Tensor:
+    """Inverse of :func:`group_queries` on the output: (B, groups, KV, gs,
+    dh) -> (B, KV, G, dh)."""
+    b, groups, kv, gs, dh = out.shape
+    return out.transpose(1, 2).reshape(b, kv, groups * gs, dh)[:, :, :g]
 
 
 paged_attention.launches = 0

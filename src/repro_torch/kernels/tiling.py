@@ -156,13 +156,17 @@ class AttentionPlan:
     ``heads`` neighbouring KV heads of one slot and split, and streams the
     split in sub-chunks of ``chunk`` positions.  ``n_tab`` table entries
     and ``smem`` bytes of shared memory a CTA; the grid is ``splits`` x
-    KV / ``heads`` x B CTAs."""
+    KV / ``heads`` x B CTAs.  More than ATTN_MAX_G query heads per KV head
+    run as ``groups`` groups of ceil(G / groups) each: the launch sees
+    B * groups slots (every group of a slot reads its pages), so the grid
+    has ``groups`` times the rows."""
     splits: int
     split_len: int
     heads: int
     chunk: int
     n_tab: int
     smem: int
+    groups: int = 1
 
     def ranges(self, capacity: int) -> List[Tuple[int, int]]:
         return [(min(capacity, s * self.split_len),
@@ -204,6 +208,14 @@ def attention_layout(g: int, dh: int, bits: int, heads: int, chunk: int,
     return total + n_tab * 4
 
 
+def attention_groups(g: int) -> Tuple[int, int]:
+    """(groups, heads a group): the fewest groups of at most ATTN_MAX_G
+    query heads that cover G, as even as can be (the last group is padded
+    with zero queries when G does not divide)."""
+    groups = -(-g // ATTN_MAX_G)
+    return groups, -(-g // groups)
+
+
 @functools.lru_cache(maxsize=4096)
 def attention_plan(b: int, kvh: int, g: int, dh: int, page: int, nb: int,
                    bits: int, *, splits: Optional[int] = None,
@@ -231,10 +243,17 @@ def attention_plan(b: int, kvh: int, g: int, dh: int, page: int, nb: int,
     ``chunk`` and ``heads`` force a choice, ``stages`` and ``warps`` size
     it for a kernel built with another ``PA_STAGES`` / ``PA_WARPS`` (the
     probe's sweep and variants); raises ValueError beyond the kernel's
-    limits."""
-    if not (1 <= g <= ATTN_MAX_G and 1 <= dh <= ATTN_MAX_DH):
-        raise ValueError(f"paged_attention takes G <= {ATTN_MAX_G} and "
-                         f"dh <= {ATTN_MAX_DH}; got G={g} dh={dh}")
+    limits.  G > ATTN_MAX_G is planned as ``groups`` launches' worth of
+    slots (``attention_groups``)."""
+    if g > ATTN_MAX_G:
+        groups, gs = attention_groups(g)
+        return dataclasses.replace(
+            attention_plan(b * groups, kvh, gs, dh, page, nb, bits,
+                           splits=splits, chunk=chunk, heads=heads,
+                           stages=stages, warps=warps), groups=groups)
+    if not (1 <= g and 1 <= dh <= ATTN_MAX_DH):
+        raise ValueError(f"paged_attention takes G >= 1 and dh <= "
+                         f"{ATTN_MAX_DH}; got G={g} dh={dh}")
     if bits not in (8, 4, 16, 32) or (bits == 4 and dh % 2):
         raise ValueError(f"pool of {bits} bits at dh={dh}")
     if heads is not None and (heads not in (1, 2, 4) or kvh % heads):

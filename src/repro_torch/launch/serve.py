@@ -30,9 +30,10 @@ launcher's (9x8).  Prompts come from ``numpy.random.default_rng(seed)``.
 Not ported yet: ``--ckpt``/``--ckpt-step``, ``--lint`` and
 ``--autotune-budget-bytes``.
 
-``main(argv, params=None)`` returns what it served (engine, scheduler,
-requests, results); ``params`` replaces the seeded init with a caller's
-deployed tree.
+``main(argv, params=None, record_ticks=False)`` returns what it served
+(engine, scheduler, requests, results); ``params`` replaces the seeded
+init with a caller's deployed tree, and ``record_ticks`` has the
+scheduler keep its per-tick log.
 """
 from __future__ import annotations
 
@@ -177,8 +178,8 @@ def _prompts(cfg, args) -> List[np.ndarray]:
     return toks
 
 
-def main(argv: Optional[List[str]] = None,
-         params: Any = None) -> Dict[str, Any]:
+def main(argv: Optional[List[str]] = None, params: Any = None,
+         record_ticks: bool = False) -> Dict[str, Any]:
     from ..models.api import build
     from ..serve import Request, SamplingParams
     from ..serve.deploy import (default_deploy_bits, default_deploy_layout,
@@ -224,7 +225,8 @@ def main(argv: Optional[List[str]] = None,
                             priority=prios[i % len(prios)]),
                         arrival=i * args.arrival_gap)
                 for i in range(args.batch)]
-        sched = eng.make_scheduler(reqs, n_slots=args.n_slots or args.batch)
+        sched = eng.make_scheduler(reqs, n_slots=args.n_slots or args.batch,
+                                   record_ticks=record_ticks)
         results = sched.run(reqs, validate_every=args.validate_every)
         for r in results:
             print(f"[{r.uid}] arrived@{reqs[r.uid].arrival} "

@@ -1,6 +1,6 @@
-"""Model API over the dense decoder (port of the serving part of
-``repro.models.api``): init, prefill, decode, and per-slot insertion into
-a live decode state.
+"""Model API over the dense decoder (port of the dense part of
+``repro.models.api``): init, the training loss, prefill, decode, and
+per-slot insertion into a live decode state.
 
 The decode state is updated in place: methods that take a state write its
 cache tensors and return a state dict holding the same tensors.
@@ -70,7 +70,12 @@ class ModelAPI:
         gen = torch.Generator(device=dev).manual_seed(seed)
         return transformer.init_lm(self.cfg, gen, dev)
 
-    # ---- steps ----------------------------------------------------------
+    # ---- losses / steps ------------------------------------------------
+    def loss(self, params, batch) -> tuple:
+        """Next-token cross entropy and its metrics; the full-sequence
+        forward runs with autograd live."""
+        return transformer.loss_fn(params, self.cfg, batch)
+
     def prefill(self, params, batch, extra_slots: int = 0, *,
                 backend: str = "dense", attn_backend: str = "gather"
                 ) -> tuple:

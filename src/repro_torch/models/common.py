@@ -1,15 +1,16 @@
 """Shared building blocks: the quantized-linear dispatch, norms,
 embeddings (port of ``repro.models.common``).
 
-Params are plain nested dicts.  A weight matrix is a ``FakeQuantTensor``
-(QAT form), a ``ServingWeight`` (deployed packed integers), a
+Params are plain nested dicts.  A weight matrix is a ``QuantizedTensor``
+(paper-faithful bit planes), a ``FakeQuantTensor`` (memory-scalable QAT
+form), a ``ServingWeight`` (deployed packed integers), a
 ``BitplaneServingWeight`` (deployed bit planes) or a plain tensor.  Layer
 code never dequantizes a weight itself: every ``x @ W`` goes through
 :func:`qmatmul`, which dispatches on the weight representation and the
 execution backend, passed explicitly per call:
 
 * ``dense``    — dequantize the leaf and run a plain matmul (works for
-  every representation);
+  every representation; the only backend that training uses);
 * ``kernel``   — stream a deployed leaf through its hand-written CUDA
   kernel, ``packed_matmul`` or ``bitplane_matmul`` (the counterpart of the
   reference's ``pallas`` backend; on CPU tensors the wrapper runs the
@@ -26,6 +27,7 @@ from typing import Any, Optional
 import torch
 
 from ..configs.base import QuantConfig
+from ..core.bitrep import QuantizedTensor, compose, from_float
 from ..core.fakequant import FakeQuantTensor, fq_compose, fq_from_float
 from ..core.pact import pact_sym_quant
 from ..kernels.bitplane_matmul import bitplane_matmul
@@ -49,13 +51,18 @@ def make_weight(shape, qc: QuantConfig, *, generator: torch.Generator,
                     dtype=torch.float32) * (scale / fan_in ** 0.5)
     if not quantize or not qc.enabled:
         return w
+    if qc.mode == "bitplane":
+        return from_float(w, qc.n_bits, qc.spec,
+                          per_block_scale=qc.per_block_scale)
     if qc.mode == "fake":
         return fq_from_float(w, qc.n_bits, qc.spec)
-    raise ValueError(f"quant mode {qc.mode!r} is not ported yet")
+    raise ValueError(qc.mode)
 
 
 def qdense(w: Any, dtype=None) -> torch.Tensor:
     """Dequantize ONE weight leaf to a plain tensor (the dense backend)."""
+    if isinstance(w, QuantizedTensor):
+        return compose(w, dtype)
     if isinstance(w, FakeQuantTensor):
         return fq_compose(w, dtype)
     if isinstance(w, ServingWeight):
@@ -119,10 +126,14 @@ def qmatmul(x: torch.Tensor, w: Any, backend: str = "dense") -> torch.Tensor:
 
 def prepare_params(params: Any, dtype=None) -> Any:
     """Once-per-step param prep: cast plain float leaves to the compute
-    dtype.  Quantized leaves stay in their storage; :func:`qmatmul`
-    consumes them one layer at a time."""
+    dtype and compose bit-plane ``QuantizedTensor`` leaves up front (their
+    bit axis leads, so the layer loop cannot slice them).  The other
+    quantized leaves stay in their storage; :func:`qmatmul` consumes them
+    one layer at a time."""
     if isinstance(params, dict):
         return {k: prepare_params(v, dtype) for k, v in params.items()}
+    if isinstance(params, QuantizedTensor):
+        return compose(params, dtype)
     if dtype is not None and isinstance(params, torch.Tensor) \
             and params.is_floating_point():
         return params.to(dtype)

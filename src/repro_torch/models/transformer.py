@@ -1,22 +1,27 @@
-"""Decoder-only LM assembly, dense family (port of the dense and cache parts
-of ``repro.models.transformer``).
+"""Decoder-only LM assembly, dense family (port of the dense, cache and
+loss parts of ``repro.models.transformer``).
 
 Params hold stacked (L, ...) leaves.  Where the reference scans over
-layers, the port runs a Python loop that slices layer ``i`` out of every
-stacked leaf (views, no copies): a deployed ``ServingWeight`` reaches
-``qmatmul`` as the layer's contiguous (Kp, Np) payload, so the packed
-kernel reads the stacked tensor in place.  The KV cache is written in
-place through per-layer views.
+layers, the port runs a Python loop over the layers, which each forward
+takes apart once (``torch.unbind``: views, no copies).  A deployed
+``ServingWeight`` reaches ``qmatmul`` as the layer's contiguous (Kp, Np)
+payload, so the packed kernel reads the stacked tensor in place; in
+training the backward stacks each leaf's layer gradients once (slicing a
+layer with ``tensor[i]`` would write a zero buffer the size of the whole
+stack for every layer).  With ``cfg.remat`` each layer body is
+recomputed in the backward (``torch.utils.checkpoint``), as the
+reference's ``jax.checkpoint``.  The KV cache is written in place through
+per-layer views.
 """
 from __future__ import annotations
 
-from typing import Any, Dict
+import dataclasses
+from typing import Any, Dict, List
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
-from ..core.fakequant import FakeQuantTensor
-from ..serve.deploy import BitplaneServingWeight, ServingWeight
 from .attention import attn_forward, fill_levels
 from .common import (act_quant, embed_init, make_weight, prepare_params,
                      qmatmul, rms_norm, softcap)
@@ -99,13 +104,27 @@ def init_lm(cfg: ModelConfig, generator: torch.Generator, device) -> Dict:
 
 
 def _layer(tree, i: int):
-    """Layer ``i`` of a tree of stacked (L, ...) leaves (views)."""
+    """Layer ``i`` of a tree of stacked (L, ...) tensors (views)."""
     if isinstance(tree, dict):
         return {k: _layer(v, i) for k, v in tree.items()}
-    if isinstance(tree, (FakeQuantTensor, ServingWeight,
-                         BitplaneServingWeight)):
-        return tree.layer(i)
     return tree[i]
+
+
+def _unstack(tree, n: int) -> List:
+    """The ``n`` layers of a tree of stacked (L, ...) leaves, taken apart
+    once: every tensor, and every tensor field of a quantized weight, is
+    unbound along its leading dim (views)."""
+    if isinstance(tree, dict):
+        parts = {k: _unstack(v, n) for k, v in tree.items()}
+        return [{k: p[i] for k, p in parts.items()} for i in range(n)]
+    if dataclasses.is_dataclass(tree):
+        fields = {f.name: torch.unbind(getattr(tree, f.name))
+                  for f in dataclasses.fields(tree)
+                  if isinstance(getattr(tree, f.name), torch.Tensor)}
+        return [dataclasses.replace(tree, **{k: v[i]
+                                             for k, v in fields.items()})
+                for i in range(n)]
+    return list(torch.unbind(tree))
 
 
 # ---------------------------------------------------------------------------
@@ -139,15 +158,25 @@ def _mlp_block(lp, h, cfg: ModelConfig, backend: str):
     return h + out
 
 
+def _layer_body(lp, h, positions, cfg, i, layer_cache, index, backend,
+                attn_backend):
+    h, _ = _attn_block(lp, h, positions, cfg, i, layer_cache, index,
+                       backend, attn_backend)
+    return _mlp_block(lp, h, cfg, backend)
+
+
 def _walk_dense(mp, cfg, h, positions, cache, index, backend, attn_backend):
     """Loop over the homogeneous attention+FFN layers; each layer's cache
-    view is written in place."""
-    for i in range(cfg.n_layers):
-        lp = _layer(mp["layers"], i)
+    view is written in place.  A forward that builds a graph recomputes
+    each layer in the backward when ``cfg.remat``."""
+    remat = cfg.remat and h.requires_grad
+    for i, lp in enumerate(_unstack(mp["layers"], cfg.n_layers)):
         layer_cache = _layer(cache, i) if cache is not None else None
-        h, _ = _attn_block(lp, h, positions, cfg, i, layer_cache, index,
-                           backend, attn_backend)
-        h = _mlp_block(lp, h, cfg, backend)
+        args = (lp, h, positions, cfg, i, layer_cache, index, backend,
+                attn_backend)
+        h = checkpoint(_layer_body, *args, use_reentrant=False,
+                       preserve_rng_state=False) if remat \
+            else _layer_body(*args)
     return h, cache
 
 
@@ -173,6 +202,27 @@ def forward(params, cfg: ModelConfig, tokens, *, positions=None, cache=None,
     head = mp["lm_head"] if "lm_head" in mp else mp["embed"].T
     logits = qmatmul(h, head, backend).to(torch.float32)
     return softcap(logits, cfg.logit_softcap), cache
+
+
+def loss_fn(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor]):
+    """Next-token cross entropy.  batch: tokens, labels, [mask].  The
+    dense family has no auxiliary loss (the reference adds 0.01 x the MoE
+    load-balancing term)."""
+    logits, _ = forward(params, cfg, batch["tokens"],
+                        positions=batch.get("positions"))
+    labels = batch["labels"].long()
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, labels[..., None])[..., 0]
+    nll = lse - ll
+    mask = batch.get("mask")
+    if mask is not None:
+        nll = nll * mask
+        denom = torch.clamp(torch.sum(mask), min=1.0)
+    else:
+        denom = float(nll.numel())
+    ce = torch.sum(nll) / denom
+    aux = torch.zeros((), dtype=torch.float32, device=ce.device)
+    return ce + 0.01 * aux, dict(ce=ce, aux=aux)
 
 
 # ---------------------------------------------------------------------------

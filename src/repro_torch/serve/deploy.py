@@ -1,9 +1,9 @@
 """Deployment transform: QAT weights -> compressed serving weights (port of
 the live-tree part of ``repro.serve.deploy``).
 
-``to_serving_params`` converts every ``FakeQuantTensor`` leaf of a live
-param tree into one of two wire formats sharing the same integer grid
-(``_integer_grid``):
+``to_serving_params`` converts every quantized leaf (``QuantizedTensor``
+or ``FakeQuantTensor``) of a live param tree into one of two wire formats
+sharing the same integer grid (``_integer_grid``):
 
 * ``layout="packed"`` — :class:`ServingWeight`: int8 (or nibble-packed
   int4) values plus the per-WB effective scale, read by ``packed_matmul``;
@@ -25,7 +25,7 @@ from typing import Any, Tuple
 import torch
 import torch.nn.functional as F
 
-from ..core.bitrep import _levels
+from ..core.bitrep import QuantizedTensor, _levels, compose
 from ..core.blocking import BlockingSpec, expand_block_map, pad_to_blocks
 from ..core.device import resolve_device
 from ..core.fakequant import FakeQuantTensor
@@ -157,14 +157,20 @@ def _pack_bitplane(wq, gscale, bitwidth, shape, spec,
                                  spec=spec, bits=bits)
 
 
+def _quantize_leaf(w, scale, bitwidth, spec, n_bits, bits, layout):
+    wq, gscale, shape = _integer_grid(w, scale, bitwidth, spec, n_bits, bits)
+    if layout == "bitplane":
+        return _pack_bitplane(wq, gscale, bitwidth, shape, spec, bits)
+    return _pack_packed(wq, gscale, shape, spec, bits)
+
+
 def _convert_leaf(x, bits: int, layout: str = "packed"):
+    if isinstance(x, QuantizedTensor):
+        return _quantize_leaf(compose(x), x.scale, torch.sum(x.mask, dim=0),
+                              x.spec, x.n_bits, bits, layout)
     if isinstance(x, FakeQuantTensor):
-        wq, gscale, shape = _integer_grid(x.w, x.scale, x.bitwidth, x.spec,
-                                          x.n_bits, bits)
-        if layout == "bitplane":
-            return _pack_bitplane(wq, gscale, x.bitwidth, shape, x.spec,
-                                  bits)
-        return _pack_packed(wq, gscale, shape, x.spec, bits)
+        return _quantize_leaf(x.w, x.scale, x.bitwidth, x.spec, x.n_bits,
+                              bits, layout)
     return x
 
 

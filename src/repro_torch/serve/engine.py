@@ -384,9 +384,10 @@ class ServeEngine:
                        n_pages: Optional[int] = None,
                        prefill_chunk: Optional[int] = None,
                        overcommit: Optional[float] = None,
-                       prefix_cache: Optional[bool] = None):
+                       prefix_cache: Optional[bool] = None,
+                       record_ticks: bool = False):
         """Continuous-batching scheduler sized for ``requests``, on the
-        engine's device.
+        engine's device; ``record_ticks`` keeps its per-tick log.
 
         ``max_len`` (total per-slot cache width) defaults to the widest
         request's prompt plus 64-rounded generation headroom — the same
@@ -408,7 +409,7 @@ class ServeEngine:
                            else prefill_chunk),
             overcommit=self.overcommit if overcommit is None else overcommit,
             prefix_cache=(self.prefix_cache if prefix_cache is None
-                          else prefix_cache))
+                          else prefix_cache), record_ticks=record_ticks)
 
     def serve(self, requests, n_slots: int = 8,
               max_len: Optional[int] = None,

@@ -42,10 +42,11 @@ Extensions over the fixed-width layout, as in the reference:
   later request with the same leading tokens aliases those read-only
   pages through its block table and prefills only the rest.
 
-Time is measured in scheduler *ticks* (one decode step per tick).  The
-port adds a per-tick ``tick_log`` (what each tick ran, which requests got
-their first token and which were parked), from which the kernel launches
-of a run and its first-token ticks are derived.  Left out with
+Time is measured in scheduler *ticks* (one decode step per tick).  With
+``record_ticks`` the port keeps a per-tick ``tick_log`` (what each tick
+ran, which requests got their first token and which were parked), from
+which a run's kernel launches and first-token ticks are derived; without
+it (the default, as the reference) no per-tick record is kept.  Left out with
 their families: the MoE capacity warning and the ssm / vlm / enc-dec
 branches.  Left out: ``compile_footprint`` (a census of jit signatures,
 which eager execution does not have).
@@ -312,7 +313,7 @@ class Scheduler:
     def __init__(self, engine, n_slots: int = 8, max_len: int = 256,
                  page_size: int = 0, n_pages: Optional[int] = None,
                  prefill_chunk: int = 0, overcommit: float = 1.0,
-                 prefix_cache: bool = False):
+                 prefix_cache: bool = False, record_ticks: bool = False):
         self.engine = engine
         self.device = resolve_device(engine.device)
         self.n_slots = n_slots
@@ -359,11 +360,13 @@ class Scheduler:
             "preemptions": 0, "resumes": 0, "cow_copies": 0,
             "prefix_lookups": 0, "prefix_hits": 0, "prefix_hit_tokens": 0,
             "prefix_pages_registered": 0}
-        # one record a tick: the widths of the prompts / chunks it
-        # inserted, its plain decode forwards (0/1), draft forwards and
-        # verify width, the live decoding slots, the uids that got their
-        # first token and those it parked
-        self.tick_log: List[Dict[str, Any]] = []
+        # with record_ticks, one record a tick: the widths of the prompts /
+        # chunks it inserted, its plain decode forwards (0/1), draft
+        # forwards and verify width, the live decoding slots, the uids that
+        # got their first token and those it parked; the current tick's
+        # record is kept either way
+        self.tick_log: Optional[List[Dict[str, Any]]] = \
+            [] if record_ticks else None
         self._log: Dict[str, Any] = {}
 
     # ---- submission ------------------------------------------------------
@@ -810,12 +813,14 @@ class Scheduler:
     def step(self) -> None:
         """Admit what has arrived, advance mid-prefill slots one chunk,
         then advance every decoding slot one token (or one speculative
-        round).  Appends the tick's record to ``tick_log``."""
+        round).  Appends the tick's record to ``tick_log`` when the
+        scheduler records ticks."""
         self._log = {"tick": self.tick, "inserts": [], "decode": 0,
                      "draft": 0, "verify": 0, "live": 0, "first": [],
                      "parked": []}
         self._tick()
-        self.tick_log.append(self._log)
+        if self.tick_log is not None:
+            self.tick_log.append(self._log)
         self.tick += 1
 
     def _tick(self) -> None:

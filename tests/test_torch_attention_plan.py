@@ -24,6 +24,7 @@ The CUDA kernel itself runs only on a card (``chip_smoke.py``'s kernel
 phase holds it to its plain version, ``tests/test_torch_kernels.py`` has
 the ``cuda``-marked case).
 """
+import dataclasses
 import math
 import re
 
@@ -149,7 +150,7 @@ def test_attention_plan_keeps_splits_at_least_min_split_long():
 
 
 @pytest.mark.parametrize("kw,match", [
-    (dict(g=9), "G <= 8"), (dict(dh=257), "dh <= 256"),
+    (dict(g=0), "G >= 1"), (dict(dh=257), "dh <= 256"),
     (dict(bits=4, dh=15), "bits"), (dict(bits=6), "bits"),
     (dict(page=1, nb=1 << 23), "shared"),
     (dict(splits=33), "splits"), (dict(chunk=48), "chunk"),
@@ -161,6 +162,47 @@ def test_attention_plan_raises_beyond_the_kernel_limits(kw, match):
     shape.update(kw)
     with pytest.raises(ValueError, match=match):
         attention_plan(*shape.values(), **forced)
+
+
+@pytest.mark.parametrize("g,gs", [(12, 6), (16, 8), (9, 5)])
+def test_attention_plan_groups_more_than_eight_query_heads(g, gs):
+    """G > 8 (starcoder2-15b at full width: 48 heads over 4 KV heads,
+    G = 12) is planned as the fewest groups of at most 8 query heads, each
+    group its own slot row: the plan of B * groups slots at gs heads."""
+    shape = (8, 4, g, 128, 16, 124, 8)
+    plan = attention_plan(*shape)
+    assert plan.groups == 2
+    assert plan == dataclasses.replace(
+        attention_plan(16, 4, gs, 128, 16, 124, 8), groups=2)
+    assert plan.smem <= MAX_SMEM
+    assert tiling.attention_groups(g) == (2, gs)
+    assert attention_plan(8, 4, 8, 128, 16, 124, 8).groups == 1
+
+
+@pytest.mark.parametrize("g", [12, 9])
+def test_grouped_queries_match_the_plain_versions(g):
+    """The wrapper's regrouping for G > 8 (``group_queries``, the split-KV
+    emulation at the grouped plan, ``ungroup_queries``) gives the plain
+    versions' output at G = 12 and at G = 9 (the last group padded), int8
+    pool with window and softcap."""
+    from repro_torch.kernels.paged_attention import (group_queries,
+                                                     ungroup_queries)
+    arrs = _pool(2, 2, g, 16, 16, 8, 8, [120, 70], trash=True, seed=g)
+    t_args = [torch.from_numpy(np.array(a)) for a in arrs]
+    q, kq, vq, ks, vs, table, kv_len = t_args
+    plan = attention_plan(2, 2, g, 16, 16, 8, 8)
+    assert plan.groups == 2
+    gq, gt, gl = group_queries(q, table, kv_len, plan.groups)
+    assert gq.is_contiguous() and gq.shape[:2] == (2, 2)
+    flat = gq.reshape(-1, *gq.shape[2:])
+    got = split_kv_emulation(flat, kq, vq, ks, vs, gt, gl, plan=plan,
+                             window=60, softcap=30.0)
+    got = ungroup_queries(got.reshape(gq.shape), g)
+    want = paged_attention_ref(*t_args, window=60, softcap=30.0)
+    np.testing.assert_allclose(np_of(got), np_of(want), **TOL)
+    j_want = np.asarray(j_paged_ref(*[jnp.asarray(a) for a in arrs],
+                                    window=60, softcap=30.0))
+    np.testing.assert_allclose(np_of(got), j_want, **TOL)
 
 
 def test_attention_plan_depends_on_no_device_tensor():

@@ -311,7 +311,8 @@ def test_overcommit_prefix_priority_trace_matches_reference(fx, kv_bits,
     jr, tr = [p[0] for p in pairs], [p[1] for p in pairs]
     kw = dict(n_slots=3, page_size=4, n_pages=worst + 2,
               prefill_chunk=chunk, overcommit=1.5, prefix_cache=True)
-    js, ts = jeng.make_scheduler(jr, **kw), teng.make_scheduler(tr, **kw)
+    js = jeng.make_scheduler(jr, **kw)
+    ts = teng.make_scheduler(tr, record_ticks=True, **kw)
     run_lockstep(js, ts, jr, tr)
     assert ts.sched_stats["preemptions"] >= 1
     assert ts.sched_stats["resumes"] == ts.sched_stats["preemptions"]

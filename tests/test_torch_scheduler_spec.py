@@ -61,7 +61,7 @@ def test_speculative_trace_matches_reference(fx, page, chunk):
     jr, tr = [p[0] for p in pairs], [p[1] for p in pairs]
     kw = dict(n_slots=3, max_len=24, page_size=page, prefill_chunk=chunk)
     js = fx["jeng"].make_scheduler(jr, **kw)
-    ts = fx["teng"].make_scheduler(tr, **kw)
+    ts = fx["teng"].make_scheduler(tr, record_ticks=True, **kw)
     run_lockstep(js, ts, jr, tr)
     st = ts.spec_stats
     assert st["rounds"] > 0 and 0 < st["accepted_drafts"] < st["drafted"]

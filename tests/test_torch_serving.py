@@ -204,7 +204,8 @@ def test_scheduler_matches_reference(fx, page, chunk, kv_bits):
                           sampling=SamplingParams(max_new_tokens=new),
                           arrival=arr))
     kw = dict(n_slots=3, max_len=24, page_size=page, prefill_chunk=chunk)
-    js, ts = jeng.make_scheduler(jr, **kw), teng.make_scheduler(tr, **kw)
+    js = jeng.make_scheduler(jr, **kw)
+    ts = teng.make_scheduler(tr, record_ticks=True, **kw)
     ticks = run_lockstep(js, ts, jr, tr)
     assert ticks == len(ts.tick_log)
     for r in tr:
@@ -285,13 +286,33 @@ def test_oversized_request_rejected_up_front(fx):
         Scheduler(eng, prefix_cache=True)
 
 
+def test_scheduler_keeps_no_tick_record_by_default(fx):
+    """A scheduler built without ``record_ticks`` keeps no per-tick list
+    (the reference keeps none; the record grew by one dict a tick for the
+    scheduler's life), and serves the same tokens as one that does."""
+    eng = _port(fx)
+    toks = [_tokens(fx, w, 40 + w) for w in (5, 9)]
+
+    def reqs():
+        return [Request(uid=i, inputs={"tokens": t},
+                        sampling=SamplingParams(max_new_tokens=5))
+                for i, t in enumerate(toks)]
+    quiet = eng.make_scheduler(reqs(), n_slots=1, page_size=4)
+    logged = eng.make_scheduler(reqs(), n_slots=1, page_size=4,
+                                record_ticks=True)
+    got, want = quiet.run(reqs()), logged.run(reqs())
+    assert quiet.tick_log is None
+    assert [r.tokens for r in got] == [r.tokens for r in want]
+    assert len(logged.tick_log) == logged.tick == quiet.tick > 2
+
+
 def test_padded_final_chunk_respects_cache_extent(fx):
     eng = _port(fx)
     toks = _tokens(fx, 17, 11)
     ref = _oneshot(eng, toks, 4)
     for page in (0, 4):
         sched = Scheduler(eng, n_slots=1, max_len=20, page_size=page,
-                          prefill_chunk=16)
+                          prefill_chunk=16, record_ticks=True)
         res = sched.run([Request(uid=0, inputs={"tokens": toks},
                                  sampling=SamplingParams(max_new_tokens=4))])
         assert res[0].tokens == ref, f"page_size={page}"
@@ -307,7 +328,7 @@ def test_chunked_prefill_interleaves_with_decode(fx):
             Request(uid=1, inputs={"tokens": short_toks},
                     sampling=SamplingParams(max_new_tokens=3))]
     sched = eng.make_scheduler(reqs, n_slots=2, page_size=4,
-                               prefill_chunk=4)
+                               prefill_chunk=4, record_ticks=True)
     results = sched.run(reqs)
     assert results[0].tokens == _oneshot(eng, long_toks, 4)
     assert results[1].tokens == _oneshot(eng, short_toks, 3)

@@ -4,6 +4,7 @@ reference: flatten a JAX param tree into the numpy form that
 import numpy as np
 import torch
 
+from repro.core.bitrep import QuantizedTensor
 from repro.core.fakequant import FakeQuantTensor
 from repro.serve.deploy import BitplaneServingWeight, ServingWeight
 
@@ -16,6 +17,11 @@ def tree_to_numpy(tree):
                 "bitwidth": np.asarray(tree.bitwidth),
                 "shape": tuple(tree.shape), "wb_rows": tree.spec.wb_rows,
                 "wb_cols": tree.spec.wb_cols, "n_bits": tree.n_bits}
+    if isinstance(tree, QuantizedTensor):
+        return {"planes": np.asarray(tree.planes),
+                "sign": np.asarray(tree.sign), "scale": np.asarray(tree.scale),
+                "mask": np.asarray(tree.mask), "shape": tuple(tree.shape),
+                "wb_rows": tree.spec.wb_rows, "wb_cols": tree.spec.wb_cols}
     if isinstance(tree, ServingWeight):
         return {"w_int": np.asarray(tree.w_int),
                 "scale": np.asarray(tree.scale), "shape": tuple(tree.shape),

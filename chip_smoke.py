@@ -50,10 +50,11 @@ It builds the four CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
    error at every step where the two runs' token prefixes still agree,
    against a limit set between a witness of that noise (the same plain
    path on the host CPU, weights dequantized once: same values, another
-   summation order) and planted faults (rows read one block off, swapped
-   nibbles, bit planes and sign planes read one position off), which must
-   read above it.  With activation quantization off and a float32 KV cache
-   nothing rounds to levels: logits within 1e-4 of the largest and greedy
+   summation order; its first ``WITNESS_NEW`` tokens) and planted faults
+   (rows read one block off, swapped nibbles, bit planes and sign planes
+   read one position off), which must read above it.  With activation
+   quantization off and a float32 KV cache nothing rounds to levels:
+   logits within 1e-4 of the largest and greedy
    tokens identical, kernels vs plain versions, paged vs contiguous and
    speculative vs not;
 3. time phase — in bfloat16 (the config's compute dtype): each kernel at
@@ -93,7 +94,32 @@ It builds the four CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
    tree (k=6, γ=3, quantizers off) gives the non-speculative drive's
    tokens.
 
-5. train phase — with every serving tree freed, BWQ-A training through
+5. MoE phase — with the phi3 trees freed, the MoE family at full width:
+   granite-moe-3b-a800m (all 32 layers, 40 experts top-8, random weights
+   from seed 0, bf16) deployed packed int8 and int4 and as mixed-width bit
+   planes (its composed weights equal the packed deploy's), served
+   one-shot (B=4, 128-token prompts, 32 new, 16-token pages) through the
+   kernels against the plain versions under the exact ``ragged``
+   dispatch: quantizers off in f32 (tokens identical, logits within
+   ``EXACT_TOL_REL``), 8-bit activations with int8 and int4 KV in bf16
+   (``QUANT_TOL_REL``), and the bit-plane tree through ``bitplane_matmul``.
+   The router's top-k is a discrete choice: where the two runs' sums put
+   a token across a near-tie they would route it to other experts, so
+   each plain run takes its kernel run's routing (:class:`RouteTrace`),
+   and the choices its own router would have flipped are counted with
+   their router gaps.  The
+   ``capacity`` dispatch (8 new tokens, contiguous) runs every expert
+   through ``packed_matmul`` (M=8 at decode, 208 at prefill).  Every
+   drive is counted (:func:`layer_matmuls`).  The ragged grouped product
+   is timed a layer and whether a row's bits depend on its group's size
+   recorded; ``packed_matmul`` is timed at the expert shapes.  The
+   scheduler trace runs through the launcher on the MoE tree (bf16 int8 /
+   int8 KV, then quantizers off in f32 against one-shot runs).  Last,
+   llama4-scout-17b-a16e at full width cut to 2 layers (top-1 routing, a
+   shared expert, G=5 at d_head 128, a 202048-wide tied head), quantizers
+   off and on.
+
+6. train phase — with every serving tree freed, BWQ-A training through
    the train launcher's ``main`` (``python -m repro_torch.launch.train``),
    in process: full-width phi3 (32 layers, bf16 compute, f32 master
    weights, 8x128 blocks, 8-bit PACT, remat) in fake mode, 8 steps of
@@ -112,7 +138,8 @@ It builds the four CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
    deploy s, peak memory, bit-width and compression are reported.
 
 Output: a ``{"train": {...}}`` line with the train phase's figures and
-the card, a ``{"kernels": [...]}`` JSON line, the card's name and power
+the card, a ``{"moe": {...}}`` line with the MoE phase's, a
+``{"kernels": [...]}`` JSON line, the card's name and power
 limit, and as the last line ``{"ok": true, "device": {...}}``.  Details go
 to ``chiprun_out/chip_smoke_detail.json``.  Any failure exits non-zero; so
 does a machine without CUDA, or a directory without the repository.
@@ -142,6 +169,11 @@ BM_TOL_REL = 1e-4               # bitplane_matmul: the same rule
 PQ_TOL_REL = 1e-6
 PA_TOL = 1e-4                   # paged_attention: |err| <= 1e-4 (abs)
 EXACT_TOL_REL = 1e-4            # quantizer-free path: logits vs plain
+# quantizer-free MoE runs: a plain run's router may choose other experts
+# than the kernel run's only where its top-k boundary gap in router logits
+# is below this (measured flips <= 1.05e-5; median gaps 0.049 granite,
+# 0.51 llama4-scout)
+ROUTE_TIE_GAP = 1e-3
 # Quantized path (8-bit activations), logits while token prefixes agree,
 # relative to the largest logit, by KV-cache bits.  Set between the noise
 # of two summation orders and planted faults (H100, f32 unless noted):
@@ -152,6 +184,9 @@ EXACT_TOL_REL = 1e-4            # quantizer-free path: logits vs plain
 #     0.023 / 0.025, bf16 0.099.
 QUANT_TOL_REL = {8: 0.08, 4: 0.25}
 SPEC = ((4, 4), (6, 3))         # (speculate_planes, draft_gamma)
+# new tokens of the path phase's host-CPU witness: cut from NEW to keep
+# the smoke's run time (the MoE phase came after it) within its budget
+WITNESS_NEW = 8
 
 
 def log(*a):
@@ -288,11 +323,15 @@ def kernel_phase():
 
 
 T_LONG = 4224                   # a long context's cache width (page 128)
+# (G, d_head) of the MoE models' attention, 8 KV heads each:
+# granite-moe-3b-a800m, llama4-scout-17b-a16e
+MOE_HEADS = ((3, 64), (5, 128))
 
 
 def attention_pool(bits, kvh, t, page, *, g=1, paged=False, seed=1,
-                   b=B):
-    """Random K/V for ``b`` slots of ``t`` positions, quantized as the
+                   b=B, dh=96):
+    """Random K/V for ``b`` slots of ``t`` positions (head width ``dh``),
+    quantized as the
     cache stores them, as a page pool with its block table: the contiguous
     cache's identity view (``page`` = the cache's page), or ``paged``: the
     same pages shuffled behind a random table with the trash page 0 in
@@ -300,9 +339,9 @@ def attention_pool(bits, kvh, t, page, *, g=1, paged=False, seed=1,
     import torch
     from repro_torch.models.attention import _as_pool, quantize_kv
     gen = torch.Generator(device=DEV).manual_seed(seed)
-    kf = torch.randn((b, t, kvh, 96), generator=gen, device=DEV)
-    vf = torch.randn((b, t, kvh, 96), generator=gen, device=DEV)
-    q = torch.randn((b, kvh, g, 96), generator=gen, device=DEV)
+    kf = torch.randn((b, t, kvh, dh), generator=gen, device=DEV)
+    vf = torch.randn((b, t, kvh, dh), generator=gen, device=DEV)
+    q = torch.randn((b, kvh, g, dh), generator=gen, device=DEV)
     if bits in (8, 4):
         (kq, ks), (vq, vs) = quantize_kv(kf, bits), quantize_kv(vf, bits)
         pool = [_as_pool(a, page) for a in (kq, vq, ks, vs)]
@@ -345,7 +384,9 @@ def attention_kernel_phase():
     boundaries, a window that empties the leading splits or spans a
     boundary); G=4 with softcap at long context; G=12 (two query-head
     groups a launch) with softcap, int8 and f32 pools, at the decode
-    shape and at long context paged."""
+    shape and at long context paged; the MoE models' heads (granite's
+    G=3 at d_head 64, llama4-scout's G=5 at 128, 8 KV heads) for int8,
+    int4 and f32 pools at the decode shape and at long context paged."""
     import torch
     from repro_torch.kernels import paged_attention
     from repro_torch.kernels.ref import paged_attention_ref
@@ -423,6 +464,18 @@ def attention_kernel_phase():
                                         paged=True, seed=11 + bits)
         case("G=12 long paged softcap", bits, q, pool,
              trash_tails(table, long_lens, PAGE), long_lens, softcap=30.0)
+    for g, dh in MOE_HEADS:
+        for bits in (8, 4, 32):
+            q, pool, ident = attention_pool(bits, 8, t, page, g=g, dh=dh,
+                                            seed=20 + g + bits)
+            case(f"G={g} dh={dh} decode", bits, q, pool, ident,
+                 lens(P + 1, P + 17, 1, t))
+            q, pool, table = attention_pool(bits, 8, T_LONG, PAGE, g=g,
+                                            dh=dh, paged=True,
+                                            seed=21 + g + bits)
+            kv_len = lens(4096, 2000, 1057, T_LONG)
+            case(f"G={g} dh={dh} long paged", bits, q, pool,
+                 trash_tails(table, kv_len, PAGE), kv_len)
     return out
 
 
@@ -665,13 +718,26 @@ def counted(fn, expect):
     return res
 
 
+def layer_matmuls(cfg, impl="ragged"):
+    """Deployed 2-D weight matmuls a layer makes in one forward: a dense
+    layer's 4 attention projections and its MLP's (3 SwiGLU, 2 GELU); an
+    MoE layer's 4 projections, the shared expert's 3 and, under
+    ``capacity`` dispatch only, 3 a routed expert (the ``ragged`` product
+    multiplies the dequantized expert stack with plain torch)."""
+    if not cfg.n_experts:
+        return 4 + (3 if cfg.mlp_kind == "swiglu" else 2)
+    return 4 + 3 * bool(cfg.n_shared_experts) \
+        + (3 * cfg.n_experts if impl == "capacity" else 0)
+
+
 def expected_launches(n_layers, forwards, decode_steps,
-                      matmul="packed_matmul"):
-    """7 projections a layer a forward through ``matmul``; one fused
-    attention read a layer a single-token forward; nothing else."""
+                      matmul="packed_matmul", per_layer=7):
+    """``per_layer`` projections a layer a forward through ``matmul`` (7
+    for phi3; :func:`layer_matmuls`); one fused attention read a layer a
+    single-token forward; nothing else."""
     out = {"packed_matmul": 0, "paged_attention": n_layers * decode_steps,
            "bitplane_matmul": 0, "pact_quant": 0}
-    out[matmul] = 7 * n_layers * forwards
+    out[matmul] = per_layer * n_layers * forwards
     return out
 
 
@@ -811,8 +877,8 @@ def path_phase(deployed, tok):
             host = ServeEngine(api, witness_tree, kv_quant_bits=kv,
                                backend="dense", attn_backend="ref",
                                device="cpu")
-            run["witness_vs_plain"] = compare(greedy(host, tok.cpu(), NEW),
-                                              plain)
+            run["witness_vs_plain"] = compare(
+                greedy(host, tok.cpu(), WITNESS_NEW), plain)
             run["witness_s"] = time.perf_counter() - t0
         log(f"int{bits} kv{kv} act{act}: " + "; ".join(
             f"{k} err {v['err']:.3g} tokens {v['token_agreement']:.3f} "
@@ -892,9 +958,12 @@ LAYER_LEAVES = (("attn", "wq"), ("attn", "wk"), ("attn", "wv"),
 def deploy_bitplane(qat):
     """The QAT tree with every block's bit-width drawn from {0..8} with
     odds ``BW_PROB`` (seed 7; mixed masks with empty blocks, as BWQ
-    training leaves a tree), deployed to ``layout="bitplane"``, bits 8.  Leaf by leaf and layer by
-    layer, its composed weights must equal those of the packed deploy of
-    the same tree, element for element.  Returns the tree and a record."""
+    training leaves a tree), deployed to ``layout="bitplane"``, bits 8.
+    Every quantized leaf of the layers is drawn, in tree order (phi3's
+    ``LAYER_LEAVES``; an MoE tree's attention projections and expert
+    stacks).  Leaf by leaf and layer by layer, its composed weights must
+    equal those of the packed deploy of the same tree, element for
+    element.  Returns the tree and a record."""
     import torch
     from repro_torch.core.fakequant import FakeQuantTensor
     from repro_torch.serve.deploy import (bitplane_serving_compose,
@@ -903,9 +972,13 @@ def deploy_bitplane(qat):
     g = torch.Generator(device=DEV).manual_seed(7)
     odds = torch.tensor(BW_PROB, dtype=torch.float32, device=DEV)
     layers = dict(qat["layers"])
-    for sub, name in LAYER_LEAVES:
+    leaves = [(sub, name) for sub, tree in layers.items()
+              if isinstance(tree, dict) for name, leaf in tree.items()
+              if isinstance(leaf, FakeQuantTensor)]
+    assert leaves and all(n in layers[s] for s, n in LAYER_LEAVES
+                          if s in layers), leaves
+    for sub, name in leaves:
         fq = layers[sub][name]
-        assert isinstance(fq, FakeQuantTensor)
         bw = torch.multinomial(odds, fq.bitwidth.numel(), replacement=True,
                                generator=g).reshape(fq.bitwidth.shape)
         layers[sub] = dict(layers[sub])
@@ -914,7 +987,7 @@ def deploy_bitplane(qat):
     mixed = dict(qat, layers=layers)
     bp = to_serving_params(mixed, 8, layout="bitplane", device=DEV)
     rec = {"compose_equal_layers": 0, "leaves": {}}
-    for sub, name in LAYER_LEAVES:
+    for sub, name in leaves:
         packed = to_serving_params({"w": mixed["layers"][sub][name]}, 8,
                                    device=DEV)["w"]
         leaf = bp["layers"][sub][name]
@@ -1151,12 +1224,13 @@ SCHED_ONESHOT = 8               # quantizer-free requests rerun one-shot
 SCHED_SPEC = (6, 3)             # (speculate_planes, draft_gamma)
 
 
-def sched_argv(size=("--no-tiny",), extra=()):
-    """The scheduler phase's launcher flags: full-width phi3 (``size``)
-    through the kernels, 8 slots, 16-token pages, 256-token chunks,
-    overcommit 1.5 over ``SCHED_PAGES`` pages, prefix cache, priorities
-    cycling {0, 1}, 24 requests from seed 0 arriving every 2 ticks."""
-    return ["--arch", ARCH, *size, "--device", DEV, "--requests",
+def sched_argv(size=("--no-tiny",), extra=(), arch=ARCH):
+    """The scheduler phase's launcher flags: full-width ``arch`` (phi3
+    unless named; ``size``) through the kernels, 8 slots, 16-token pages,
+    256-token chunks, overcommit 1.5 over ``SCHED_PAGES`` pages, prefix
+    cache, priorities cycling {0, 1}, 24 requests from seed 0 arriving
+    every 2 ticks."""
+    return ["--arch", arch, *size, "--device", DEV, "--requests",
             "--backend", "kernel", "--attn-backend", "fused",
             "--batch", str(len(SCHED_WIDTHS)), "--n-slots", str(SCHED_SLOTS),
             "--arrival-gap", "2", "--page-size", str(PAGE),
@@ -1210,10 +1284,13 @@ class TickTimer:
 class MatmulCapture:
     """Observer around the model's two weight-matmul wrappers
     (``models.common.packed_matmul`` and ``bitplane_matmul``): the first
-    call of a drive at each (kernel, M, K, N, x dtype) is kept (x and the
-    output copied, the weight operands referenced) and, after the drive,
-    held against the plain version within ``PM_TOL_REL`` / ``BM_TOL_REL``
-    of its largest |value|.  Every call still goes to the wrapper."""
+    call of a drive at each (kernel, M, K, N, x dtype) whose x has a
+    nonzero row is kept (x and the output copied, the weight operands
+    referenced; a ``capacity`` window past an expert's rows is all zero,
+    so each call at a shape is read on the host until one is live) and,
+    after the drive, held against the plain version within
+    ``PM_TOL_REL`` / ``BM_TOL_REL`` of its largest |value|.  Every call
+    still goes to the wrapper."""
 
     NAMES = ("packed_matmul", "bitplane_matmul")
 
@@ -1221,7 +1298,7 @@ class MatmulCapture:
         from repro_torch.models import common
         self.mod = common
         self.orig = {n: getattr(common, n) for n in self.NAMES}
-        self.calls = {}
+        self.calls, self.live = {}, set()
 
     def __enter__(self):
         for name, fn in self.orig.items():
@@ -1236,8 +1313,12 @@ class MatmulCapture:
         def call(x, *ops, **kw):
             y = fn(x, *ops, **kw)
             key = (name, x.shape[0], x.shape[1], y.shape[1], str(x.dtype))
-            if key not in self.calls:
-                self.calls[key] = (x.clone(), ops, kw, y.clone())
+            if key not in self.live:
+                live = int(x.abs().amax(-1).gt(0).sum())
+                if live or key not in self.calls:
+                    self.calls[key] = (x.clone(), ops, kw, y.clone(), live)
+                if live:
+                    self.live.add(key)
             return y
         return call
 
@@ -1247,7 +1328,7 @@ class MatmulCapture:
         rows = []
         for key in sorted(self.calls):
             name, m, k, n, dt = key
-            x, ops, kw, got = self.calls[key]
+            x, ops, kw, got, live = self.calls[key]
             if name == "packed_matmul":
                 want = packed_matmul_ref(x, *ops, kw["bits"], kw["wbr"],
                                          kw["wbc"])
@@ -1258,11 +1339,13 @@ class MatmulCapture:
             err = float((got.float() - want.float()).abs().max())
             tol = rel * float(want.abs().max())
             rows.append(dict(kernel=name, case="captured drive call", m=m,
-                             k=k, n=n, x=dt, err=err, tol=tol))
-            if not (err <= tol and got.shape == want.shape and
+                             k=k, n=n, x=dt, live_rows=live, err=err,
+                             tol=tol))
+            if not (live and err <= tol and got.shape == want.shape and
                     bool(got.isfinite().all())):
                 raise AssertionError(f"{name} on a drive's call: {rows[-1]}")
         self.calls.clear()
+        self.live.clear()
         return rows
 
 
@@ -1293,30 +1376,34 @@ def launch(argv, params=None):
 
 
 def tick_launches(sched, matmul):
-    """Launches a drive makes, from the scheduler's own tick log: 7 per
-    layer for every forward (a prompt insert or chunk, a decode step, a
-    draft step, a verify), one ``paged_attention`` per layer for every
-    single-token forward (decode, draft, a 1-token chunk)."""
+    """Launches a drive makes, from the scheduler's own tick log: the
+    model's :func:`layer_matmuls` per layer for every forward (a prompt
+    insert or chunk, a decode step, a draft step, a verify), one
+    ``paged_attention`` per layer for every single-token forward (decode,
+    draft, a 1-token chunk)."""
+    from repro_torch.models.moe import GROUPED_IMPL
     log = sched.tick_log
+    cfg = sched.engine.api.cfg
     fwd = sum(len(r["inserts"]) + r["decode"] + r["draft"]
               + (r["verify"] > 0) for r in log)
     single = sum(r["decode"] + r["draft"]
                  + sum(w == 1 for w in r["inserts"]) for r in log)
-    return expected_launches(sched.engine.api.cfg.n_layers, fwd, single,
-                             matmul)
+    return expected_launches(cfg.n_layers, fwd, single, matmul,
+                             layer_matmuls(cfg, GROUPED_IMPL["impl"]))
 
 
 class TickCapture:
     """Observer around ``models.attention.paged_attention`` (the fused
     read every decode step makes): the first layer-0 call whose state has
     ragged fill levels, a free row, two slots aliasing one page and a
-    capacity past 1024 is copied out (query, layer-0 pool, table, kv_len).
-    Copies only; every call still goes to the wrapper."""
+    capacity past 1024 (with ``first``, the first layer-0 call) is copied
+    out (query, layer-0 pool, table, kv_len).  Copies only; every call
+    still goes to the wrapper."""
 
-    def __init__(self):
+    def __init__(self, first=False):
         from repro_torch.models import attention
         self.mod, self.orig = attention, attention.paged_attention
-        self.case, self.layer0_calls = None, 0
+        self.case, self.layer0_calls, self.first = None, 0, first
 
     def __enter__(self):
         self.mod.paged_attention = self
@@ -1336,19 +1423,45 @@ class TickCapture:
             aliased = any(pages[a] & pages[b]
                           for a in range(len(pages))
                           for b in range(a + 1, len(pages)))
-            if cap > 1024 and bool((~live).any()) and aliased and \
-                    len(set(lens[live].tolist())) >= 2:
+            if self.first or cap > 1024 and bool((~live).any()) and \
+                    aliased and len(set(lens[live].tolist())) >= 2:
                 self.case = dict(
-                    q=q.clone(), pool=[x.clone() for x in (k, v, ks, vs)],
+                    q=q.clone(), pool=[None if x is None else x.clone()
+                                        for x in (k, v, ks, vs)],
                     table=table.clone(), kv_len=kv_len.clone(),
                     window=kw.get("window"), softcap=kw.get("softcap", 0.0),
                     call=self.layer0_calls)
         return out
 
 
+def attention_check(case, name):
+    """``paged_attention`` on a captured call (:class:`TickCapture`)
+    against its plain version, within ``PA_TOL``, launched twice bit for
+    bit.  Returns the record, the kernel's output and the plain one."""
+    import torch
+    from repro_torch.kernels import paged_attention
+    from repro_torch.kernels.ref import paged_attention_ref
+    q, pool, table, kv_len = (case["q"], case["pool"], case["table"],
+                              case["kv_len"])
+    kw = dict(window=case["window"], softcap=case["softcap"])
+    a = paged_attention(q, *pool, table, kv_len, **kw)
+    b = paged_attention(q, *pool, table, kv_len, **kw)
+    torch.cuda.synchronize()
+    want = paged_attention_ref(q, *pool, table, kv_len, **kw)
+    bsz, kvh, g, dh = q.shape
+    rec = dict(case=name, kv_dtype=str(pool[0].dtype), b=bsz, kv=kvh, g=g,
+               dh=dh, page=pool[0].shape[1], nb=table.shape[1],
+               kv_len=kv_len.tolist(), err=float((a - want).abs().max()),
+               tol=PA_TOL, identical=bool(torch.equal(a, b)),
+               finite=bool(torch.isfinite(a).all()))
+    if not (rec["err"] <= PA_TOL and rec["identical"] and rec["finite"]):
+        raise AssertionError(f"paged_attention on a captured call: {rec}")
+    return rec, a, want
+
+
 def captured_tick_case(case):
     """``paged_attention`` on the captured decode tick against its plain
-    version (within ``PA_TOL``), twice bit for bit; then timed, the pool
+    version (:func:`attention_check`); then timed, the pool
     rotated through copies past the 50 MB L2 (each layer's pool is read
     once a tick, behind the other layers' weights), beside the same tick
     with the free rows' kv_len set to 0 (what decoding the trash rows
@@ -1367,11 +1480,8 @@ def captured_tick_case(case):
     q, pool, table, kv_len = (case["q"], case["pool"], case["table"],
                               case["kv_len"])
     kw = dict(window=case["window"], softcap=case["softcap"])
-    a = paged_attention(q, *pool, table, kv_len, **kw)
-    b = paged_attention(q, *pool, table, kv_len, **kw)
-    torch.cuda.synchronize()
-    want = paged_attention_ref(q, *pool, table, kv_len, **kw)
-    err = float((a - want).abs().max())
+    chk, a, want = attention_check(case, "captured scheduler tick")
+    err = chk["err"]
     row_err = (a - want).abs().amax(dim=(1, 2, 3)).tolist()
     free = ~(table != 0).any(1)
     kv0 = torch.where(free, torch.zeros_like(kv_len), kv_len)
@@ -1430,16 +1540,13 @@ def captured_tick_case(case):
                aliased_pages=int((shared > 1).sum()),
                splits=plan.splits, chunk=plan.chunk, err=err, tol=PA_TOL,
                row_err=row_err, ref_max=float(want.abs().max()),
-               identical=bool(torch.equal(a, b)),
-               finite=bool(torch.isfinite(a).all()),
+               identical=chk["identical"], finite=chk["finite"],
                ms=ms, device_ms=dev, host_ms=host,
                free_rows_zero_ms=ms0, free_rows_zero_device_ms=dev0,
                free_rows_zero_host_ms=host0, plain_ms=plain, library_ms=lib,
                library_device_ms=lib_dev, library_host_ms=lib_host,
                bound_ms=bound, bound_by=by, bytes=nbytes, flops=flops,
                positions_read=read, layer0_call=case["call"])
-    if not (err <= PA_TOL and rec["identical"] and rec["finite"]):
-        raise AssertionError(f"paged_attention on the captured tick: {rec}")
     return rec
 
 
@@ -1613,6 +1720,431 @@ def scheduler_phase(bp, size=("--no-tiny",)):
         f"acceptance {out['speculative']['acceptance']:.3f}; tokens equal "
         f"the non-speculative drive's")
     return out
+
+
+# ---------------------------------------------------------------------------
+# MoE phase
+# ---------------------------------------------------------------------------
+
+MOE_ARCH = "granite-moe-3b-a800m"
+SCOUT_ARCH = "llama4-scout-17b-a16e"
+# llama4-scout at full width holds ~2.2 B weights a layer: 48 layers do
+# not fit one card in int8 (and its f32 QAT tree not at all), so its leg
+# is cut to 2 layers
+SCOUT_LAYERS = 2
+# (weights, KV bits, activation bits, dtype) of the one-shot MoE drives:
+# quantizer-free in f32, then the registered quantization in bf16 with
+# int8 and int4 caches
+MOE_RUNS = ((8, 32, 32, "float32"), (8, 8, 8, "bfloat16"),
+            (4, 4, 8, "bfloat16"))
+MOE_BP_RUNS = ((32, 32, "float32"), (8, 8, "bfloat16"))
+MOE_CAP_NEW = 8                 # the capacity-dispatch one-shot's tokens
+MOE_ONESHOT = 4                 # quantizer-free requests rerun one-shot
+# (K, N) of a routed expert's projections: gate and up, then down
+MOE_EXPERT_SHAPES = ((1536, 512), (512, 1536))
+
+
+def moe_config(arch, act_bits, dtype, size=("--no-tiny",), n_layers=0):
+    """The registered ``arch`` at ``dtype`` with ``act_bits`` PACT
+    activations (its 8x128 blocks; with ``size`` ``--tiny`` the launcher's
+    tiny config and 9x8 blocks), cut to ``n_layers`` when given."""
+    from repro_torch.configs import REGISTRY, QuantConfig
+    base = REGISTRY[arch]
+    if size == ("--tiny",):
+        base = base.tiny(dtype=dtype).with_quant(
+            QuantConfig(mode="fake", n_bits=8, act_bits=act_bits))
+    else:
+        base = dataclasses.replace(base, dtype=dtype)
+        base = base.with_quant(dataclasses.replace(base.quant,
+                                                   act_bits=act_bits))
+    if n_layers:
+        base = dataclasses.replace(base, n_layers=n_layers)
+    return base
+
+
+class RouteTrace:
+    """Observer around ``models.moe._route``, the router's top-k choice:
+    each call's experts (T, k), the experts this run's own router chose
+    and the top-k boundary's gap in its router logits (the k-th largest
+    less the (k+1)-th) are kept on the host.  With ``replay`` (another
+    run's trace) each call takes that run's experts instead of its own,
+    its gates renormalized from this run's probabilities: the same drive
+    with its routing forced to the other run's."""
+
+    def __init__(self, replay=None):
+        from repro_torch.models import moe
+        self.mod, self.orig = moe, moe._route
+        self.replay, self.calls = replay, []
+
+    def __enter__(self):
+        self.mod._route = self
+        return self
+
+    def __exit__(self, *exc):
+        self.mod._route = self.orig
+
+    def __call__(self, xt, router_w, top_k):
+        import torch
+        probs, gates, idx = self.orig(xt, router_w, top_k)
+        own = idx
+        if self.replay is not None:
+            idx = self.replay.calls[len(self.calls)]["idx"].to(idx.device)
+            gates = torch.gather(probs, 1, idx)
+            gates = gates / torch.sum(gates, -1, keepdim=True)
+        srt = torch.sort(probs, dim=-1, descending=True).values
+        gap = torch.log(srt[:, top_k - 1]) - torch.log(srt[:, top_k]) \
+            if top_k < probs.shape[-1] else torch.full_like(srt[:, 0],
+                                                             math.inf)
+        self.calls.append({"idx": idx.cpu(), "own": own.cpu(),
+                           "gap": gap.cpu()})
+        return probs, gates, idx
+
+
+def route_flips(trace, n_calls):
+    """Where a forced run's own router would have chosen other experts
+    than the ones it was given (token-layer choices, each on the same
+    routing history), over its first ``n_calls`` router calls (those fed
+    the tokens the kernel run was fed): the count of all choices and this
+    run's top-k boundary gaps in router logits there, against the median
+    gap."""
+    import torch
+    gaps, total = [], 0
+    calls = trace.calls[:n_calls]
+    for call in calls:
+        forced = torch.sort(call["idx"], dim=1).values
+        own = torch.sort(call["own"], dim=1).values
+        diff = (forced != own).any(1)
+        total += int(diff.numel())
+        gaps += call["gap"][diff].tolist()
+    return dict(choices=total, flipped=len(gaps),
+                max_gap=max(gaps) if gaps else None,
+                gaps=sorted(gaps)[:16],
+                median_gap=float(torch.cat([c["gap"] for c in calls])
+                                 .median()) if calls else None)
+
+
+def moe_pair(cfg, tree, tok, kv, backend="kernel", new=None, page=None,
+             impl="ragged"):
+    """One configuration through the kernels (``backend``, ``fused``
+    attention; warmed up with ``generate``, then counted) and through the
+    plain versions, under the ``impl`` dispatch.  The router is a
+    discrete choice: where the two runs' sums, in another order, put a
+    token on the other side of a near-tie at the top-k boundary, they
+    would route it to other experts, and from there the runs part by far
+    more than float noise.  So the plain run takes the kernel run's
+    routing (:class:`RouteTrace`), and the choices its own router would
+    have made otherwise are counted with their gaps
+    (:func:`route_flips`); :func:`check_moe` allows a flip only at a
+    near-tie.  The kernel run's first weight-matmul call at each shape
+    (:class:`MatmulCapture`) and its first layer-0 attention read
+    (:class:`TickCapture`) are held against the plain versions after its
+    counts are read."""
+    import torch
+    from repro_torch.models.api import build
+    from repro_torch.models.moe import GROUPED_IMPL
+    from repro_torch.serve.engine import ServeEngine
+    new = NEW if new is None else new
+    page = PAGE if page is None else page
+    api = build(cfg)
+    matmul = "bitplane_matmul" if backend == "bitplane" else "packed_matmul"
+    fwd = (tok.shape[0] if page else 1) + new - 1
+    want = expected_launches(cfg.n_layers, fwd, new - 1, matmul,
+                             layer_matmuls(cfg, impl))
+    GROUPED_IMPL["impl"] = impl
+    try:
+        ker = ServeEngine(api, tree, kv_quant_bits=kv, backend=backend,
+                          attn_backend="fused", device=DEV)
+        warm = ker.generate({"tokens": tok}, max_new=2).cpu()
+        with RouteTrace() as k_routes, MatmulCapture() as mm, \
+                TickCapture(first=True) as cap:
+            k = counted(lambda: greedy(ker, tok, new, page=page), want)
+        matmul_calls = mm.check()
+        attention, _, _ = attention_check(cap.case, "first decode read")
+        del ker, mm, cap
+        ref = ServeEngine(api, tree, kv_quant_bits=kv, backend="ref",
+                          attn_backend="ref", device=DEV)
+        with RouteTrace(replay=k_routes) as p_routes:
+            p = greedy(ref, tok, new, page=page)
+        del ref
+    finally:
+        GROUPED_IMPL["impl"] = "ragged"
+    c = compare(k, p)
+    # forwards fed the same tokens: the prompt's, then the decode steps
+    # before the first step whose tokens part
+    same = (tok.shape[0] if page else 1) + (
+        c["first_diff"][1] if c["first_diff"] else new)
+    return dict(arch=cfg.name, layers=cfg.n_layers, backend=backend,
+                impl=impl, kv=kv, act_bits=cfg.quant.act_bits,
+                dtype=cfg.dtype, page=page, new=new,
+                tokens=k["tokens"].tolist(), launches=k["launches"],
+                generate_prefix_equal=None if page else torch.equal(
+                    warm, k["tokens"][:, :2]),
+                prefill_ms=k["prefill_ms"],
+                decode_ms_per_step=k["decode_ms_per_step"],
+                plain_decode_ms_per_step=p["decode_ms_per_step"],
+                routes=route_flips(p_routes, same * cfg.n_layers),
+                matmul_calls=matmul_calls, attention=attention,
+                kernel_vs_plain=c)
+
+
+def moe_log(r):
+    c, rt = r["kernel_vs_plain"], r["routes"]
+    log(f"{r['arch']} ({r['layers']} layers) {r['backend']} {r['impl']} "
+        f"w{r['bits']} kv{r['kv']} act{r['act_bits']} {r['dtype']}: kernel "
+        f"vs plain err {c['err']:.3g} tokens {c['token_agreement']:.3f} "
+        f"first diff {c['first_diff']}; plain router would flip "
+        f"{rt['flipped']}/{rt['choices']} choices, largest gap "
+        f"{rt['max_gap']}; decode {r['decode_ms_per_step']:.2f} ms/step")
+
+
+def grouped_case(tree, cfg, tokens, seed=11):
+    """Layer 0's three ragged grouped products (dequantize the expert
+    stack, one batched product of the row groups) at ``tokens`` routed
+    tokens: timed (``cuda_ms``, bf16 x), the rows the product pads to
+    against the real ones (E x the largest group over T x k), and each
+    group's first and last row (of a group of two or more) multiplied
+    again alone, their bits against the group's: whether a row's result
+    depends on how many rows share its expert."""
+    import torch
+    from repro_torch.models.common import qdense
+    from repro_torch.models.moe import _grouped, grouped_matmul
+    moe = {n: w.layer(0) if hasattr(w, "layer") else w[0]
+           for n, w in tree["layers"]["moe"].items()}
+    e, k = cfg.n_experts, cfg.top_k
+    g = torch.Generator(device=DEV).manual_seed(seed)
+    rows = tokens * k
+    experts = torch.randint(0, e, (rows,), generator=g, device=DEV)
+    sizes = torch.bincount(experts, minlength=e).tolist()
+    x = torch.randn((rows, cfg.d_model), generator=g, device=DEV,
+                    dtype=torch.bfloat16)
+
+    def layer():
+        gate = _grouped(x, moe["expert_gate"], sizes)
+        up = _grouped(x, moe["expert_up"], sizes)
+        return _grouped(torch.nn.functional.silu(gate) * up,
+                        moe["expert_down"], sizes)
+
+    ms = cuda_ms(layer, iters=5, warmup=2)
+    w = qdense(moe["expert_gate"], torch.bfloat16)
+    y = grouped_matmul(x, w, sizes)
+    start, checked, equal, diff = 0, 0, 0, 0.0
+    for grp, size in enumerate(sizes):
+        for row in ((start, start + size - 1) if size >= 2 else ()):
+            alone = grouped_matmul(x[row:row + 1], w[grp:grp + 1], [1])
+            checked += 1
+            equal += bool(torch.equal(alone[0], y[row]))
+            diff = max(diff, float((alone[0].float()
+                                    - y[row].float()).abs().max()))
+        start += size
+    padded = e * max(max(sizes), 2)
+    return dict(tokens=tokens, rows=rows, groups=sum(s > 0 for s in sizes),
+                padded_rows=padded, padding_ratio=padded / rows,
+                ms=ms, rows_checked=checked, rows_equal=equal,
+                row_independent=checked == equal, max_abs_diff=diff)
+
+
+def moe_scheduler(tree, size=("--no-tiny",)):
+    """The scheduler trace (``SCHED_*``) through the launcher on the MoE
+    tree (``ragged``): bf16 with int8 weights, activations and KV (its
+    captured decode tick held against the plain version and timed,
+    :func:`captured_tick_case`), then
+    quantizers off in f32, whose requests are held against one-shot runs
+    (:func:`oneshot_rule`).  Both drives are counted against their tick
+    logs and checked by :func:`drive_record`."""
+    import torch
+    out = {}
+    with TickCapture() as cap:
+        main = launch(sched_argv(size, ["--kv-bits", "8"], arch=MOE_ARCH),
+                      params=tree)
+    rec = out["main"] = drive_record(main, "packed_matmul")
+    rep = rec["cache_report"]
+    assert rep["preemptions"] >= 1 and \
+        rep["resumes"] == rep["preemptions"], rep
+    assert rep["prefix_hits"] >= 1, rep
+    assert {SCHED_SLOTS, SCHED_CHUNK} <= {r["m"] for r in rec["matmul_calls"]}
+    assert cap.case is not None, "no decode tick met the capture rule"
+    out["captured_tick"] = captured_tick_case(cap.case)
+    del main, cap
+    log(f"{MOE_ARCH} scheduler drive: {rec['ticks']} ticks, "
+        f"{rec['generated_tokens']} tokens, {rec['tokens_per_s']:.1f} tok/s, "
+        f"decode tick {rec['decode_tick_ms']:.1f} ms, chunk tick "
+        f"{rec['chunk_tick_ms']:.1f} ms")
+    off = launch(sched_argv(size, ["--kv-bits", "32", "--act-bits", "32",
+                                   "--dtype", "float32"], arch=MOE_ARCH),
+                 params=tree)
+    rec_off = out["quantizers_off"] = drive_record(off, "packed_matmul")
+    for key in ("ticks", "admitted", "finished", "parked"):
+        assert rec_off[key] == rec[key], (key, rec_off[key], rec[key])
+    out["oneshot"] = oneshot_rule(off, MOE_ONESHOT)
+    del off
+    torch.cuda.empty_cache()
+    return out
+
+
+def moe_phase(size=("--no-tiny",)):
+    """The MoE family at full width (``size``): granite-moe-3b-a800m, all
+    32 layers, deployed packed int8 and int4 and bit-plane (mixed
+    widths), one-shot through the kernels against the plain versions
+    (paged, ``ragged``; then ``capacity``, contiguous), the grouped
+    product timed and its row independence recorded, ``packed_matmul``
+    timed at the expert shapes, the scheduler drive; then
+    llama4-scout-17b-a16e at full width cut to ``SCOUT_LAYERS`` layers.
+    Returns the readings; :func:`check_moe` judges them."""
+    import torch
+    from repro_torch.models.api import build
+    from repro_torch.serve.deploy import to_serving_params
+    out = {"runs": []}
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    cfg = moe_config(MOE_ARCH, 8, "bfloat16", size)
+    qat = build(cfg).init(seed=0, device=DEV)
+    packed = {b: to_serving_params(qat, b, device=DEV) for b in (8, 4)}
+    bp, out["bitplane_deploy"] = deploy_bitplane(qat)
+    del qat
+    torch.cuda.empty_cache()
+    out["deploy_s"] = time.perf_counter() - t0
+    tok = torch.randint(0, cfg.vocab, (B, P), device=DEV, dtype=torch.int32,
+                        generator=torch.Generator(device=DEV).manual_seed(3))
+    log(f"{MOE_ARCH}: init and three deploys in {out['deploy_s']:.1f} s")
+
+    for bits, kv, act, dt in MOE_RUNS:
+        r = dict(moe_pair(moe_config(MOE_ARCH, act, dt, size), packed[bits],
+                          tok, kv), bits=bits)
+        out["runs"].append(r)
+        moe_log(r)
+    for kv, act, dt in MOE_BP_RUNS:
+        r = dict(moe_pair(moe_config(MOE_ARCH, act, dt, size), bp, tok, kv,
+                          backend="bitplane"), bits="bitplane")
+        out["runs"].append(r)
+        moe_log(r)
+    del bp
+    for kv, act, dt in ((32, 32, "float32"), (8, 8, "bfloat16")):
+        r = dict(moe_pair(moe_config(MOE_ARCH, act, dt, size), packed[8],
+                          tok, kv, new=MOE_CAP_NEW, page=0,
+                          impl="capacity"), bits=8)
+        out["runs"].append(r)
+        moe_log(r)
+    out["phase1_s"] = time.perf_counter() - t0
+
+    t1 = time.perf_counter()
+    out["grouped"] = [grouped_case(packed[8], cfg, t)
+                      for t in (B, SCHED_SLOTS, SCHED_CHUNK, B * P)]
+    out["expert_matmul"] = [time_packed(m, k, n, 8)
+                            for m in (SCHED_SLOTS, 208)
+                            for k, n in MOE_EXPERT_SHAPES]
+    out["time_s"] = time.perf_counter() - t1
+    for gcase in out["grouped"]:
+        log(f"ragged grouped product, layer 0, {gcase['tokens']} tokens: "
+            f"{gcase['ms']:.3f} ms, padded to {gcase['padding_ratio']:.2f}x "
+            f"the rows; rows alone = in group: "
+            f"{gcase['rows_equal']}/{gcase['rows_checked']}")
+
+    t1 = time.perf_counter()
+    del packed[4]
+    out["scheduler"] = moe_scheduler(packed[8], size)
+    out["scheduler_s"] = time.perf_counter() - t1
+    del packed
+    torch.cuda.empty_cache()
+    out["granite_peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+
+    t1 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    scfg = moe_config(SCOUT_ARCH, 8, "bfloat16", size, SCOUT_LAYERS)
+    qat = build(scfg).init(seed=0, device=DEV)
+    scout = to_serving_params(qat, 8, device=DEV)
+    del qat
+    torch.cuda.empty_cache()
+    stok = torch.randint(0, scfg.vocab, (B, P), device=DEV,
+                         dtype=torch.int32,
+                         generator=torch.Generator(device=DEV).manual_seed(3))
+    for kv, act, dt in ((32, 32, "float32"), (8, 8, "bfloat16")):
+        r = dict(moe_pair(moe_config(SCOUT_ARCH, act, dt, size,
+                                     SCOUT_LAYERS), scout, stok, kv), bits=8)
+        out["runs"].append(r)
+        moe_log(r)
+    del scout
+    torch.cuda.empty_cache()
+    out["scout_s"] = time.perf_counter() - t1
+    out["scout_peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    out["phase_s"] = time.perf_counter() - t0
+    return out
+
+
+def check_moe(res):
+    """Every MoE drive finite, its tokens of the right shape and
+    vocabulary and, contiguous, its ``generate`` warm-up the loop's first
+    tokens; kernels vs plain (on the kernel run's routing): quantizer-free,
+    tokens identical, logits within ``EXACT_TOL_REL`` of the largest and
+    every choice the plain run's own router would have flipped at a
+    near-tie (gap below ``ROUTE_TIE_GAP``); quantized, within
+    ``QUANT_TOL_REL`` for its KV width while prefixes agree.  The
+    captured calls (matmuls, attention) were held in :func:`moe_pair`,
+    the scheduler drives' checks in :func:`moe_scheduler`; no one-shot
+    rerun may part from its request but at a near-tied step."""
+    import torch
+    from repro_torch.configs import REGISTRY
+    for r in res["runs"]:
+        tag = (r["arch"], r["backend"], r["impl"], r["kv"], r["act_bits"])
+        toks = torch.tensor(r["tokens"])
+        assert toks.shape == (B, r["new"]), tag
+        assert 0 <= int(toks.min()) <= int(toks.max()) < \
+            REGISTRY[r["arch"]].vocab, tag
+        assert r["generate_prefix_equal"] is not False, \
+            ("generate vs loop", tag)
+        c = r["kernel_vs_plain"]
+        assert c["finite"], tag
+        if r["act_bits"] >= 32 and r["kv"] >= 32:
+            assert c["err"] <= EXACT_TOL_REL and c["first_diff"] is None, \
+                (tag, c)
+            gap = r["routes"]["max_gap"]
+            assert gap is None or gap < ROUTE_TIE_GAP, (tag, r["routes"])
+        else:
+            assert c["err"] <= QUANT_TOL_REL[r["kv"]], (tag, c)
+    bad = [r for r in res["scheduler"]["oneshot"]
+           if r["parted_at"] is not None and not r["allowed"]]
+    assert not bad, ("MoE scheduler tokens part from one-shot", bad)
+    assert {(r["arch"], r["impl"]) for r in res["runs"]} == {
+        (MOE_ARCH, "ragged"), (MOE_ARCH, "capacity"), (SCOUT_ARCH, "ragged")}
+
+
+def moe_summary(res) -> dict:
+    """The MoE phase's figures for the printout."""
+    def run(arch, backend, impl, kv):
+        r = next(r for r in res["runs"] if (r["arch"], r["backend"],
+                                             r["impl"], r["kv"]) ==
+                 (arch, backend, impl, kv))
+        return {"decode_ms_per_step": r["decode_ms_per_step"],
+                "prefill_ms": r["prefill_ms"],
+                "err": r["kernel_vs_plain"]["err"],
+                "launches": r["launches"]}
+    sm, so = res["scheduler"]["main"], res["scheduler"]["quantizers_off"]
+    return {
+        "arch": MOE_ARCH, "phase_s": res["phase_s"],
+        "ragged_int8_kv8_bf16": run(MOE_ARCH, "kernel", "ragged", 8),
+        "capacity_int8_kv8_bf16": run(MOE_ARCH, "kernel", "capacity", 8),
+        "bitplane_kv8_bf16": run(MOE_ARCH, "bitplane", "ragged", 8),
+        "scout_2_layers_kv8_bf16": run(SCOUT_ARCH, "kernel", "ragged", 8),
+        "scheduler": {k: sm[k] for k in (
+            "ticks", "tokens_per_s", "decode_tick_ms", "chunk_tick_ms",
+            "launches")},
+        "scheduler_f32_tokens_per_s": so["tokens_per_s"],
+        "oneshot_parts": [r["parted_at"] for r in
+                          res["scheduler"]["oneshot"]],
+        "grouped_ms": {g["tokens"]: g["ms"] for g in res["grouped"]},
+        "grouped_padding": {g["tokens"]: g["padding_ratio"]
+                            for g in res["grouped"]},
+        "route_max_gap_f32": max((r["routes"]["max_gap"] or 0.0)
+                                 for r in res["runs"]
+                                 if r["dtype"] == "float32"),
+        "captured_tick_err": res["scheduler"]["captured_tick"]["err"],
+        "row_independent": all(g["row_independent"]
+                               for g in res["grouped"]),
+        "expert_matmul": [{k: r[k] for k in ("m", "k", "n", "ms",
+                                             "device_ms", "bound_ms",
+                                             "library_device_ms")}
+                          for r in res["expert_matmul"]],
+        "peak_mem_gb": max(res["granite_peak_mem_gb"],
+                           res["scout_peak_mem_gb"])}
 
 
 # ---------------------------------------------------------------------------
@@ -2307,6 +2839,8 @@ def main() -> int:
 
     kernels = run(detail)
     print(json.dumps({"train": train_summary(detail)}))
+    print(json.dumps({"moe": dict(moe_summary(detail["moe_phase"]),
+                                  card=smi)}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
@@ -2316,7 +2850,7 @@ def main() -> int:
 
 
 def run(detail) -> list:
-    """The four phases; fills ``detail`` and returns the kernels entries."""
+    """The phases; fills ``detail`` and returns the kernels entries."""
     import torch
     t0 = time.perf_counter()
     detail["kernel_phase"] = kernel_phase()
@@ -2494,6 +3028,11 @@ def run(detail) -> list:
 
     del deployed, bp, tok
     torch.cuda.empty_cache()
+    detail["moe_phase"] = moe_phase()
+    log(f"MoE phase ran in {detail['moe_phase']['phase_s']:.1f} s")
+    save_detail(detail)
+    check_moe(detail["moe_phase"])
+
     t0 = time.perf_counter()
     detail["train_phase"] = train_phase()
     detail["train_phase_s"] = time.perf_counter() - t0

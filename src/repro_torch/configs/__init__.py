@@ -1,10 +1,18 @@
-"""Architecture registry.  The port's first slice serves the dense family,
-so only phi3 is registered; the other architectures arrive with their
+"""Architecture registry: the families the port serves (dense and MoE).
+The ssm, hybrid, vlm and enc-dec architectures arrive with their
 families."""
 from .base import ModelConfig, QuantConfig
+from .deepseek_7b import CONFIG as deepseek_7b
+from .gemma2_27b import CONFIG as gemma2_27b
+from .granite_moe_3b_a800m import CONFIG as granite_moe_3b_a800m
+from .llama4_scout_17b_a16e import CONFIG as llama4_scout_17b_a16e
 from .phi3_mini_3_8b import CONFIG as phi3_mini_3_8b
+from .starcoder2_15b import CONFIG as starcoder2_15b
 
-REGISTRY = {c.name: c for c in [phi3_mini_3_8b]}
+REGISTRY = {c.name: c for c in [
+    granite_moe_3b_a800m, llama4_scout_17b_a16e, phi3_mini_3_8b,
+    starcoder2_15b, deepseek_7b, gemma2_27b,
+]}
 
 
 def get_config(name: str) -> ModelConfig:

@@ -31,10 +31,11 @@ NEG_INF = -2.0e38
 def unpack_bits(packed: torch.Tensor) -> torch.Tensor:
     """(..., K//8, N) uint8 -> (..., K, N) {0, 1} float32 (row-major
     bits: row 8j+r is bit r of byte j)."""
-    return _unpack_bits_u8(packed).to(torch.float32)
+    return unpack_bits_u8(packed).to(torch.float32)
 
 
-def _unpack_bits_u8(packed: torch.Tensor) -> torch.Tensor:
+def unpack_bits_u8(packed: torch.Tensor) -> torch.Tensor:
+    """:func:`unpack_bits` kept in uint8 (a quarter of the bytes)."""
     shifts = torch.arange(8, dtype=torch.uint8, device=packed.device)
     x = (packed.unsqueeze(-2) >> shifts[:, None]) & 1   # (..., K//8, 8, N)
     return x.reshape(*packed.shape[:-2], packed.shape[-2] * 8,
@@ -112,12 +113,12 @@ def bitplane_matmul_ref(x: torch.Tensor, planes: torch.Tensor,
     n = planes.shape[0]
     kp, ncol = mask.shape[-2] * wbr, planes.shape[-1]
     live = expand_mask(mask != 0, wbr, wbc)[..., :ncol]  # (n, Kp, N)
-    bits = _unpack_bits_u8(planes)[:, :kp]
+    bits = unpack_bits_u8(planes)[:, :kp]
     mag = torch.zeros(bits.shape[1:], dtype=torch.int32, device=x.device)
     for b in range(n):
         mag |= (bits[b] & live[b]).to(torch.int32) << b
     del bits, live
-    neg = _unpack_bits_u8(sign)[:kp].bool()
+    neg = unpack_bits_u8(sign)[:kp].bool()
     w = torch.where(neg, -mag, mag).to(torch.float32)
     if scale.ndim == 2:
         w = w * expand_mask(scale.to(torch.float32), wbr, wbc)[:, :ncol]

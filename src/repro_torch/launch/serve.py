@@ -25,8 +25,11 @@ fixes 8 and the config's); ``--prompt-lens``, ``--max-news`` and
 ``--shared-every`` (per-request prompt widths, budgets and prefix
 sharers, each cycled over the requests); ``--validate-every`` (contract
 checks during the run).  ``--no-tiny`` keeps the registered config's
-weight-block geometry (phi3: 8x128); the tiny config takes the reference
-launcher's (9x8).  Prompts come from ``numpy.random.default_rng(seed)``.
+weight-block geometry (8x128 for every registered dense and MoE config);
+the tiny config takes the reference launcher's (9x8).  An MoE
+architecture serves through the dispatch ``models.moe.GROUPED_IMPL``
+selects (exact ``ragged`` unless a caller sets ``capacity``).  Prompts
+come from ``numpy.random.default_rng(seed)``.
 Not ported yet: ``--ckpt``/``--ckpt-step``, ``--lint`` and
 ``--autotune-budget-bytes``.
 

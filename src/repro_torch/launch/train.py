@@ -16,7 +16,8 @@ registered config's weight-block geometry (phi3: 8x128), where the
 reference replaces it with the default 9x8; the tiny config takes the
 reference's 9x8.  A model the port trains thus deploys at the geometry
 its serve launcher serves.  Not ported yet: ``--ckpt-dir`` (checkpoints)
-and ``--mesh`` (distribution).
+and ``--mesh`` (distribution).  The MoE architectures are refused
+(``NotImplementedError``): their training is not ported.
 
 ``main(argv)`` returns the :class:`~repro_torch.train.Trainer` it ran.
 """
@@ -69,10 +70,12 @@ def config(args):
 def main(argv: Optional[List[str]] = None):
     from ..data import make_lm_pipeline
     from ..models.api import build
+    from ..models.transformer import check_trainable
     from ..optim import adamw, cosine_schedule
     from ..train import Trainer, TrainerConfig
     args = build_parser().parse_args(argv)
     cfg = config(args)
+    check_trainable(cfg)
     api = build(cfg)
     params = api.init(seed=0, device=args.device)
     trainer = Trainer(

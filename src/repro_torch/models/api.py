@@ -1,6 +1,8 @@
-"""Model API over the dense decoder (port of the dense part of
-``repro.models.api``): init, the training loss, prefill, decode, and
-per-slot insertion into a live decode state.
+"""Model API over the decoder-only LM, dense and MoE families (port of
+those parts of ``repro.models.api``): init, the training loss (dense
+family only), prefill, decode, and per-slot insertion into a live decode
+state.  Nothing here is family-specific: the MoE family differs only in
+its forward.
 
 The decode state is updated in place: methods that take a state write its
 cache tensors and return a state dict holding the same tensors.
@@ -41,8 +43,8 @@ def _row_cache_view(cache, slot: int):
     """Single-slot view of a decode cache: a paged cache keeps the whole
     page pool but narrows the block table to ``slot``'s row; contiguous
     leaves (stack, B, ...) are row-sliced on the batch dim.  All views, so
-    writes through them land in ``cache``.  (The dense family has no
-    recurrent rows to zero for a fresh request.)"""
+    writes through them land in ``cache``.  (The dense and MoE families
+    have no recurrent rows to zero for a fresh request.)"""
     if "table" in cache:
         return dict(cache, table=cache["table"][:, slot:slot + 1])
     return {k: v[:, slot:slot + 1] for k, v in cache.items()}
@@ -73,7 +75,8 @@ class ModelAPI:
     # ---- losses / steps ------------------------------------------------
     def loss(self, params, batch) -> tuple:
         """Next-token cross entropy and its metrics; the full-sequence
-        forward runs with autograd live."""
+        forward runs with autograd live.  Raises ``NotImplementedError``
+        for the MoE family (its training is not ported)."""
         return transformer.loss_fn(params, self.cfg, batch)
 
     def prefill(self, params, batch, extra_slots: int = 0, *,

@@ -1,0 +1,239 @@
+"""Top-k token-choice Mixture-of-Experts with sort-based grouped dispatch
+(port of the single-device path of ``repro.models.moe``).
+
+Tokens are sorted by expert id and each expert's contiguous row group is
+multiplied by that expert's weight.  Two dispatch implementations, chosen
+by ``GROUPED_IMPL["impl"]`` as in the reference:
+
+* ``ragged`` (default) — exact, no drops: the expert stack is dequantized
+  once (``common.qdense``) and the row groups run as one batched plain
+  product (:func:`grouped_matmul`, the counterpart of
+  ``jax.lax.ragged_dot``).  The group sizes are read on the host, one
+  sync a layer.
+* ``capacity`` — GShard-style fixed capacity: a loop over the experts
+  takes ``capacity`` rows from each group's start, masks rows past the
+  group's size, and runs ``qmatmul`` on that expert's 2-D slice, so a
+  deployed expert stack streams through ``packed_matmul`` /
+  ``bitplane_matmul`` one expert at a time.  Tokens past an expert's
+  capacity are dropped.
+
+The router is kept out of BWQ quantization: its logits are taken in f32
+from the (compute-dtype) router weight.  Routing matches the reference
+where torch promises less than JAX: top-k is a stable descending sort
+(lower expert id first on ties, as ``jax.lax.top_k``), the token sort is
+stable, and the combine adds each token's k expert outputs in ascending
+expert id, in the activation dtype, without atomics.
+
+Not ported: the sharded path (``_moe_forward_sharded``) and the grouped
+product's custom VJP (MoE training).
+"""
+from __future__ import annotations
+
+from typing import Dict, List, Sequence, Tuple, Union
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from ..core.bitrep import QuantizedTensor
+from .common import make_weight, qdense, qmatmul
+
+# Implementation selector: 'ragged' (exact, no drops) or 'capacity'
+# (fixed per-expert capacity, tokens past it dropped).
+GROUPED_IMPL = {"impl": "ragged", "capacity_factor": 2.0}
+
+
+def _sizes(group_sizes: Union[torch.Tensor, Sequence[int]]) -> List[int]:
+    if isinstance(group_sizes, torch.Tensor):
+        return [int(s) for s in group_sizes.tolist()]
+    return [int(s) for s in group_sizes]
+
+
+def grouped_matmul(x: torch.Tensor, w: torch.Tensor,
+                   group_sizes) -> torch.Tensor:
+    """y[M, N] = per-group x[M, K] @ w[g, K, N], tokens sorted by group
+    (``jax.lax.ragged_dot``, forward only).  Rows past the sum of the
+    group sizes are zero.  ``group_sizes`` is a (G,) tensor (read on the
+    host) or a sequence of ints.
+
+    One batched product: each group's rows are placed in a zero-padded
+    (G, C, K) block, C the largest group's size, and multiplied by its
+    expert in one ``torch.bmm``.  C is at least 2: BLAS multiplies a
+    single row through a matrix-vector path whose sums run in another
+    order, and a row's result must not depend on how many rows share its
+    expert.  The padding is not bounded: memory and operations grow with
+    G x C, not with the M real rows, so skewed routing costs up to G / k
+    times the work of the rows (G / k = 5 for granite's top-8 over 40
+    experts, 16 for llama4-scout's top-1 over 16)."""
+    m, k = x.shape
+    n = w.shape[-1]
+    sizes = _sizes(group_sizes)
+    g, total = len(sizes), sum(sizes)
+    c = max(max(sizes, default=0), 2)
+    starts = np.cumsum([0] + sizes[:-1])
+    slot = torch.as_tensor(np.repeat(np.arange(g) * c - starts, sizes)
+                           + np.arange(total), device=x.device)
+    xp = x.new_zeros((g * c, k))
+    xp[slot] = x[:total]
+    y = torch.bmm(xp.view(g, c, k), w).view(g * c, n)[slot]
+    if total < m:
+        y = torch.cat([y, x.new_zeros((m - total, n))])
+    return y
+
+
+def _expert(w, e: int):
+    """Expert ``e``'s 2-D slice of an (E, K, N) stack: views of a plain
+    tensor or of every payload field of a quantized weight."""
+    return w.layer(e) if hasattr(w, "layer") else w[e]
+
+
+def _n_experts(w) -> int:
+    """The leading (expert) dim of a plain or quantized (E, K, N) stack
+    (a quantized weight's ``shape`` keeps its full stacked shape)."""
+    if isinstance(w, torch.Tensor):
+        return w.shape[0]
+    for name in ("w_int", "sign", "w"):
+        if hasattr(w, name):
+            return getattr(w, name).shape[0]
+    raise TypeError(f"not an expert stack: {type(w).__name__}")
+
+
+def grouped_matmul_capacity(x: torch.Tensor, w, group_sizes, capacity: int,
+                            backend: str = "dense") -> torch.Tensor:
+    """Capacity-bounded grouped matmul over sorted tokens.
+
+    ``x`` (M, K) sorted by group; ``w`` an (E, K, N) stack, plain or
+    quantized.  Each expert's ``capacity``-row window from its group's
+    start (rows past the group's size masked to zero) runs ``qmatmul``
+    against that expert's 2-D slice, so a deployed stack runs its kernel
+    one expert at a time.  Returns (M, N), zero for tokens past their
+    group's capacity."""
+    m, k = x.shape
+    sizes = _sizes(group_sizes)
+    x_pad = torch.cat([x, x.new_zeros((capacity, k))])
+    y = None
+    rows = torch.arange(capacity, device=x.device)
+    start = 0
+    for e, size in enumerate(sizes):
+        xs = x_pad[start:start + capacity]
+        mask = (rows < size)[:, None].to(x.dtype)
+        ys = qmatmul(xs * mask, _expert(w, e), backend) * mask
+        if y is None:
+            y = x.new_zeros((m + capacity, ys.shape[-1]))
+        y[start:start + capacity] += ys
+        start += size
+    return y[:m]
+
+
+def _capacity(m: int, e: int) -> int:
+    """Per-expert token capacity: factor * mean load, rounded up to 8."""
+    cap = int(GROUPED_IMPL["capacity_factor"] * m / e + 0.999)
+    return max(8, min(m, -(-cap // 8) * 8))
+
+
+def _grouped(x: torch.Tensor, w, group_sizes,
+             backend: str = "dense") -> torch.Tensor:
+    """Grouped dispatch over possibly quantized expert weights.  The
+    capacity loop consumes quantized experts one 2-D slice at a time; the
+    ragged product needs a dense (E, K, N) operand, dequantized through
+    ``common.qdense``."""
+    if isinstance(w, QuantizedTensor):
+        w = qdense(w, x.dtype)     # bit axis leads: not sliceable
+    if GROUPED_IMPL["impl"] == "capacity":
+        return grouped_matmul_capacity(
+            x, w, group_sizes, _capacity(x.shape[0], _n_experts(w)),
+            backend)
+    return grouped_matmul(x, qdense(w, x.dtype), group_sizes)
+
+
+def init_moe(d_model: int, d_ff: int, n_experts: int, top_k: int, qc,
+             n_shared: int = 0, *, generator: torch.Generator, device,
+             stack: Tuple[int, ...] = ()) -> Dict:
+    """One MoE block's params: the f32 router, the (E, ...) expert stacks
+    and, with ``n_shared``, the shared expert (the reference's layout),
+    each leaf led by the ``stack`` dims (the model's (L,) layer stack)."""
+    mk = dict(generator=generator, device=device)
+    s, e, d = tuple(stack), n_experts, d_model
+    p = {
+        "router_w": torch.randn((*s, d, e), dtype=torch.float32, **mk)
+        * 0.02,
+        "expert_gate": make_weight((*s, e, d, d_ff), qc, **mk),
+        "expert_up": make_weight((*s, e, d, d_ff), qc, **mk),
+        "expert_down": make_weight((*s, e, d_ff, d), qc, **mk),
+    }
+    if n_shared:
+        f = n_shared * d_ff
+        p["shared_gate"] = make_weight((*s, d, f), qc, **mk)
+        p["shared_up"] = make_weight((*s, d, f), qc, **mk)
+        p["shared_down"] = make_weight((*s, f, d), qc, **mk)
+    return p
+
+
+def moe_forward(p: Dict, x: torch.Tensor, top_k: int,
+                backend: str = "dense") -> Tuple[torch.Tensor, torch.Tensor]:
+    """x: (B, S, D) -> (out, aux_loss) on one device."""
+    return _moe_forward_local(p, x, top_k, backend)
+
+
+def _route(xt: torch.Tensor, router_w: torch.Tensor, top_k: int):
+    """f32 router probabilities (T, E) and the top-k (gates, experts),
+    lower expert id first on ties."""
+    logits = xt.to(torch.float32) @ router_w.to(torch.float32)
+    probs = torch.softmax(logits, dim=-1)
+    vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    gate_vals, expert_idx = vals[:, :top_k], idx[:, :top_k]
+    gate_vals = gate_vals / torch.sum(gate_vals, -1, keepdim=True)
+    return probs, gate_vals, expert_idx
+
+
+def _combine(ys: torch.Tensor, order: torch.Tensor, t: int,
+             top_k: int) -> torch.Tensor:
+    """out[t] = sum of token t's k rows of the sorted ``ys``, added in
+    sorted order (ascending expert id) in ``ys``'s dtype, from zero: the
+    reference's ``zeros.at[tok_sorted].add(ys)``, with no atomics."""
+    pos = torch.empty_like(order)
+    pos[order] = torch.arange(order.numel(), device=order.device)
+    pos = torch.sort(pos.reshape(t, top_k), dim=1).values
+    out = torch.zeros((t, ys.shape[-1]), dtype=ys.dtype, device=ys.device)
+    for j in range(top_k):
+        out = out + ys[pos[:, j]]
+    return out
+
+
+def _moe_forward_local(p: Dict, x: torch.Tensor, top_k: int,
+                       backend: str = "dense"
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    b, s, d = x.shape
+    e = p["router_w"].shape[-1]
+    t = b * s
+    xt = x.reshape(t, d)
+    probs, gate_vals, expert_idx = _route(xt, p["router_w"], top_k)
+
+    flat_expert = expert_idx.reshape(-1)                     # (T*k,)
+    flat_gate = gate_vals.reshape(-1)
+    order = torch.argsort(flat_expert, stable=True)
+    tok_sorted = torch.div(order, top_k, rounding_mode="floor")
+    xs = xt[tok_sorted]                                      # (T*k, D)
+    # read on the host once for the three grouped products: one sync a layer
+    group_sizes = _sizes(torch.bincount(flat_expert, minlength=e))
+
+    gate = _grouped(xs, p["expert_gate"], group_sizes, backend)
+    up = _grouped(xs, p["expert_up"], group_sizes, backend)
+    h = F.silu(gate) * up
+    ys = _grouped(h, p["expert_down"], group_sizes, backend)  # (T*k, D)
+
+    ys = ys * flat_gate[order][:, None].to(ys.dtype)
+    out = _combine(ys, order, t, top_k).reshape(b, s, d)
+
+    if "shared_gate" in p:
+        hs = F.silu(qmatmul(x, p["shared_gate"], backend)) \
+            * qmatmul(x, p["shared_up"], backend)
+        out = out + qmatmul(hs, p["shared_down"], backend)
+
+    # load-balance auxiliary loss (Switch-style)
+    hit = torch.zeros((t, e), dtype=torch.float32, device=x.device)
+    hit.scatter_(1, expert_idx, 1.0)
+    frac_tokens = torch.mean(hit, 0)
+    frac_probs = torch.mean(probs, 0)
+    aux = e * torch.sum(frac_tokens * frac_probs)
+    return out, aux

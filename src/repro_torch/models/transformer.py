@@ -1,5 +1,5 @@
-"""Decoder-only LM assembly, dense family (port of the dense, cache and
-loss parts of ``repro.models.transformer``).
+"""Decoder-only LM assembly, dense and MoE families (port of the dense,
+MoE, cache and loss parts of ``repro.models.transformer``).
 
 Params hold stacked (L, ...) leaves.  Where the reference scans over
 layers, the port runs a Python loop over the layers, which each forward
@@ -26,6 +26,7 @@ from .attention import attn_forward, fill_levels
 from .common import (act_quant, embed_init, make_weight, prepare_params,
                      qmatmul, rms_norm, softcap)
 from .ffn import mlp_forward
+from .moe import init_moe, moe_forward
 
 
 def _cdtype(cfg: ModelConfig) -> torch.dtype:
@@ -33,10 +34,21 @@ def _cdtype(cfg: ModelConfig) -> torch.dtype:
 
 
 def _check_family(cfg: ModelConfig) -> None:
-    if cfg.family != "dense" or cfg.n_experts or cfg.mrope:
+    if cfg.family not in ("dense", "moe") or cfg.mrope:
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported yet; the port serves the "
-            f"dense family")
+            f"dense and moe families")
+
+
+def check_trainable(cfg: ModelConfig) -> None:
+    """Training is ported for the dense family only: the MoE grouped
+    product has no backward and the loss no load-balancing term yet."""
+    _check_family(cfg)
+    if cfg.family != "dense" or cfg.n_experts:
+        raise NotImplementedError(
+            f"training the {cfg.family!r} family is not ported yet (the "
+            f"grouped matmul's VJP and the 0.01 x aux loss term); the "
+            f"port trains the dense family")
 
 
 # ---------------------------------------------------------------------------
@@ -45,7 +57,8 @@ def _check_family(cfg: ModelConfig) -> None:
 
 def _init_block(cfg: ModelConfig, stack: int, generator: torch.Generator,
                 device) -> Dict:
-    """One stacked parameter set for ``stack`` homogeneous dense layers."""
+    """One stacked parameter set for ``stack`` homogeneous layers: an MoE
+    config holds a ``"moe"`` subtree where a dense one holds ``"mlp"``."""
     _check_family(cfg)
     qc = cfg.quant
     d, dh = cfg.d_model, cfg.head_dim
@@ -69,7 +82,10 @@ def _init_block(cfg: ModelConfig, stack: int, generator: torch.Generator,
         p["attn"]["bq"] = zeros(stack, cfg.n_heads * dh)
         p["attn"]["bk"] = zeros(stack, cfg.n_kv_heads * dh)
         p["attn"]["bv"] = zeros(stack, cfg.n_kv_heads * dh)
-    if cfg.mlp_kind == "swiglu":
+    if cfg.family == "moe" or cfg.n_experts:
+        p["moe"] = init_moe(d, cfg.d_ff, cfg.n_experts, cfg.top_k, qc,
+                            cfg.n_shared_experts, stack=(stack,), **mk)
+    elif cfg.mlp_kind == "swiglu":
         p["mlp"] = {
             "w_gate": make_weight((stack, d, cfg.d_ff), qc, **mk),
             "w_up": make_weight((stack, d, cfg.d_ff), qc, **mk),
@@ -150,12 +166,17 @@ def _attn_block(lp, h, positions, cfg: ModelConfig, layer: int, cache,
 
 
 def _mlp_block(lp, h, cfg: ModelConfig, backend: str):
+    """FFN or MoE sublayer; returns (h, the layer's MoE aux loss)."""
     x = rms_norm(h, lp["ln_mlp"])
     x = act_quant(x, lp.get("beta_mlp"), cfg.quant)
-    out = mlp_forward(lp["mlp"], x, cfg.mlp_kind, backend)
+    aux = None
+    if "moe" in lp:
+        out, aux = moe_forward(lp["moe"], x, cfg.top_k, backend)
+    else:
+        out = mlp_forward(lp["mlp"], x, cfg.mlp_kind, backend)
     if cfg.use_post_norms:
         out = rms_norm(out, lp["ln_mlp_post"])
-    return h + out
+    return h + out, aux
 
 
 def _layer_body(lp, h, positions, cfg, i, layer_cache, index, backend,
@@ -166,18 +187,24 @@ def _layer_body(lp, h, positions, cfg, i, layer_cache, index, backend,
 
 
 def _walk_dense(mp, cfg, h, positions, cache, index, backend, attn_backend):
-    """Loop over the homogeneous attention+FFN layers; each layer's cache
-    view is written in place.  A forward that builds a graph recomputes
-    each layer in the backward when ``cfg.remat``."""
+    """Loop over the homogeneous attention+FFN (or MoE) layers; each
+    layer's cache view is written in place and the MoE aux losses are
+    summed over the layers, as the reference's scan carries them.  A
+    forward that builds a graph recomputes each layer in the backward
+    when ``cfg.remat``.  Returns (h, aux, cache); aux is 0 for a dense
+    model."""
     remat = cfg.remat and h.requires_grad
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
     for i, lp in enumerate(_unstack(mp["layers"], cfg.n_layers)):
         layer_cache = _layer(cache, i) if cache is not None else None
         args = (lp, h, positions, cfg, i, layer_cache, index, backend,
                 attn_backend)
-        h = checkpoint(_layer_body, *args, use_reentrant=False,
-                       preserve_rng_state=False) if remat \
+        h, aux_l = checkpoint(_layer_body, *args, use_reentrant=False,
+                              preserve_rng_state=False) if remat \
             else _layer_body(*args)
-    return h, cache
+        if aux_l is not None:
+            aux = aux + aux_l
+    return h, aux, cache
 
 
 def _embed_inputs(mp, cfg: ModelConfig, tokens, positions):
@@ -189,25 +216,34 @@ def _embed_inputs(mp, cfg: ModelConfig, tokens, positions):
     return h.to(_cdtype(cfg)), positions
 
 
-def forward(params, cfg: ModelConfig, tokens, *, positions=None, cache=None,
-            index=None, backend: str = "dense",
-            attn_backend: str = "gather"):
-    """Returns (logits f32 (B, S, V), cache written in place)."""
+def forward_aux(params, cfg: ModelConfig, tokens, *, positions=None,
+                cache=None, index=None, backend: str = "dense",
+                attn_backend: str = "gather"):
+    """Returns (logits f32 (B, S, V), the summed MoE aux loss, cache
+    written in place), the reference's ``forward``."""
     _check_family(cfg)
     mp = prepare_params(params, _cdtype(cfg))
     h, positions = _embed_inputs(mp, cfg, tokens, positions)
-    h, cache = _walk_dense(mp, cfg, h, positions, cache, index, backend,
-                           attn_backend)
+    h, aux, cache = _walk_dense(mp, cfg, h, positions, cache, index,
+                                backend, attn_backend)
     h = rms_norm(h, mp["final_norm"])
     head = mp["lm_head"] if "lm_head" in mp else mp["embed"].T
     logits = qmatmul(h, head, backend).to(torch.float32)
-    return softcap(logits, cfg.logit_softcap), cache
+    return softcap(logits, cfg.logit_softcap), aux, cache
+
+
+def forward(params, cfg: ModelConfig, tokens, **kw):
+    """Returns (logits f32 (B, S, V), cache written in place); the
+    serving forward drops the MoE aux loss."""
+    logits, _, cache = forward_aux(params, cfg, tokens, **kw)
+    return logits, cache
 
 
 def loss_fn(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor]):
     """Next-token cross entropy.  batch: tokens, labels, [mask].  The
-    dense family has no auxiliary loss (the reference adds 0.01 x the MoE
-    load-balancing term)."""
+    dense family has no auxiliary loss; MoE training (the reference adds
+    0.01 x the load-balancing term) is refused."""
+    check_trainable(cfg)
     logits, _ = forward(params, cfg, batch["tokens"],
                         positions=batch.get("positions"))
     labels = batch["labels"].long()

@@ -14,13 +14,17 @@ sharing the same integer grid (``_integer_grid``):
   ``min(b, bits)`` live planes.
 
 Layer-stack dims lead every tensor, so a stacked leaf is sliced one layer
-at a time by the model's layer loop.  Checkpoint cold-start is not ported
-yet.
+at a time by the model's layer loop (and an MoE expert stack (L, E, K, N)
+one expert at a time by the capacity dispatch).  A stacked quantized leaf
+is converted one layer at a time and the results stacked: the conversion
+is elementwise, so the payload is the same bit for bit, and the f32
+temporaries shrink to one layer's size.
+Checkpoint cold-start is not ported yet.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Tuple
+from typing import Any, List, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -30,7 +34,7 @@ from ..core.blocking import BlockingSpec, expand_block_map, pad_to_blocks
 from ..core.device import resolve_device
 from ..core.fakequant import FakeQuantTensor
 from ..core.quantize import pack_int4, unpack_int4
-from ..kernels.ref import pack_bits, unpack_bits
+from ..kernels.ref import pack_bits, unpack_bits, unpack_bits_u8
 
 SERVING_LAYOUTS = ("packed", "bitplane")
 
@@ -164,7 +168,28 @@ def _quantize_leaf(w, scale, bitwidth, spec, n_bits, bits, layout):
     return _pack_packed(wq, gscale, shape, spec, bits)
 
 
+def _stack_leaves(parts: List[Any], shape: Tuple[int, ...]) -> Any:
+    """Stack per-layer serving weights back into one (L, ...) leaf."""
+    fields = [f.name for f in dataclasses.fields(parts[0])
+              if isinstance(getattr(parts[0], f.name), torch.Tensor)]
+    return dataclasses.replace(parts[0], shape=shape, **{
+        name: torch.stack([getattr(p, name) for p in parts])
+        for name in fields})
+
+
 def _convert_leaf(x, bits: int, layout: str = "packed"):
+    """A leaf's serving form; a stacked quantized leaf (more than two
+    dims) converts one layer at a time."""
+    if isinstance(x, (QuantizedTensor, FakeQuantTensor)):
+        payload = x.w if isinstance(x, FakeQuantTensor) else x.sign
+        if payload.ndim > 2:
+            return _stack_leaves(
+                [_convert_layer(x.layer(i), bits, layout)
+                 for i in range(payload.shape[0])], tuple(x.shape))
+    return _convert_layer(x, bits, layout)
+
+
+def _convert_layer(x, bits: int, layout: str):
     if isinstance(x, QuantizedTensor):
         return _quantize_leaf(compose(x), x.scale, torch.sum(x.mask, dim=0),
                               x.spec, x.n_bits, bits, layout)
@@ -270,20 +295,24 @@ def serving_compose(sw: ServingWeight, dtype=torch.bfloat16) -> torch.Tensor:
 
 def bitplane_serving_compose(sw: BitplaneServingWeight,
                              dtype=torch.bfloat16) -> torch.Tensor:
-    """Dequantization of a bit-plane leaf (the dense backend).
+    """Dequantization of a bit-plane leaf (the dense backend, and the MoE
+    ``ragged`` product's expert stacks).
 
     Elementwise identical to :func:`serving_compose` on the packed form of
-    the same leaf: the plane sum reproduces each |wq| exactly and the
-    per-WB effective scale is the same LUT."""
-    planes = unpack_bits(sw.planes)                # (..., bits, Kp8, Np)
+    the same leaf: the masked planes reproduce each |wq| exactly (each
+    live plane b contributes bit b, so the magnitude is assembled in
+    uint8, a quarter of the bytes of a float plane sum) and the per-WB
+    effective scale is the same LUT."""
+    planes = unpack_bits_u8(sw.planes)            # (..., bits, Kp8, Np)
+    live = expand_block_map(sw.mask.to(torch.uint8), sw.spec)
+    kp = live.shape[-2]                            # (..., bits, Kp, Np)
+    shifts = torch.arange(sw.bits, dtype=torch.uint8,
+                          device=planes.device).reshape(sw.bits, 1, 1)
+    mag = torch.sum((planes[..., :kp, :] & live) << shifts, dim=-3,
+                    dtype=torch.uint8)
+    del planes, live
     sign = 1.0 - 2.0 * unpack_bits(sw.sign)        # (..., Kp8, Np)
-    m_full = expand_block_map(sw.mask, sw.spec)    # (..., bits, Kp, Np)
-    kp = m_full.shape[-2]
-    weights = (2.0 ** torch.arange(sw.bits, dtype=torch.float32,
-                                   device=planes.device)).reshape(sw.bits,
-                                                                  1, 1)
-    mag = torch.sum(planes[..., :kp, :] * m_full * weights, dim=-3)
-    del planes, m_full
-    w = sign[..., :kp, :] * (mag * expand_block_map(sw.scale, sw.spec))
+    w = sign[..., :kp, :] * (mag.to(torch.float32)
+                             * expand_block_map(sw.scale, sw.spec))
     k, n = sw.shape[-2], sw.shape[-1]
     return w[..., :k, :n].to(dtype)

@@ -270,8 +270,8 @@ class ServeEngine:
         return state
 
     def prompt_width(self, batch: Dict[str, Any]) -> int:
-        """Cache positions a prompt occupies (its tokens: the dense family
-        has no vision prefix)."""
+        """Cache positions a prompt occupies (its tokens: the dense and
+        MoE families have no vision prefix)."""
         return int(batch["tokens"].shape[1])
 
     # ---- one-shot API (static batch) ------------------------------------

@@ -1,5 +1,5 @@
 """Slot-based continuous-batching scheduler with a paged KV option (port of
-``repro.serve.scheduler`` for the dense family).
+``repro.serve.scheduler`` for the dense and MoE families).
 
 A fixed-capacity decode batch of ``n_slots`` rows; requests are admitted
 into free slots as they arrive (their prompt is prefilled INTO the live
@@ -46,16 +46,23 @@ Time is measured in scheduler *ticks* (one decode step per tick).  With
 ``record_ticks`` the port keeps a per-tick ``tick_log`` (what each tick
 ran, which requests got their first token and which were parked), from
 which a run's kernel launches and first-token ticks are derived; without
-it (the default, as the reference) no per-tick record is kept.  Left out with
-their families: the MoE capacity warning and the ssm / vlm / enc-dec
-branches.  Left out: ``compile_footprint`` (a census of jit signatures,
-which eager execution does not have).
+it (the default, as the reference) no per-tick record is kept.  As in the
+reference, an MoE model under capacity dispatch
+(``models.moe.GROUPED_IMPL["impl"] == "capacity"``) warns: other slots'
+tokens compete for expert capacity, so a request may part from its
+one-shot tokens; the exact ``ragged`` dispatch keeps rows independent.
+Left out with their families: the ssm / vlm / enc-dec branches, and
+with them the reference's warning that turns the prefix cache off for any
+family but dense and moe (the port builds no other family).
+Left out: ``compile_footprint`` (a census of jit signatures, which eager
+execution does not have).
 """
 from __future__ import annotations
 
 import dataclasses
 import hashlib
 import heapq
+import warnings
 from typing import Any, Dict, List, Optional
 
 import numpy as np
@@ -318,6 +325,16 @@ class Scheduler:
         self.device = resolve_device(engine.device)
         self.n_slots = n_slots
         self.max_len = max_len
+        cfg = engine.api.cfg
+        if cfg.n_experts:
+            from ..models.moe import GROUPED_IMPL
+            if GROUPED_IMPL["impl"] == "capacity":
+                warnings.warn(
+                    "continuous batching with capacity-dropping MoE "
+                    "dispatch: parked slots' dummy tokens compete for "
+                    "expert capacity, so live requests may diverge from "
+                    "one-shot generate(); use GROUPED_IMPL['impl']="
+                    "'ragged' for exact parity", stacklevel=3)
         self.page_size = page_size
         self.prefill_chunk = prefill_chunk
         self.paged = page_size > 0

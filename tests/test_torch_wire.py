@@ -39,8 +39,9 @@ torch.set_num_threads(2)
 GEOMS = [(8, 128), (9, 8)]
 
 
-def test_configs_match_reference_field_by_field():
-    j, t = JREG["phi3-mini-3.8b"], TREG["phi3-mini-3.8b"]
+@pytest.mark.parametrize("arch", sorted(TREG))
+def test_configs_match_reference_field_by_field(arch):
+    j, t = JREG[arch], TREG[arch]
     for f in dataclasses.fields(t):
         if f.name != "quant":
             assert getattr(t, f.name) == getattr(j, f.name), f.name

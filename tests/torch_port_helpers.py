@@ -133,8 +133,8 @@ def run_lockstep(jsched, tsched, jreqs, treqs, validate=True):
     return jsched.tick
 
 
-def tiny_fixture():
-    """The scheduler tests' fixture: ``phi3-mini-3.8b`` at
+def tiny_fixture(arch="phi3-mini-3.8b"):
+    """The scheduler tests' fixture: ``arch`` (phi3 unless named) at
     ``tiny(dtype="float32")`` with 9x8 blocks and 8-bit activations in both
     packages, the reference's ``init(PRNGKey(0))`` QAT tree, its int8
     deploy, and that deploy carried across through numpy."""
@@ -147,9 +147,9 @@ def tiny_fixture():
     from repro_torch.configs import REGISTRY as TREG
     from repro_torch.configs.base import QuantConfig as TQ
     from repro_torch.models.api import build as tbuild
-    jcfg = JREG["phi3-mini-3.8b"].tiny(dtype="float32").with_quant(
+    jcfg = JREG[arch].tiny(dtype="float32").with_quant(
         JQ(mode="fake", n_bits=8, act_bits=8))
-    tcfg = TREG["phi3-mini-3.8b"].tiny(dtype="float32").with_quant(
+    tcfg = TREG[arch].tiny(dtype="float32").with_quant(
         TQ(mode="fake", n_bits=8, act_bits=8))
     japi, tapi = jbuild(jcfg), tbuild(tcfg)
     qat = japi.init(jax.random.PRNGKey(0))
@@ -193,3 +193,31 @@ def prompt(vocab, n, seed, b=1):
     tests/test_torch_slice.py on rounding ties) and ``seed``."""
     return np.random.default_rng((1, seed)).integers(
         0, vocab, (b, n)).astype(np.int32)
+
+
+def paged_greedy(eng, tok, max_new, page_size=4):
+    """Greedy decode through a paged state of the port's engine: a
+    hand-built non-identity table (page 0 reserved), ``prefill_at`` per
+    slot, decode with a per-slot (B,) index.  Returns (B, max_new)
+    tokens as numpy."""
+    b, p = tok.shape
+    max_len = p + 64
+    state = eng.init_decode_state({"tokens": tok[:1]}, n_slots=b,
+                                  max_len=max_len, page_size=page_size)
+    nb = -(-max_len // page_size)
+    table = np.random.default_rng(5).permutation(
+        np.arange(1, 1 + b * nb)).reshape(b, nb).astype(np.int32)
+    state = eng.set_tables(state, table)
+    first = []
+    for s in range(b):
+        logits, state = eng.prefill_at({"tokens": tok[s:s + 1]}, state, s)
+        first.append(int(logits.argmax(-1)[0]))
+    cur = torch.tensor(first, dtype=torch.int32)[:, None]
+    outs = [cur[:, 0]]
+    index = torch.full((b,), p, dtype=torch.int32)
+    for _ in range(max_new - 1):
+        logits, state = eng.decode(cur, state, index)
+        cur = logits.argmax(-1)[:, None].to(torch.int32)
+        outs.append(cur[:, 0])
+        index = index + 1
+    return torch.stack(outs, 1).numpy()

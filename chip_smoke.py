@@ -15,7 +15,8 @@ It builds the four CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
    identity view and in a shuffled 16-token pool with trash-page tails,
    for int8, int4, bf16 and f32 pools; kv_len 1 and on split boundaries;
    windows that empty the leading splits; G=4 with softcap; G=12, two
-   query-head groups, with softcap),
+   query-head groups, with softcap; the MoE heads and the enc-dec
+   decoder's 16 KV heads at d_head 64),
    ``bitplane_matmul`` (mixed, fully masked and truncated draft masks, both
    scale modes, 9x8 blocks with byte-pad rows, ragged N) and ``pact_quant``.
    The two matmuls run every edge case in both of their regimes (byte
@@ -102,7 +103,8 @@ It builds the four CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
    kernels against the plain versions under the exact ``ragged``
    dispatch: quantizers off in f32 (tokens identical, logits within
    ``EXACT_TOL_REL``), 8-bit activations with int8 and int4 KV in bf16
-   (``QUANT_TOL_REL``), and the bit-plane tree through ``bitplane_matmul``.
+   (``QUANT_TOL_REL``), and the bit-plane tree through ``bitplane_matmul``
+   (its legs, and the ``capacity`` ones below, on the first 8 layers).
    The router's top-k is a discrete choice: where the two runs' sums put
    a token across a near-tie they would route it to other experts, so
    each plain run takes its kernel run's routing (:class:`RouteTrace`),
@@ -119,7 +121,27 @@ It builds the four CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
    shared expert, G=5 at d_head 128, a 202048-wide tied head), quantizers
    off and on.
 
-6. train phase — with every serving tree freed, BWQ-A training through
+6. enc-dec phase — with the MoE trees freed, seamless-m4t-large-v2 at
+   full width and depth (24 encoder and 24 decoder layers, d_model 1024,
+   vocab 256206, random weights from seed 0), deployed packed int8 and
+   int4 and as mixed-width bit planes, each prompt 128 tokens over 256
+   frames (0.1 x normal), one-shot B=4, 32 new, through the kernels
+   against the plain versions: quantizers off in f32 (tokens identical,
+   logits within ``EXACT_TOL_REL``; also through a 16-token page pool
+   with a non-identity table, tokens equal), bf16 with int8 and int4 KV
+   (``QUANT_TOL_REL``), the bit-plane tree in f32.  Every drive is
+   counted (the encoder once a prompt row); its first matmul call at
+   each shape (the cross K/V projections at M = 1024 among them) and its
+   first attention read are held against the plain versions; a planted
+   fault (two slots' encoder outputs swapped after the prefill) must
+   read above the int8 limit.  One decode step is profiled and its
+   device time split by kernel; ``packed_matmul`` is timed at M = 1024
+   (1024->1024, 1024->8192), ``paged_attention`` at the decoder's head.
+   The scheduler trace runs through the launcher with 256 frames a
+   request (prefix cache warned off, parking), then quantizers off in
+   f32 against one-shot reruns, every one identical.
+
+7. train phase — with every serving tree freed, BWQ-A training through
    the train launcher's ``main`` (``python -m repro_torch.launch.train``),
    in process: full-width phi3 (32 layers, bf16 compute, f32 master
    weights, 8x128 blocks, 8-bit PACT, remat) in fake mode, 8 steps of
@@ -138,7 +160,8 @@ It builds the four CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
    deploy s, peak memory, bit-width and compression are reported.
 
 Output: a ``{"train": {...}}`` line with the train phase's figures and
-the card, a ``{"moe": {...}}`` line with the MoE phase's, a
+the card, a ``{"moe": {...}}`` line with the MoE phase's, an
+``{"encdec": {...}}`` line with the enc-dec phase's, a
 ``{"kernels": [...]}`` JSON line, the card's name and power
 limit, and as the last line ``{"ok": true, "device": {...}}``.  Details go
 to ``chiprun_out/chip_smoke_detail.json``.  Any failure exits non-zero; so
@@ -326,6 +349,8 @@ T_LONG = 4224                   # a long context's cache width (page 128)
 # (G, d_head) of the MoE models' attention, 8 KV heads each:
 # granite-moe-3b-a800m, llama4-scout-17b-a16e
 MOE_HEADS = ((3, 64), (5, 128))
+# (KV heads, G, d_head) of seamless-m4t-large-v2's decoder self-attention
+ENCDEC_HEAD = (16, 1, 64)
 
 
 def attention_pool(bits, kvh, t, page, *, g=1, paged=False, seed=1,
@@ -386,7 +411,9 @@ def attention_kernel_phase():
     groups a launch) with softcap, int8 and f32 pools, at the decode
     shape and at long context paged; the MoE models' heads (granite's
     G=3 at d_head 64, llama4-scout's G=5 at 128, 8 KV heads) for int8,
-    int4 and f32 pools at the decode shape and at long context paged."""
+    int4 and f32 pools at the decode shape and at long context paged;
+    the same for the enc-dec decoder's head (16 KV heads, G=1, d_head
+    64)."""
     import torch
     from repro_torch.kernels import paged_attention
     from repro_torch.kernels.ref import paged_attention_ref
@@ -476,6 +503,17 @@ def attention_kernel_phase():
             kv_len = lens(4096, 2000, 1057, T_LONG)
             case(f"G={g} dh={dh} long paged", bits, q, pool,
                  trash_tails(table, kv_len, PAGE), kv_len)
+    kvh, g, dh = ENCDEC_HEAD
+    for bits in (8, 4, 32):
+        q, pool, ident = attention_pool(bits, kvh, t, page, g=g, dh=dh,
+                                        seed=60 + bits)
+        case(f"KV={kvh} G={g} dh={dh} decode", bits, q, pool, ident,
+             lens(P + 1, P + 17, 1, t))
+        q, pool, table = attention_pool(bits, kvh, T_LONG, PAGE, g=g, dh=dh,
+                                        paged=True, seed=61 + bits)
+        kv_len = lens(4096, 2000, 1057, T_LONG)
+        case(f"KV={kvh} G={g} dh={dh} long paged", bits, q, pool,
+             trash_tails(table, kv_len, PAGE), kv_len)
     return out
 
 
@@ -651,11 +689,14 @@ def pact_kernel_phase():
 # the one greedy loop: comparison, counting and timing all run through it
 # ---------------------------------------------------------------------------
 
-def greedy(eng, tok, new, page=0):
+def greedy(eng, tok, new, page=0, frames=None, after_prefill=None):
     """Greedy decode as ``ServeEngine.generate`` runs it: a prefill, then
     ``new - 1`` decode steps, each taking the argmax.  With ``page`` the
     state is paged: a non-identity block table (page 0 reserved),
-    ``prefill_at`` per slot and a per-slot (B,) decode index.
+    ``prefill_at`` per slot and a per-slot (B,) decode index.  An
+    encoder-decoder model takes ``frames`` (B, S_enc, d_model) beside the
+    tokens; ``after_prefill`` (a planted fault) may rewrite the state
+    between the prefill and the first decode step.
 
     Returns the tokens (B, new), every step's logits (new, B, V) in f32,
     and host-clock prefill ms and decode ms/step (synchronized)."""
@@ -663,26 +704,31 @@ def greedy(eng, tok, new, page=0):
     import torch
     from repro_torch.serve.engine import _roundup64
     b, p = tok.shape
+    inputs = {"tokens": tok} if frames is None else {"tokens": tok,
+                                                     "frames": frames}
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     if page:
         max_len = p + _roundup64(new)
-        state = eng.init_decode_state({"tokens": tok[:1]}, n_slots=b,
-                                      max_len=max_len, page_size=page)
+        state = eng.init_decode_state({k: v[:1] for k, v in inputs.items()},
+                                      n_slots=b, max_len=max_len,
+                                      page_size=page)
         nb = -(-max_len // page)
         table = np.random.default_rng(5).permutation(
             np.arange(1, 1 + b * nb)).reshape(b, nb).astype(np.int32)
         state = eng.set_tables(state, table)
         rows = []
         for s in range(b):
-            lg, state = eng.prefill_at({"tokens": tok[s:s + 1]}, state, s)
+            lg, state = eng.prefill_at({k: v[s:s + 1]
+                                        for k, v in inputs.items()}, state, s)
             rows.append(lg)
         logits = torch.cat(rows)
         index = torch.full((b,), p, dtype=torch.int32, device=eng.device)
     else:
-        logits, state = eng.prefill({"tokens": tok},
-                                    extra_slots=_roundup64(new))
+        logits, state = eng.prefill(inputs, extra_slots=_roundup64(new))
         index = p
+    if after_prefill is not None:
+        after_prefill(state)
     cur = logits.argmax(-1)[:, None].to(torch.int32)
     steps, toks = [logits.float()], [cur[:, 0]]
     torch.cuda.synchronize()
@@ -723,7 +769,12 @@ def layer_matmuls(cfg, impl="ragged"):
     layer's 4 attention projections and its MLP's (3 SwiGLU, 2 GELU); an
     MoE layer's 4 projections, the shared expert's 3 and, under
     ``capacity`` dispatch only, 3 a routed expert (the ``ragged`` product
-    multiplies the dequantized expert stack with plain torch)."""
+    multiplies the dequantized expert stack with plain torch); an
+    enc-dec decoder layer's 4 self-attention and 4 cross-attention
+    projections and its 2 MLP matmuls (an encoder layer's are
+    ``ENC_LAYER_MATMULS``, made once a prompt)."""
+    if cfg.is_encdec:
+        return 10
     if not cfg.n_experts:
         return 4 + (3 if cfg.mlp_kind == "swiglu" else 2)
     return 4 + 3 * bool(cfg.n_shared_experts) \
@@ -959,11 +1010,12 @@ def deploy_bitplane(qat):
     """The QAT tree with every block's bit-width drawn from {0..8} with
     odds ``BW_PROB`` (seed 7; mixed masks with empty blocks, as BWQ
     training leaves a tree), deployed to ``layout="bitplane"``, bits 8.
-    Every quantized leaf of the layers is drawn, in tree order (phi3's
-    ``LAYER_LEAVES``; an MoE tree's attention projections and expert
-    stacks).  Leaf by leaf and layer by layer, its composed weights must
-    equal those of the packed deploy of the same tree, element for
-    element.  Returns the tree and a record."""
+    Every quantized leaf of the layer stacks is drawn, in tree order
+    (phi3's ``LAYER_LEAVES``; an MoE tree's attention projections and
+    expert stacks; an enc-dec tree's encoder, then decoder stack).  Leaf by
+    leaf and layer by layer, its composed weights must equal those of the
+    packed deploy of the same tree, element for element.  Returns the
+    tree and a record."""
     import torch
     from repro_torch.core.fakequant import FakeQuantTensor
     from repro_torch.serve.deploy import (bitplane_serving_compose,
@@ -971,36 +1023,51 @@ def deploy_bitplane(qat):
                                           serving_compose, to_serving_params)
     g = torch.Generator(device=DEV).manual_seed(7)
     odds = torch.tensor(BW_PROB, dtype=torch.float32, device=DEV)
-    layers = dict(qat["layers"])
-    leaves = [(sub, name) for sub, tree in layers.items()
-              if isinstance(tree, dict) for name, leaf in tree.items()
-              if isinstance(leaf, FakeQuantTensor)]
-    assert leaves and all(n in layers[s] for s, n in LAYER_LEAVES
-                          if s in layers), leaves
-    for sub, name in leaves:
-        fq = layers[sub][name]
+    mixed, leaves = dict(qat), []
+    for stack in ("layers", "enc_layers", "dec_layers"):
+        if stack not in qat:
+            continue
+        layers = mixed[stack] = dict(qat[stack])
+        for sub, tree in layers.items():
+            if isinstance(tree, FakeQuantTensor):
+                leaves.append((stack, (sub,)))
+            elif isinstance(tree, dict):
+                layers[sub] = dict(tree)
+                leaves += [(stack, (sub, name)) for name, leaf in tree.items()
+                           if isinstance(leaf, FakeQuantTensor)]
+    assert leaves and all(n in mixed["layers"][s] for s, n in LAYER_LEAVES
+                          if s in mixed.get("layers", {})), leaves
+
+    def at(tree, stack, path):
+        node = tree[stack]
+        for key in path[:-1]:
+            node = node[key]
+        return node, path[-1]
+
+    for stack, path in leaves:
+        node, name = at(mixed, stack, path)
+        fq = node[name]
         bw = torch.multinomial(odds, fq.bitwidth.numel(), replacement=True,
                                generator=g).reshape(fq.bitwidth.shape)
-        layers[sub] = dict(layers[sub])
-        layers[sub][name] = dataclasses.replace(
-            fq, bitwidth=bw.to(fq.bitwidth.dtype))
-    mixed = dict(qat, layers=layers)
+        node[name] = dataclasses.replace(fq, bitwidth=bw.to(
+            fq.bitwidth.dtype))
     bp = to_serving_params(mixed, 8, layout="bitplane", device=DEV)
     rec = {"compose_equal_layers": 0, "leaves": {}}
-    for sub, name in leaves:
-        packed = to_serving_params({"w": mixed["layers"][sub][name]}, 8,
-                                   device=DEV)["w"]
-        leaf = bp["layers"][sub][name]
+    for stack, path in leaves:
+        node, name = at(mixed, stack, path)
+        packed = to_serving_params({"w": node[name]}, 8, device=DEV)["w"]
+        node, name = at(bp, stack, path)
+        leaf = node[name]
         for i in range(leaf.planes.shape[0]):
             a = bitplane_serving_compose(leaf.layer(i), torch.float32)
             b = serving_compose(packed.layer(i), torch.float32)
             if not torch.equal(a, b):
                 raise AssertionError(f"bit-plane compose != packed compose: "
-                                     f"{name} layer {i}")
+                                     f"{stack}/{'/'.join(path)} layer {i}")
             rec["compose_equal_layers"] += 1
         del packed
         occ = leaf.mask.sum(dim=-3)
-        rec["leaves"][name] = dict(
+        rec["leaves"]["/".join((stack, *path))] = dict(
             mean_live_planes=float(occ.mean()),
             empty_block_share=float((occ == 0).float().mean()),
             stream_bytes=bitplane_stream_bytes(leaf),
@@ -1380,7 +1447,7 @@ def tick_launches(sched, matmul):
     model's :func:`layer_matmuls` per layer for every forward (a prompt
     insert or chunk, a decode step, a draft step, a verify), one
     ``paged_attention`` per layer for every single-token forward (decode,
-    draft, a 1-token chunk)."""
+    draft, a 1-token chunk); an enc-dec model's encoder once a request."""
     from repro_torch.models.moe import GROUPED_IMPL
     log = sched.tick_log
     cfg = sched.engine.api.cfg
@@ -1388,6 +1455,8 @@ def tick_launches(sched, matmul):
               + (r["verify"] > 0) for r in log)
     single = sum(r["decode"] + r["draft"]
                  + sum(w == 1 for w in r["inserts"]) for r in log)
+    if cfg.is_encdec:       # the encoder runs once a request (first chunk)
+        return encdec_launches(cfg, fwd, single, len(sched.results), matmul)
     return expected_launches(cfg.n_layers, fwd, single, matmul,
                              layer_matmuls(cfg, GROUPED_IMPL["impl"]))
 
@@ -1395,15 +1464,17 @@ def tick_launches(sched, matmul):
 class TickCapture:
     """Observer around ``models.attention.paged_attention`` (the fused
     read every decode step makes): the first layer-0 call whose state has
-    ragged fill levels, a free row, two slots aliasing one page and a
+    ragged fill levels, a free row, two slots aliasing one page (unless
+    ``aliased`` is False: a drive without a prefix cache has none) and a
     capacity past 1024 (with ``first``, the first layer-0 call) is copied
     out (query, layer-0 pool, table, kv_len).  Copies only; every call
     still goes to the wrapper."""
 
-    def __init__(self, first=False):
+    def __init__(self, first=False, aliased=True):
         from repro_torch.models import attention
         self.mod, self.orig = attention, attention.paged_attention
         self.case, self.layer0_calls, self.first = None, 0, first
+        self.need_alias = aliased
 
     def __enter__(self):
         self.mod.paged_attention = self
@@ -1424,7 +1495,8 @@ class TickCapture:
                           for a in range(len(pages))
                           for b in range(a + 1, len(pages)))
             if self.first or cap > 1024 and bool((~live).any()) and \
-                    aliased and len(set(lens[live].tolist())) >= 2:
+                    (aliased or not self.need_alias) and \
+                    len(set(lens[live].tolist())) >= 2:
                 self.case = dict(
                     q=q.clone(), pool=[None if x is None else x.clone()
                                         for x in (k, v, ks, vs)],
@@ -1629,8 +1701,10 @@ def oneshot_rule(out, n=SCHED_ONESHOT):
     pick += rest[:n - len(pick)]
     rows = []
     for uid in pick:
-        tok = torch.from_numpy(reqs[uid].inputs["tokens"]).to(DEV)
-        one = greedy(eng, tok, budget[uid])
+        inputs = {k: torch.from_numpy(v).to(DEV)
+                  for k, v in reqs[uid].inputs.items()}
+        one = greedy(eng, inputs["tokens"], budget[uid],
+                     frames=inputs.get("frames"))
         got = res[uid].tokens
         want = one["tokens"][0].tolist()
         part = next((j for j in range(len(want)) if got[j] != want[j]), None)
@@ -1739,12 +1813,17 @@ MOE_RUNS = ((8, 32, 32, "float32"), (8, 8, 8, "bfloat16"),
             (4, 4, 8, "bfloat16"))
 MOE_BP_RUNS = ((32, 32, "float32"), (8, 8, "bfloat16"))
 MOE_CAP_NEW = 8                 # the capacity-dispatch one-shot's tokens
+# granite's bit-plane and capacity one-shot legs serve the first 8 of its
+# 32 layers (the full-width tree, cut in depth): their host-bound decode
+# steps (0.4-0.7 s each at full depth) kept the smoke past its budget
+# once the enc-dec phase came after them
+MOE_CUT_LAYERS = 8
 MOE_ONESHOT = 4                 # quantizer-free requests rerun one-shot
 # (K, N) of a routed expert's projections: gate and up, then down
 MOE_EXPERT_SHAPES = ((1536, 512), (512, 1536))
 
 
-def moe_config(arch, act_bits, dtype, size=("--no-tiny",), n_layers=0):
+def served_config(arch, act_bits, dtype, size=("--no-tiny",), n_layers=0):
     """The registered ``arch`` at ``dtype`` with ``act_bits`` PACT
     activations (its 8x128 blocks; with ``size`` ``--tiny`` the launcher's
     tiny config and 9x8 blocks), cut to ``n_layers`` when given."""
@@ -1985,7 +2064,8 @@ def moe_phase(size=("--no-tiny",)):
     """The MoE family at full width (``size``): granite-moe-3b-a800m, all
     32 layers, deployed packed int8 and int4 and bit-plane (mixed
     widths), one-shot through the kernels against the plain versions
-    (paged, ``ragged``; then ``capacity``, contiguous), the grouped
+    (paged, ``ragged``; then ``capacity``, contiguous; the bit-plane and
+    ``capacity`` legs on the first ``MOE_CUT_LAYERS`` layers), the grouped
     product timed and its row independence recorded, ``packed_matmul``
     timed at the expert shapes, the scheduler drive; then
     llama4-scout-17b-a16e at full width cut to ``SCOUT_LAYERS`` layers.
@@ -1996,7 +2076,7 @@ def moe_phase(size=("--no-tiny",)):
     out = {"runs": []}
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    cfg = moe_config(MOE_ARCH, 8, "bfloat16", size)
+    cfg = served_config(MOE_ARCH, 8, "bfloat16", size)
     qat = build(cfg).init(seed=0, device=DEV)
     packed = {b: to_serving_params(qat, b, device=DEV) for b in (8, 4)}
     bp, out["bitplane_deploy"] = deploy_bitplane(qat)
@@ -2008,19 +2088,20 @@ def moe_phase(size=("--no-tiny",)):
     log(f"{MOE_ARCH}: init and three deploys in {out['deploy_s']:.1f} s")
 
     for bits, kv, act, dt in MOE_RUNS:
-        r = dict(moe_pair(moe_config(MOE_ARCH, act, dt, size), packed[bits],
+        r = dict(moe_pair(served_config(MOE_ARCH, act, dt, size), packed[bits],
                           tok, kv), bits=bits)
         out["runs"].append(r)
         moe_log(r)
+    cut = min(MOE_CUT_LAYERS, cfg.n_layers)
     for kv, act, dt in MOE_BP_RUNS:
-        r = dict(moe_pair(moe_config(MOE_ARCH, act, dt, size), bp, tok, kv,
-                          backend="bitplane"), bits="bitplane")
+        r = dict(moe_pair(served_config(MOE_ARCH, act, dt, size, cut), bp,
+                          tok, kv, backend="bitplane"), bits="bitplane")
         out["runs"].append(r)
         moe_log(r)
     del bp
     for kv, act, dt in ((32, 32, "float32"), (8, 8, "bfloat16")):
-        r = dict(moe_pair(moe_config(MOE_ARCH, act, dt, size), packed[8],
-                          tok, kv, new=MOE_CAP_NEW, page=0,
+        r = dict(moe_pair(served_config(MOE_ARCH, act, dt, size, cut),
+                          packed[8], tok, kv, new=MOE_CAP_NEW, page=0,
                           impl="capacity"), bits=8)
         out["runs"].append(r)
         moe_log(r)
@@ -2049,7 +2130,7 @@ def moe_phase(size=("--no-tiny",)):
 
     t1 = time.perf_counter()
     torch.cuda.reset_peak_memory_stats()
-    scfg = moe_config(SCOUT_ARCH, 8, "bfloat16", size, SCOUT_LAYERS)
+    scfg = served_config(SCOUT_ARCH, 8, "bfloat16", size, SCOUT_LAYERS)
     qat = build(scfg).init(seed=0, device=DEV)
     scout = to_serving_params(qat, 8, device=DEV)
     del qat
@@ -2058,7 +2139,7 @@ def moe_phase(size=("--no-tiny",)):
                          dtype=torch.int32,
                          generator=torch.Generator(device=DEV).manual_seed(3))
     for kv, act, dt in ((32, 32, "float32"), (8, 8, "bfloat16")):
-        r = dict(moe_pair(moe_config(SCOUT_ARCH, act, dt, size,
+        r = dict(moe_pair(served_config(SCOUT_ARCH, act, dt, size,
                                      SCOUT_LAYERS), scout, stok, kv), bits=8)
         out["runs"].append(r)
         moe_log(r)
@@ -2145,6 +2226,419 @@ def moe_summary(res) -> dict:
                           for r in res["expert_matmul"]],
         "peak_mem_gb": max(res["granite_peak_mem_gb"],
                            res["scout_peak_mem_gb"])}
+
+
+# ---------------------------------------------------------------------------
+# enc-dec phase
+# ---------------------------------------------------------------------------
+
+ENCDEC_ARCH = "seamless-m4t-large-v2"
+S_ENC = 256                     # frames a prompt: cross K/V at M = B*S_ENC
+# (weights, KV bits, activation bits, dtype) of the one-shot enc-dec legs:
+# quantizer-free in f32, then the registered quantization in bf16 with
+# int8 and int4 caches (the family has no PACT leaves, in the reference
+# as here: its activations are never rounded to levels)
+ENCDEC_RUNS = ((8, 32, 32, "float32"), (8, 8, 8, "bfloat16"),
+               (4, 4, 8, "bfloat16"))
+ENC_LAYER_MATMULS = 8           # 4 attention, 2 conformer pointwise, 2 MLP
+# (M, K, N) of packed_matmul at the family's new shapes, M = B*S_ENC: the
+# cross K/V projection (and every square projection of the encoder), and
+# the encoder MLP's input
+ENCDEC_TIMED = ((B * S_ENC, 1024, 1024), (B * S_ENC, 1024, 8192))
+
+
+def encdec_frames(d_model, b, seed=4):
+    """(b, S_ENC, d_model) f32 frames, 0.1 x standard normal, seeded."""
+    import torch
+    g = torch.Generator(device=DEV).manual_seed(seed)
+    return torch.randn((b, S_ENC, d_model), generator=g, device=DEV) * 0.1
+
+
+def encdec_launches(cfg, forwards, decode_steps, encoder_runs,
+                    matmul="packed_matmul"):
+    """:func:`expected_launches` of an enc-dec drive: the decoder's
+    :func:`layer_matmuls` a layer a forward, one ``paged_attention`` a
+    layer a single-token forward, and ``ENC_LAYER_MATMULS`` an encoder
+    layer for each of ``encoder_runs`` prompt rows' encoder passes."""
+    out = expected_launches(cfg.n_layers, forwards, decode_steps, matmul,
+                            layer_matmuls(cfg))
+    out[matmul] += encoder_runs * cfg.enc_layers * ENC_LAYER_MATMULS
+    return out
+
+
+def swap_enc_out(state):
+    """The planted enc-dec fault: slots 0 and 1 read each other's encoder
+    output from the first decode step on."""
+    e = state["enc_out"]
+    e[[0, 1]] = e[[1, 0]]
+
+
+def encoder_ms(eng, frames):
+    """Host-clock ms of ``eng``'s encoder alone over ``frames``
+    (synchronized; the second of two runs)."""
+    import torch
+    from repro_torch.models.common import prepare_params
+    from repro_torch.models.encdec import encode
+    from repro_torch.models.transformer import _cdtype
+    cfg = eng.api.cfg
+    mp = prepare_params(eng.params, _cdtype(cfg))
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        encode(mp, cfg, frames, eng.backend)
+        torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def encdec_pair(cfg, tree, tok, frames, kv, backend="kernel", paged=False,
+                fault=False):
+    """One enc-dec configuration, contiguous, through the kernels
+    (``backend``, ``fused`` attention; warmed up with ``generate``, then
+    counted, its first weight-matmul call at each shape and its first
+    layer-0 attention read held against the plain versions) and through
+    the plain versions.  ``paged`` adds a counted kernel run through a
+    16-token page pool with a non-identity table (``prefill_at`` a slot,
+    so the encoder runs a row at a time); ``fault`` a kernel run with two
+    slots' ``enc_out`` rows swapped after the prefill
+    (:func:`swap_enc_out`), held against the plain run."""
+    import torch
+    from repro_torch.models.api import build
+    from repro_torch.serve.engine import ServeEngine
+    api = build(cfg)
+    matmul = "bitplane_matmul" if backend == "bitplane" else "packed_matmul"
+    b = tok.shape[0]
+    ker = ServeEngine(api, tree, kv_quant_bits=kv, backend=backend,
+                      attn_backend="fused", device=DEV)
+    warm = ker.generate({"tokens": tok, "frames": frames}, max_new=2).cpu()
+    with MatmulCapture() as mm, TickCapture(first=True) as cap:
+        k = counted(lambda: greedy(ker, tok, NEW, frames=frames),
+                    encdec_launches(cfg, NEW, NEW - 1, 1, matmul))
+    rec = dict(arch=cfg.name, layers=cfg.n_layers,
+               enc_layers=cfg.enc_layers, backend=backend, kv=kv,
+               act_bits=cfg.quant.act_bits, dtype=cfg.dtype, new=NEW,
+               s_enc=frames.shape[1], tokens=k["tokens"].tolist(),
+               launches=k["launches"],
+               generate_prefix_equal=torch.equal(warm, k["tokens"][:, :2]),
+               prefill_ms=k["prefill_ms"],
+               decode_ms_per_step=k["decode_ms_per_step"],
+               matmul_calls=mm.check())
+    rec["attention"], _, _ = attention_check(cap.case, "first decode read")
+    rec["encoder_ms"] = encoder_ms(ker, frames)
+    rec["decoder_prompt_ms"] = rec["prefill_ms"] - rec["encoder_ms"]
+    if paged:
+        pg = counted(lambda: greedy(ker, tok, NEW, page=PAGE, frames=frames),
+                     encdec_launches(cfg, b + NEW - 1, NEW - 1, b, matmul))
+        rec["paged"] = dict(launches=pg["launches"],
+                            tokens_equal=torch.equal(pg["tokens"],
+                                                     k["tokens"]),
+                            vs_contiguous=compare(pg, k))
+    f = greedy(ker, tok, NEW, frames=frames, after_prefill=swap_enc_out) \
+        if fault else None
+    del ker, mm, cap
+    ref = ServeEngine(api, tree, kv_quant_bits=kv, backend="ref",
+                      attn_backend="ref", device=DEV)
+    p = greedy(ref, tok, NEW, frames=frames)
+    del ref
+    rec["plain_decode_ms_per_step"] = p["decode_ms_per_step"]
+    rec["plain_prefill_ms"] = p["prefill_ms"]
+    rec["kernel_vs_plain"] = compare(k, p)
+    if f is not None:
+        rec["fault_swapped_enc_out"] = compare(f, p)
+    return rec
+
+
+def encdec_log(r):
+    c = r["kernel_vs_plain"]
+    log(f"{r['arch']} ({r['enc_layers']}+{r['layers']} layers) "
+        f"{r['backend']} w{r['bits']} kv{r['kv']} {r['dtype']}: kernel vs "
+        f"plain err {c['err']:.3g} tokens {c['token_agreement']:.3f}; "
+        f"prefill {r['prefill_ms']:.1f} ms (encoder {r['encoder_ms']:.1f}), "
+        f"decode {r['decode_ms_per_step']:.2f} ms/step (plain "
+        f"{r['plain_decode_ms_per_step']:.2f})" +
+        (f"; paged tokens equal {r['paged']['tokens_equal']}"
+         if "paged" in r else "") +
+        (f"; swapped enc_out err {r['fault_swapped_enc_out']['err']:.3g}"
+         if "fault_swapped_enc_out" in r else ""))
+
+
+def encdec_profile(eng, tok, frames):
+    """One decode step of ``eng`` (B rows after their prompts, contiguous)
+    under ``torch.profiler``: the wall time and the device time of its
+    CUDA kernels, split into ``packed_matmul``'s byte-streaming regime
+    (M <= 16: the decoder's projections at M = B), its tensor regime (M =
+    B*S_ENC: the cross K/V projections), ``paged_attention``,
+    ``attention_core`` (the cross-attention, through a
+    ``record_function`` around each call) and the rest (the tied head,
+    norms, the MLP's activation, casts)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from repro_torch.models import attention
+    p = tok.shape[1]
+    logits, state = eng.prefill({"tokens": tok, "frames": frames},
+                                extra_slots=64)
+    cur = logits.argmax(-1)[:, None].to(torch.int32)
+    logits, state = eng.decode(cur, state, p)          # warm
+    cur = logits.argmax(-1)[:, None].to(torch.int32)
+    core = attention.attention_core
+
+    def annotated(*a, **kw):
+        with record_function("encdec.attention_core"):
+            return core(*a, **kw)
+
+    attention.attention_core = annotated
+    try:
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            eng.decode(cur, state, p + 1)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        attention.attention_core = core
+    parts = {"packed_matmul_stream": 0.0, "packed_matmul_tensor": 0.0,
+             "paged_attention": 0.0, "attention_core": 0.0, "rest": 0.0}
+    calls = dict.fromkeys(parts, 0)
+    top = []
+    cuda, cpu = torch.autograd.DeviceType.CUDA, torch.autograd.DeviceType.CPU
+    for e in prof.key_averages():
+        # the annotation's own device-side range spans the gaps between
+        # its kernels (the card waits for the host): not a kernel
+        if e.device_type != cuda or e.key == "encdec.attention_core":
+            continue
+        ms = e.self_device_time_total / 1e3
+        kind = "paged_attention" if "paged_attention_kernel" in e.key else \
+            "packed_matmul_tensor" if "wmm::tensor_kernel" in e.key else \
+            "packed_matmul_stream" if "wmm::stream_kernel" in e.key else \
+            "rest"
+        parts[kind] += ms
+        calls[kind] += e.count
+        top.append((ms, e.key[:100], e.count))
+    # attention_core's kernels: those of the ops inside each annotation
+    core_ev = [e for e in prof.events()
+               if e.name == "encdec.attention_core" and e.device_type == cpu]
+    parts["attention_core"] = sum(ch.device_time_total for e in core_ev
+                                  for ch in e.cpu_children) / 1e3
+    parts["rest"] -= parts["attention_core"]
+    calls["attention_core"] = len(core_ev)
+    device_ms = sum(parts.values())
+    return dict(wall_ms=wall_ms, device_ms=device_ms,
+                idle_share=max(0.0, 1 - device_ms / wall_ms),
+                device_ms_by_part=parts, calls=calls,
+                share=({k: v / device_ms for k, v in parts.items()}
+                       if device_ms else None),
+                top_kernels=[dict(ms=m, kernel=k, calls=c)
+                             for m, k, c in sorted(top, reverse=True)[:12]])
+
+
+def encdec_scheduler(tree, size=("--no-tiny",)):
+    """The scheduler trace (``SCHED_*``) through the launcher on the
+    enc-dec tree, every request's frames ``S_ENC`` wide (the launcher's
+    ``--prompt-len``): bf16 with int8 weights and KV, then quantizers off
+    in f32, whose requests are held against one-shot runs
+    (:func:`oneshot_rule`, every rerun identical).  The prefix cache the
+    trace asks for is turned off with the reference's warning (no page is
+    looked up); parked requests take their ``enc_out`` rows with them.
+    Both drives are counted against their tick logs (the encoder once a
+    request) and checked by :func:`drive_record`; the bf16 drive's
+    captured decode tick (no aliased pages here) is held against the
+    plain version and timed."""
+    import torch
+    import warnings
+    out = {}
+    extra = ["--prompt-len", str(S_ENC)]
+    with warnings.catch_warnings(record=True) as caught, \
+            TickCapture(aliased=False) as cap:
+        warnings.simplefilter("always")
+        main = launch(sched_argv(size, ["--kv-bits", "8", *extra],
+                                 arch=ENCDEC_ARCH), params=tree)
+    rec = out["main"] = drive_record(main, "packed_matmul")
+    rep, stats = rec["cache_report"], main["scheduler"].sched_stats
+    rec["prefix_cache_warned"] = any(
+        "prefix_cache needs" in str(w.message) for w in caught)
+    assert rec["prefix_cache_warned"] and \
+        main["scheduler"].prefix_cache is None, caught
+    assert stats["prefix_lookups"] == 0 and stats["prefix_hits"] == 0, stats
+    assert rep["preemptions"] >= 1 and \
+        rep["resumes"] == rep["preemptions"], rep
+    assert all(q.inputs["frames"].shape[1] == S_ENC
+               for q in main["requests"])
+    assert {SCHED_SLOTS, SCHED_CHUNK, SCHED_SLOTS * S_ENC} <= {
+        r["m"] for r in rec["matmul_calls"]}, rec["matmul_calls"]
+    assert cap.case is not None, "no decode tick met the capture rule"
+    out["captured_tick"] = captured_tick_case(cap.case)
+    del main, cap
+    log(f"{ENCDEC_ARCH} scheduler drive: {rec['ticks']} ticks, "
+        f"{rec['generated_tokens']} tokens, {rec['tokens_per_s']:.1f} tok/s, "
+        f"decode tick {rec['decode_tick_ms']:.1f} ms, chunk tick "
+        f"{rec['chunk_tick_ms']:.1f} ms, parks {rep['preemptions']}")
+    off = launch(sched_argv(size, ["--kv-bits", "32", "--act-bits", "32",
+                                   "--dtype", "float32", *extra],
+                            arch=ENCDEC_ARCH), params=tree)
+    rec_off = out["quantizers_off"] = drive_record(off, "packed_matmul")
+    for key in ("ticks", "admitted", "finished", "parked"):
+        assert rec_off[key] == rec[key], (key, rec_off[key], rec[key])
+    out["oneshot"] = oneshot_rule(off)
+    del off
+    torch.cuda.empty_cache()
+    return out
+
+
+def encdec_phase(size=("--no-tiny",)):
+    """The enc-dec family at full width (``size``): seamless-m4t-large-v2,
+    24 encoder and 24 decoder layers, random weights from seed 0, deployed
+    packed int8 and int4 and as mixed-width bit planes; one-shot legs (B=4
+    x 128 tokens over 256 frames each, 32 new) through the kernels
+    against the plain versions (:func:`encdec_pair`); one decode step
+    profiled; ``packed_matmul`` timed at its new shapes and
+    ``paged_attention`` at its head; the scheduler drive.  Returns the
+    readings; :func:`check_encdec` judges them."""
+    import torch
+    from repro_torch.models.api import build
+    from repro_torch.serve.deploy import to_serving_params
+    from repro_torch.serve.engine import ServeEngine
+    out = {"runs": []}
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    cfg = served_config(ENCDEC_ARCH, 8, "bfloat16", size)
+    qat = build(cfg).init(seed=0, device=DEV)
+    packed = {b: to_serving_params(qat, b, device=DEV) for b in (8, 4)}
+    bp, out["bitplane_deploy"] = deploy_bitplane(qat)
+    del qat
+    torch.cuda.empty_cache()
+    out["deploy_s"] = time.perf_counter() - t0
+    tok = torch.randint(0, cfg.vocab, (B, P), device=DEV, dtype=torch.int32,
+                        generator=torch.Generator(device=DEV).manual_seed(3))
+    frames = encdec_frames(cfg.d_model, B)
+    log(f"{ENCDEC_ARCH}: init and three deploys in {out['deploy_s']:.1f} s")
+
+    for bits, kv, act, dt in ENCDEC_RUNS:
+        r = dict(encdec_pair(served_config(ENCDEC_ARCH, act, dt, size),
+                             packed[bits], tok, frames, kv, paged=kv == 32,
+                             fault=(bits, kv) == (8, 8)), bits=bits)
+        out["runs"].append(r)
+        encdec_log(r)
+    r = dict(encdec_pair(served_config(ENCDEC_ARCH, 32, "float32", size),
+                         bp, tok, frames, 32, backend="bitplane"),
+             bits="bitplane")
+    out["runs"].append(r)
+    encdec_log(r)
+    del bp, packed[4]
+    torch.cuda.empty_cache()
+    out["oneshot_s"] = time.perf_counter() - t0
+
+    t1 = time.perf_counter()
+    eng = ServeEngine(build(cfg), packed[8], kv_quant_bits=8,
+                      backend="kernel", attn_backend="fused", device=DEV)
+    out["profile"] = encdec_profile(eng, tok, frames)
+    del eng
+    out["packed_matmul"] = [time_packed(m, k, n, 8)
+                            for m, k, n in ENCDEC_TIMED]
+    kvh, _, dh = ENCDEC_HEAD
+    out["attention"] = time_attention(8, P + NEW // 2, P + 64, kvh=kvh,
+                                      dh=dh)
+    out["time_s"] = time.perf_counter() - t1
+    prof = out["profile"]
+    log(f"{ENCDEC_ARCH} profiled decode step: wall {prof['wall_ms']:.2f} "
+        f"ms, device {prof['device_ms']:.3f} ms, by part "
+        f"{ {k: round(v, 4) for k, v in prof['device_ms_by_part'].items()} }")
+
+    t1 = time.perf_counter()
+    out["scheduler"] = encdec_scheduler(packed[8], size)
+    out["scheduler_s"] = time.perf_counter() - t1
+    del packed
+    torch.cuda.empty_cache()
+    out["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    out["phase_s"] = time.perf_counter() - t0
+    return out
+
+
+def check_encdec(res):
+    """Every enc-dec drive finite, its tokens of the right shape and
+    vocabulary, its ``generate`` warm-up the loop's first tokens; kernels
+    vs plain: quantizer-free, tokens identical and logits within
+    ``EXACT_TOL_REL`` of the largest (and the paged run's tokens the
+    contiguous run's); quantized, within ``QUANT_TOL_REL`` for its KV
+    width while prefixes agree; the swapped ``enc_out`` fault above
+    ``QUANT_TOL_REL[8]``.  The launches were counted and the captured
+    calls held in :func:`encdec_pair`, the scheduler drives' checks made
+    in :func:`encdec_scheduler`; every one-shot rerun of the scheduler's
+    requests gives the drive's tokens."""
+    import torch
+    from repro_torch.configs import REGISTRY
+    vocab = REGISTRY[ENCDEC_ARCH].vocab
+    for r in res["runs"]:
+        tag = (r["backend"], r["bits"], r["kv"], r["dtype"])
+        toks = torch.tensor(r["tokens"])
+        assert toks.shape == (B, r["new"]), tag
+        assert 0 <= int(toks.min()) <= int(toks.max()) < vocab, tag
+        assert r["generate_prefix_equal"], ("generate vs loop", tag)
+        c = r["kernel_vs_plain"]
+        assert c["finite"], tag
+        if r["act_bits"] >= 32 and r["kv"] >= 32:
+            assert c["err"] <= EXACT_TOL_REL and c["first_diff"] is None, \
+                (tag, c)
+        else:
+            assert c["err"] <= QUANT_TOL_REL[r["kv"]], (tag, c)
+        if "paged" in r:
+            assert r["paged"]["tokens_equal"], (tag, r["paged"])
+        if "fault_swapped_enc_out" in r:
+            assert r["fault_swapped_enc_out"]["err"] > QUANT_TOL_REL[8], \
+                (tag, r["fault_swapped_enc_out"])
+    assert {(r["backend"], r["kv"]) for r in res["runs"]} == {
+        ("kernel", 32), ("kernel", 8), ("kernel", 4), ("bitplane", 32)}
+    assert any("paged" in r for r in res["runs"]) and \
+        any("fault_swapped_enc_out" in r for r in res["runs"])
+    parts = [r for r in res["scheduler"]["oneshot"]
+             if r["parted_at"] is not None]
+    assert not parts, ("enc-dec scheduler tokens part from one-shot", parts)
+
+
+def encdec_summary(res) -> dict:
+    """The enc-dec phase's figures for the printout."""
+    def run(backend, bits, kv):
+        r = next(r for r in res["runs"]
+                 if (r["backend"], r["bits"], r["kv"]) == (backend, bits,
+                                                           kv))
+        return {"prefill_ms": r["prefill_ms"],
+                "encoder_ms": r["encoder_ms"],
+                "decode_ms_per_step": r["decode_ms_per_step"],
+                "plain_decode_ms_per_step": r["plain_decode_ms_per_step"],
+                "err": r["kernel_vs_plain"]["err"],
+                "launches": r["launches"]}
+    sm, so = res["scheduler"]["main"], res["scheduler"]["quantizers_off"]
+    prof = res["profile"]
+    return {
+        "arch": ENCDEC_ARCH, "layers": "24+24", "s_enc": S_ENC,
+        "phase_s": res["phase_s"],
+        "int8_kv32_f32": run("kernel", 8, 32),
+        "int8_kv8_bf16": run("kernel", 8, 8),
+        "int4_kv4_bf16": run("kernel", 4, 4),
+        "bitplane_kv32_f32": run("bitplane", "bitplane", 32),
+        "paged_tokens_equal": all(r["paged"]["tokens_equal"]
+                                  for r in res["runs"] if "paged" in r),
+        "fault_swapped_enc_out_err": next(
+            r["fault_swapped_enc_out"]["err"] for r in res["runs"]
+            if "fault_swapped_enc_out" in r),
+        "scheduler": {k: sm[k] for k in (
+            "ticks", "tokens_per_s", "decode_tick_ms", "chunk_tick_ms",
+            "ttft_ms_mean", "parked", "launches")},
+        "scheduler_f32_tokens_per_s": so["tokens_per_s"],
+        "oneshot_parts": [r["parted_at"] for r in
+                          res["scheduler"]["oneshot"]],
+        "captured_tick_err": res["scheduler"]["captured_tick"]["err"],
+        "decode_step_profile": {k: prof[k] for k in (
+            "wall_ms", "device_ms", "idle_share", "device_ms_by_part",
+            "calls")},
+        "packed_matmul": [{k: r[k] for k in ("m", "k", "n", "ms",
+                                             "device_ms", "bound_ms",
+                                             "plain_ms",
+                                             "library_device_ms")}
+                          for r in res["packed_matmul"]],
+        "attention": {k: res["attention"][k] for k in (
+            "kv", "dh", "kv_len", "device_ms", "bound_ms",
+            "library_device_ms")},
+        "peak_mem_gb": res["peak_mem_gb"]}
 
 
 # ---------------------------------------------------------------------------
@@ -2549,14 +3043,15 @@ def time_packed(m, k, n, bits):
                 bytes=nbytes, flops=flops)
 
 
-def time_attention(bits, kv_len_val, t=P + 64, paged=0):
-    """One layer's decode read at B=4, KV=32, dh=96, every slot filled to
+def time_attention(bits, kv_len_val, t=P + 64, paged=0, kvh=32, dh=96):
+    """One layer's decode read at B=4, ``kvh`` KV heads of width ``dh``
+    (phi3's 32 x 96 unless named), G=1, every slot filled to
     ``kv_len_val`` of a ``t``-position cache: the contiguous cache's
     identity view (page ``fit_block(min(128, t), t, 1)``), or ``paged``
     positions a page behind a shuffled table.  KV cold (rotated past the
-    50 MB L2).  Library: SDPA on the same K/V dequantized to bf16, (B, 32,
-    t, 96), masked to the fill.  Bound: the KV bytes and scales the slots
-    fill, q and the output, over HBM."""
+    50 MB L2).  Library: SDPA on the same K/V dequantized to bf16, (B,
+    kvh, t, dh), masked to the fill.  Bound: the KV bytes and scales the
+    slots fill, q and the output, over HBM."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import paged_attention
@@ -2569,18 +3064,19 @@ def time_attention(bits, kv_len_val, t=P + 64, paged=0):
     seeds = iter(range(100, 1000))
 
     def make():
-        q, pool, table = attention_pool(bits, 32, t, page, paged=bool(paged),
-                                        seed=next(seeds))
+        q, pool, table = attention_pool(bits, kvh, t, page,
+                                        paged=bool(paged), seed=next(seeds),
+                                        dh=dh)
         kq, vq, ks, vs = pool
         order = table.reshape(-1).long()       # slot-major pages
-        kd = dequantize_kv(kq[order].reshape(B, t, 32, -1),
-                           ks[order].reshape(B, t, 32), torch.bfloat16)
-        vd = dequantize_kv(vq[order].reshape(B, t, 32, -1),
-                           vs[order].reshape(B, t, 32), torch.bfloat16)
+        kd = dequantize_kv(kq[order].reshape(B, t, kvh, -1),
+                           ks[order].reshape(B, t, kvh), torch.bfloat16)
+        vd = dequantize_kv(vq[order].reshape(B, t, kvh, -1),
+                           vs[order].reshape(B, t, kvh), torch.bfloat16)
         return (q, pool, table), (kd.transpose(1, 2).contiguous(),
                                   vd.transpose(1, 2).contiguous())
 
-    sets = rotating(make, 2 * B * t * 32 * (96 * bits // 8 + 4))
+    sets = rotating(make, 2 * B * t * kvh * (dh * bits // 8 + 4))
     it = {"i": 0}
 
     def nxt():
@@ -2596,19 +3092,19 @@ def time_attention(bits, kv_len_val, t=P + 64, paged=0):
         return paged_attention_ref(q, *pool, table, kv_len)
 
     mask = (torch.arange(t, device=DEV) < kv_len_val)[None, None, None]
-    qb = sets[0][0][0].reshape(B, 32, 1, 96).to(torch.bfloat16)
+    qb = sets[0][0][0].reshape(B, kvh, 1, dh).to(torch.bfloat16)
     ms, dev, host = cuda_times(kern)
     plain_ms = cuda_ms(plain, iters=5 if t > 2048 else 20)
     lib, lib_dev, lib_host = cuda_times(
         lambda: F.scaled_dot_product_attention(qb, *nxt()[1], attn_mask=mask))
-    nbytes = B * kv_len_val * 32 * (2 * 96 * bits / 8 + 8) \
-        + 2 * B * 32 * 96 * 4 + B * 4
-    flops = 4.0 * B * 32 * kv_len_val * 96
+    nbytes = B * kv_len_val * kvh * (2 * dh * bits / 8 + 8) \
+        + 2 * B * kvh * dh * 4 + B * 4
+    flops = 4.0 * B * kvh * kv_len_val * dh
     bound = max(nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS) * 1e3
     by = "bytes" if nbytes / HBM_BYTES_PER_S >= flops / BF16_FLOPS \
         else "operations"
-    plan = attention_plan(B, 32, 1, 96, page, t // page, bits)
-    return dict(bits=bits, b=B, kv=32, dh=96, t=t, page=page,
+    plan = attention_plan(B, kvh, 1, dh, page, t // page, bits)
+    return dict(bits=bits, b=B, kv=kvh, dh=dh, t=t, page=page,
                 leg="paged" if paged else "contiguous",
                 kv_len=kv_len_val, splits=plan.splits, chunk=plan.chunk,
                 ms=ms, device_ms=dev, host_ms=host,
@@ -2841,6 +3337,8 @@ def main() -> int:
     print(json.dumps({"train": train_summary(detail)}))
     print(json.dumps({"moe": dict(moe_summary(detail["moe_phase"]),
                                   card=smi)}))
+    print(json.dumps({"encdec": dict(encdec_summary(detail["encdec_phase"]),
+                                     card=smi)}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
@@ -3032,6 +3530,11 @@ def run(detail) -> list:
     log(f"MoE phase ran in {detail['moe_phase']['phase_s']:.1f} s")
     save_detail(detail)
     check_moe(detail["moe_phase"])
+
+    detail["encdec_phase"] = encdec_phase()
+    log(f"enc-dec phase ran in {detail['encdec_phase']['phase_s']:.1f} s")
+    save_detail(detail)
+    check_encdec(detail["encdec_phase"])
 
     t0 = time.perf_counter()
     detail["train_phase"] = train_phase()

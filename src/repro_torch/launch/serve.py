@@ -29,7 +29,11 @@ weight-block geometry (8x128 for every registered dense and MoE config);
 the tiny config takes the reference launcher's (9x8).  An MoE
 architecture serves through the dispatch ``models.moe.GROUPED_IMPL``
 selects (exact ``ragged`` unless a caller sets ``capacity``).  Prompts
-come from ``numpy.random.default_rng(seed)``.
+come from ``numpy.random.default_rng(seed)``.  An encoder-decoder
+architecture (``seamless-m4t-large-v2``) also gives each request frames
+(1, ``--prompt-len``, d_model), 0.1 x standard normal from the same
+generator: every request shares one encoder length, as the reference's
+launcher gives them, while ``--prompt-lens`` still varies the tokens.
 Not ported yet: ``--ckpt``/``--ckpt-step``, ``--lint`` and
 ``--autotune-budget-bytes``.
 
@@ -162,10 +166,12 @@ def _config(args):
     return cfg
 
 
-def _prompts(cfg, args) -> List[np.ndarray]:
-    """One (1, P_i) int32 prompt a request (``--batch`` of them) from
-    ``numpy.random.default_rng(seed)``; with ``--shared-prefix N`` the
-    sharers' first N tokens are request 0's."""
+def _prompts(cfg, args) -> List[Dict[str, np.ndarray]]:
+    """One request's inputs (``--batch`` of them) from
+    ``numpy.random.default_rng(seed)``: (1, P_i) int32 tokens, with
+    ``--shared-prefix N`` the sharers' first N tokens request 0's; for an
+    encoder-decoder config also (1, ``--prompt-len``, d_model) f32
+    frames, drawn after every prompt's tokens."""
     widths = _ints(args.prompt_lens) or [args.prompt_len]
     rng = np.random.default_rng(args.seed)
     toks = [rng.integers(0, cfg.vocab, (1, widths[i % len(widths)]))
@@ -178,7 +184,12 @@ def _prompts(cfg, args) -> List[np.ndarray]:
         for i in range(0, args.batch, max(args.shared_every, 1)):
             if toks[i].shape[1] >= n:
                 toks[i][:, :n] = toks[0][:, :n]
-    return toks
+    inputs = [{"tokens": t} for t in toks]
+    if cfg.is_encdec:
+        for x in inputs:
+            x["frames"] = (rng.standard_normal(
+                (1, args.prompt_len, cfg.d_model)) * 0.1).astype(np.float32)
+    return inputs
 
 
 def main(argv: Optional[List[str]] = None, params: Any = None,
@@ -219,7 +230,7 @@ def main(argv: Optional[List[str]] = None, params: Any = None,
     if args.requests:
         prios = _ints(args.priority) or [0]
         budgets = _ints(args.max_news) or [args.max_new]
-        reqs = [Request(uid=i, inputs={"tokens": prompts[i]},
+        reqs = [Request(uid=i, inputs=prompts[i],
                         sampling=SamplingParams(
                             max_new_tokens=budgets[i % len(budgets)],
                             temperature=args.temperature,
@@ -248,7 +259,8 @@ def main(argv: Optional[List[str]] = None, params: Any = None,
         return dict(engine=eng, scheduler=sched, requests=reqs,
                     results=results)
 
-    batch = {"tokens": np.concatenate(prompts, axis=0)}
+    batch = {k: np.concatenate([x[k] for x in prompts], axis=0)
+             for k in prompts[0]}
     gen = None
     if args.temperature > 0:
         gen = torch.Generator(device=eng.device).manual_seed(args.seed)

@@ -1,8 +1,10 @@
-"""Model API over the decoder-only LM, dense and MoE families (port of
-those parts of ``repro.models.api``): init, the training loss (dense
-family only), prefill, decode, and per-slot insertion into a live decode
-state.  Nothing here is family-specific: the MoE family differs only in
-its forward.
+"""Model API over the decoder-only LM (dense and MoE families) and the
+encoder-decoder family (port of those parts of ``repro.models.api``):
+init, the training loss (dense family only), prefill, decode, and
+per-slot insertion into a live decode state.  The MoE family differs
+only in its forward; an encoder-decoder state also holds the encoder
+output, one ``(S_enc, d_model)`` row a slot (``enc_out``), written by a
+prompt's first chunk and read by its later chunks and decode steps.
 
 The decode state is updated in place: methods that take a state write its
 cache tensors and return a state dict holding the same tensors.
@@ -16,7 +18,7 @@ import torch
 
 from ..configs.base import ModelConfig
 from ..core.device import resolve_device
-from . import transformer
+from . import encdec, transformer
 
 
 def _write_rows(big: torch.Tensor, small: torch.Tensor, slot: int,
@@ -29,6 +31,18 @@ def _write_rows(big: torch.Tensor, small: torch.Tensor, slot: int,
     index = [slice(0, d) for d in small.shape]
     index[batch_dim] = slice(slot, slot + n)
     big[tuple(index)] = small.to(big.dtype)
+
+
+def _write_enc_out(state, enc_out: torch.Tensor, slot: int) -> None:
+    """Write a prompt's encoder output into ``state["enc_out"]`` at row
+    ``slot``; cross-attention has no per-row length mask, so every row
+    must share one encoder length."""
+    if enc_out.shape[1] != state["enc_out"].shape[1]:
+        raise ValueError(
+            "enc-dec slot insertion needs the same encoder length as the "
+            f"live batch: {enc_out.shape[1]} != {state['enc_out'].shape[1]} "
+            "(cross-attention has no per-row length masking)")
+    _write_rows(state["enc_out"], enc_out, slot, batch_dim=0)
 
 
 def cache_is_paged(cache) -> bool:
@@ -70,13 +84,16 @@ class ModelAPI:
         :func:`repro_torch.bridge.params_from_numpy`."""
         dev = resolve_device(device)
         gen = torch.Generator(device=dev).manual_seed(seed)
+        if self.cfg.is_encdec:
+            return encdec.init_encdec(self.cfg, gen, dev)
         return transformer.init_lm(self.cfg, gen, dev)
 
     # ---- losses / steps ------------------------------------------------
     def loss(self, params, batch) -> tuple:
         """Next-token cross entropy and its metrics; the full-sequence
         forward runs with autograd live.  Raises ``NotImplementedError``
-        for the MoE family (its training is not ported)."""
+        for the MoE and encoder-decoder families (their training is not
+        ported)."""
         return transformer.loss_fn(params, self.cfg, batch)
 
     def prefill(self, params, batch, extra_slots: int = 0, *,
@@ -84,9 +101,18 @@ class ModelAPI:
                 ) -> tuple:
         """Full-sequence forward that also fills a new decode cache;
         ``extra_slots`` reserves positions for the decode steps that
-        follow.  Returns (last-token logits, {"cache": ...})."""
+        follow.  Returns (last-token logits, {"cache": ...}); an
+        encoder-decoder batch also carries ``frames`` (B, S_enc, d_model),
+        and the state its ``enc_out``."""
         tokens = batch["tokens"]
         b, s = tokens.shape
+        if self.cfg.is_encdec:
+            cache = encdec.encdec_init_cache(self.cfg, b, s + extra_slots,
+                                             tokens.device)
+            logits, cache, enc_out = encdec.encdec_forward(
+                params, self.cfg, batch["frames"], tokens, cache, 0,
+                backend=backend, attn_backend=attn_backend)
+            return logits[:, -1], {"cache": cache, "enc_out": enc_out}
         cache = transformer.init_cache(self.cfg, b, s + extra_slots,
                                        tokens.device)
         logits, cache = transformer.forward(
@@ -99,6 +125,11 @@ class ModelAPI:
                     ) -> tuple:
         """One decode step; ``index`` is the shared fill level or a
         per-slot (B,) vector of fill levels."""
+        if self.cfg.is_encdec:
+            logits, cache = encdec.encdec_decode_step(
+                params, self.cfg, tokens, state["cache"], index,
+                state["enc_out"], backend=backend, attn_backend=attn_backend)
+            return logits, {**state, "cache": cache}
         logits, cache = transformer.decode_step(
             params, self.cfg, tokens, state["cache"], index,
             backend=backend, attn_backend=attn_backend)
@@ -111,7 +142,12 @@ class ModelAPI:
 
         ``tokens`` (B, W) are each slot's last accepted token followed by
         its draft proposals, written at fill levels ``index ..
-        index+W-1``.  Returns ((B, W, V) logits, state)."""
+        index+W-1``.  Returns ((B, W, V) logits, state).  The
+        encoder-decoder family has none, as in the reference."""
+        if self.cfg.is_encdec:
+            raise NotImplementedError(
+                "speculative verify is decoder-only (KV rollback is "
+                "positional; enc-dec cross attention is out of scope)")
         logits, cache = transformer.verify_step(
             params, self.cfg, tokens, state["cache"], index,
             backend=backend, attn_backend=attn_backend)
@@ -124,9 +160,12 @@ class ModelAPI:
         reference derives the tree with ``jax.eval_shape``).  ``page_size
         > 0`` builds the paged layout: a pool of ``n_pages`` pages (default
         ``1 + n_slots * nb``, worst-case demand plus the trash page)
-        instead of contiguous ``max_len``-wide slots."""
-        template = transformer.init_cache(self.cfg, 1, 1,
-                                          batch["tokens"].device)
+        instead of contiguous ``max_len``-wide slots.  An
+        encoder-decoder state adds a zero ``enc_out`` buffer
+        (n_slots, S_enc, d_model) in the compute dtype, S_enc the example
+        batch's frames width."""
+        dev = batch["tokens"].device
+        template = transformer.init_cache(self.cfg, 1, 1, dev)
         if page_size > 0:
             nb = -(-max_len // page_size)
             n_pages = n_pages or (1 + n_slots * nb)
@@ -135,15 +174,36 @@ class ModelAPI:
         else:
             cache = transformer.rebatch_cache_tree(template, n_slots,
                                                    max_len)
-        return {"cache": cache}
+        state = {"cache": cache}
+        if self.cfg.is_encdec:
+            state["enc_out"] = torch.zeros(
+                (n_slots, batch["frames"].shape[1], self.cfg.d_model),
+                dtype=transformer._cdtype(self.cfg), device=dev)
+        return state
 
     def prefill_chunk_at(self, params, batch, state, slot: int, start: int,
                          *, backend: str = "dense",
                          attn_backend: str = "gather") -> tuple:
         """Insert a prompt chunk (1, W) into row ``slot`` of a live state
         at cache position ``start``, attending over the slot's cached
-        prefix.  Returns the full (1, W, V) chunk logits and the state."""
+        prefix.  Returns the full (1, W, V) chunk logits and the state.
+
+        An encoder-decoder prompt's ``frames`` go with its first chunk
+        only (``start == 0``): that chunk runs the encoder and writes the
+        slot's ``enc_out`` row, and later chunks read that row."""
         row_cache = _row_cache_view(state["cache"], slot)
+        if self.cfg.is_encdec:
+            be = dict(backend=backend, attn_backend=attn_backend)
+            if "frames" in batch:
+                logits, row_cache, enc_out = encdec.encdec_forward(
+                    params, self.cfg, batch["frames"], batch["tokens"],
+                    row_cache, start, **be)
+                _write_enc_out(state, enc_out, slot)
+            else:
+                logits, row_cache = encdec.encdec_decode_tokens(
+                    params, self.cfg, batch["tokens"], row_cache, start,
+                    state["enc_out"][slot:slot + 1], **be)
+            return logits, state
         positions = transformer.decode_positions(
             start, 1, batch["tokens"].shape[1], batch["tokens"].device)
         logits, row_cache = transformer.forward(
@@ -160,14 +220,18 @@ class ModelAPI:
 
         A paged state takes one whole-prompt chunk at ``start=0`` through
         the slot's block table; a contiguous state runs a standalone
-        prefill and writes its cache rows into [slot, slot + rows).
-        Returns (last-token logits of the inserted rows, state)."""
+        prefill and writes its cache rows (and encoder rows) into [slot,
+        slot + rows); an encoder length other than the state's raises
+        ``ValueError``.  Returns (last-token logits of the inserted rows,
+        state)."""
         be = dict(backend=backend, attn_backend=attn_backend)
         if cache_is_paged(state["cache"]):
             logits, state = self.prefill_chunk_at(params, batch, state,
                                                   slot, 0, **be)
             return logits[:, -1], state
         logits, sub = self.prefill(params, batch, extra_slots=0, **be)
+        if "enc_out" in state:
+            _write_enc_out(state, sub["enc_out"], slot)
         for name, big in state["cache"].items():
             _write_rows(big, sub["cache"][name], slot, batch_dim=1)
         return logits, state

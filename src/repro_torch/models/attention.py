@@ -291,18 +291,26 @@ def attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def attn_forward(p: Dict, x: torch.Tensor, positions: torch.Tensor, *,
                  n_heads: int, n_kv: int, d_head: int, rope_theta: float,
                  causal: bool = True, window: int = 0,
-                 attn_softcap: float = 0.0, cache: Optional[Dict] = None,
+                 attn_softcap: float = 0.0,
+                 x_kv: Optional[torch.Tensor] = None,
+                 kv_positions: Optional[torch.Tensor] = None,
+                 cache: Optional[Dict] = None,
                  cache_index=None, backend: str = "dense",
                  attn_backend: str = "gather"
                  ) -> Tuple[torch.Tensor, Optional[Dict]]:
-    """Self-attention sub-layer: projections + rope + core + output proj.
+    """Attention sub-layer: projections + rope + core + output proj.
 
     With ``cache`` given, writes K/V at ``cache_index`` (in place) and
-    attends over the cache (decode / incremental prefill)."""
+    attends over the cache (decode / incremental prefill).  ``x_kv``
+    makes it cross-attention: K and V are projected from ``x_kv`` (at
+    ``kv_positions``, which only cross-attention reads), nothing is
+    roped, no mask applies, and the caller passes no cache (the reference
+    recomputes cross K/V every call)."""
     b = x.shape[0]
+    xk_src = x if x_kv is None else x_kv
     q = qmatmul(x, p["wq"], backend)
-    k = qmatmul(x, p["wk"], backend)
-    v = qmatmul(x, p["wv"], backend)
+    k = qmatmul(xk_src, p["wk"], backend)
+    v = qmatmul(xk_src, p["wv"], backend)
     if "bq" in p:
         q = q + p["bq"].to(q.dtype)
         k = k + p["bk"].to(k.dtype)
@@ -310,10 +318,12 @@ def attn_forward(p: Dict, x: torch.Tensor, positions: torch.Tensor, *,
     q = q.reshape(*q.shape[:-1], n_heads, d_head)
     k = k.reshape(*k.shape[:-1], n_kv, d_head)
     v = v.reshape(*v.shape[:-1], n_kv, d_head)
-    ang = rope_angles(positions, d_head, rope_theta)
-    q = apply_rope(q, ang)
-    k = apply_rope(k, ang)
-    q_pos = kv_pos = positions
+    if x_kv is None:                       # rope only for self-attention
+        ang = rope_angles(positions, d_head, rope_theta)
+        q = apply_rope(q, ang)
+        k = apply_rope(k, ang)
+        kv_positions = positions
+    q_pos, kv_pos = positions, kv_positions
 
     new_cache = None
     kv_len = None
@@ -323,7 +333,7 @@ def attn_forward(p: Dict, x: torch.Tensor, positions: torch.Tensor, *,
         kq, vq = k, v
         bits = cache_bits(cache)
         decode_only = attn_backend != "gather" and x.shape[1] == 1 \
-            and causal
+            and x_kv is None and causal
         if bits < 32:
             # quantized-at-rest cache: each written position is rounded
             # once; reads dequantize (gather) or run in the kernel (fused)
@@ -386,7 +396,8 @@ def attn_forward(p: Dict, x: torch.Tensor, positions: torch.Tensor, *,
             kv_len = fill_levels(idx, b, x.device) + x.shape[1]
 
     if out is None:
-        out = attention_core(q, k, v, q_pos, kv_pos, causal=causal,
+        out = attention_core(q, k, v, q_pos, kv_pos,
+                             causal=causal and x_kv is None,
                              window=window, attn_softcap=attn_softcap,
                              kv_len=kv_len)
     out = out.reshape(*x.shape[:-1], n_heads * d_head)

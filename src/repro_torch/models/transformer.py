@@ -1,5 +1,7 @@
 """Decoder-only LM assembly, dense and MoE families (port of the dense,
-MoE, cache and loss parts of ``repro.models.transformer``).
+MoE, cache and loss parts of ``repro.models.transformer``); the
+encoder-decoder family (``models/encdec.py``) reuses its layer walk
+helpers and caches.
 
 Params hold stacked (L, ...) leaves.  Where the reference scans over
 layers, the port runs a Python loop over the layers, which each forward
@@ -34,16 +36,23 @@ def _cdtype(cfg: ModelConfig) -> torch.dtype:
 
 
 def _check_family(cfg: ModelConfig) -> None:
-    if cfg.family not in ("dense", "moe") or cfg.mrope:
+    if not (cfg.family in ("dense", "moe") or cfg.is_encdec) or cfg.mrope:
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported yet; the port serves the "
-            f"dense and moe families")
+            f"dense, moe and encoder-decoder families")
 
 
 def check_trainable(cfg: ModelConfig) -> None:
     """Training is ported for the dense family only: the MoE grouped
-    product has no backward and the loss no load-balancing term yet."""
+    product has no backward and the loss no load-balancing term yet, and
+    the encoder-decoder loss (``encdec_loss``) and its frames batches are
+    not ported."""
     _check_family(cfg)
+    if cfg.is_encdec:
+        raise NotImplementedError(
+            f"training the {cfg.family!r} family (encoder-decoder) is not "
+            f"ported yet (encdec_loss and the frames batches); the port "
+            f"trains the dense family")
     if cfg.family != "dense" or cfg.n_experts:
         raise NotImplementedError(
             f"training the {cfg.family!r} family is not ported yet (the "

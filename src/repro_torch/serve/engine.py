@@ -109,6 +109,11 @@ class ServeEngine:
         # accepted_drafts and emitted token counts over the batch
         self.round_log: List[Dict[str, int]] = []
         if self.speculate_planes:
+            if cfg.is_encdec:
+                raise ValueError(
+                    f"speculate_planes needs a purely positional KV cache "
+                    f"(rejected drafts roll back by fill level); family "
+                    f"{cfg.family!r} carries recurrent state")
             if self.draft_gamma < 1:
                 raise ValueError(f"draft_gamma must be >= 1, "
                                  f"got {self.draft_gamma}")
@@ -201,14 +206,16 @@ class ServeEngine:
     def park_slot(self, state: Any, slot: int, pages) -> Dict[str, Any]:
         """Snapshot everything batch row ``slot`` holds to host memory:
         its pool pages (in ``pages``/block order) from every paged KV
-        sub-dict and its row of every non-paged per-slot cache leaf.  The
+        sub-dict, its row of every non-paged per-slot cache leaf, and its
+        encoder output row if the family has one (``enc_out``).  The
         stored representation is copied as raw bytes (quantized payloads
         and scales, no dequantization), so :meth:`restore_slot`
         round-trips bit-identically.  Every entry is a copy: the live
         state is written in place, and a view of it (``cache[:, slot]``,
         or a CPU tensor's ``.cpu()``) would read back later writes."""
         ids = torch.as_tensor(np.asarray(pages, np.int64))
-        rec: Dict[str, Any] = {"pages": {}, "rows": {}, "n_pages": len(ids)}
+        rec: Dict[str, Any] = {"pages": {}, "rows": {}, "enc_out": None,
+                               "n_pages": len(ids)}
 
         def walk(cache, path):
             if isinstance(cache, dict):
@@ -223,6 +230,8 @@ class ServeEngine:
             rec["rows"][path] = cache[:, slot].to("cpu", copy=True)
 
         walk(state["cache"], "cache")
+        if "enc_out" in state:
+            rec["enc_out"] = state["enc_out"][slot].to("cpu", copy=True)
         return rec
 
     def restore_slot(self, state: Any, slot: int, pages,
@@ -251,6 +260,9 @@ class ServeEngine:
             cache[:, slot] = record["rows"][path].to(cache.device)
 
         walk(state["cache"], "cache")
+        if record.get("enc_out") is not None and "enc_out" in state:
+            state["enc_out"][slot] = record["enc_out"].to(
+                state["enc_out"].device)
         return state
 
     def copy_pool_page(self, state: Any, src: int, dst: int) -> Any:
@@ -270,8 +282,9 @@ class ServeEngine:
         return state
 
     def prompt_width(self, batch: Dict[str, Any]) -> int:
-        """Cache positions a prompt occupies (its tokens: the dense and
-        MoE families have no vision prefix)."""
+        """Cache positions a prompt occupies: its tokens (the ported
+        families have no vision prefix; an encoder-decoder prompt's
+        frames fill ``enc_out``, not the cache)."""
         return int(batch["tokens"].shape[1])
 
     # ---- one-shot API (static batch) ------------------------------------
@@ -279,7 +292,8 @@ class ServeEngine:
                  greedy: bool = True,
                  generator: Optional[torch.Generator] = None,
                  temperature: float = 1.0, top_k: int = 0) -> torch.Tensor:
-        """batch: {"tokens": (B, P)}.  Returns (B, max_new) int32 tokens.
+        """batch: {"tokens": (B, P)}, plus ``frames`` (B, S_enc, d_model)
+        for the encoder-decoder family.  Returns (B, max_new) int32 tokens.
 
         ``greedy`` (or no ``generator``) takes the per-step argmax;
         otherwise tokens are drawn at ``temperature`` over the ``top_k``

@@ -1,5 +1,6 @@
 """Slot-based continuous-batching scheduler with a paged KV option (port of
-``repro.serve.scheduler`` for the dense and MoE families).
+``repro.serve.scheduler`` for the dense, MoE and encoder-decoder
+families).
 
 A fixed-capacity decode batch of ``n_slots`` rows; requests are admitted
 into free slots as they arrive (their prompt is prefilled INTO the live
@@ -51,11 +52,15 @@ reference, an MoE model under capacity dispatch
 (``models.moe.GROUPED_IMPL["impl"] == "capacity"``) warns: other slots'
 tokens compete for expert capacity, so a request may part from its
 one-shot tokens; the exact ``ragged`` dispatch keeps rows independent.
-Left out with their families: the ssm / vlm / enc-dec branches, and
-with them the reference's warning that turns the prefix cache off for any
-family but dense and moe (the port builds no other family).
-Left out: ``compile_footprint`` (a census of jit signatures, which eager
-execution does not have).
+An encoder-decoder request's ``frames`` ride its first chunk (the
+encoder runs once, into the slot's ``enc_out`` row, parked and restored
+with its pages), every request must share the live batch's encoder
+length, and ``prefix_cache`` is turned off with a warning, as for any
+family but dense and moe: its per-slot encoder buffer is not in the
+hashed tokens.
+Left out with their families: the ssm / vlm branches.  Left out:
+``compile_footprint`` (a census of jit signatures, which eager execution
+does not have).
 """
 from __future__ import annotations
 
@@ -291,6 +296,12 @@ def _kv_resident_bytes(cache) -> int:
     return 0
 
 
+# families whose paged KV cache is purely positional and whose prompts are
+# token-only: prefix pages can be shared by token-content hash alone (an
+# enc-dec slot carries a per-request encoder buffer)
+_PREFIX_CACHE_FAMILIES = ("dense", "moe")
+
+
 def _tile_rows(tree, n_slots: int):
     """A single-row cache tree tiled to ``n_slots`` rows along dim 1, as
     separate storage: the cache is written in place, so a broadcast
@@ -346,6 +357,12 @@ class Scheduler:
             raise ValueError("prefix_cache needs a paged cache "
                              "(page_size > 0): sharing happens through "
                              "the block table")
+        if prefix_cache and cfg.family not in _PREFIX_CACHE_FAMILIES:
+            warnings.warn(
+                f"prefix_cache needs a purely positional token-only KV "
+                f"cache; family {cfg.family!r} carries per-request "
+                f"vision/encoder/recurrent state — disabled", stacklevel=3)
+            prefix_cache = False
         self.overcommit = overcommit
         if self.paged:
             self.nb = -(-max_len // page_size)
@@ -439,7 +456,9 @@ class Scheduler:
         ``skip > 0`` (prefix-cache hit) drops the first ``skip`` tokens:
         their K/V already sit in aliased shared pages, so insertion starts
         at cache position ``skip`` and attends over the shared prefix
-        exactly as later chunks attend over earlier ones."""
+        exactly as later chunks attend over earlier ones.  An
+        encoder-decoder prompt's frames ride the first chunk (prefix hits
+        never happen for that family, so it starts at 0)."""
         inputs = req.inputs
         toks = _host_tokens(inputs)
         p = toks.shape[1]
@@ -461,7 +480,10 @@ class Scheduler:
                 # alias in-page offsets (paged) onto real prompt K/V
                 padded = min(cw, self.total_len - lo)
                 ct = np.pad(ct, ((0, 0), (0, padded - w)))
-            chunks.append(({"tokens": ct}, lo, (w - 1) if last else None))
+            b = {"tokens": ct}
+            if c == 0 and skip == 0 and "frames" in inputs:
+                b["frames"] = inputs["frames"]
+            chunks.append((b, lo, (w - 1) if last else None))
         return chunks
 
     # ---- prefix cache ----------------------------------------------------
@@ -515,6 +537,13 @@ class Scheduler:
                     inputs, self.n_slots, self.max_len,
                     page_size=self.page_size,
                     n_pages=self.allocator.n_pages if self.paged else None)
+            if "frames" in inputs and \
+                    inputs["frames"].shape[1] != \
+                    self.state["enc_out"].shape[1]:
+                raise ValueError(
+                    "enc-dec slot insertion needs the same encoder length "
+                    f"as the live batch: {inputs['frames'].shape[1]} != "
+                    f"{self.state['enc_out'].shape[1]}")
             reserve, hits, hashes = 0, [], []
             if self.paged:
                 if self.prefix_cache is not None:
@@ -557,11 +586,14 @@ class Scheduler:
         # ---- fixed-width path (monolithic prefill) ----------------------
         if self.state is None:
             # Lazy state init: prefill the first prompt once at full cache
-            # width, then tile its rows across all slots
+            # width, then tile its rows (and encoder rows) across all slots
             extra = self.max_len - pw
             logits, sub = self.engine.prefill(inputs, extra_slots=extra)
             self.state = dict(sub, cache=_tile_rows(sub["cache"],
                                                     self.n_slots))
+            if "enc_out" in sub:
+                self.state["enc_out"] = sub["enc_out"].repeat(
+                    self.n_slots, 1, 1)
         else:
             logits, self.state = self.engine.prefill_at(inputs, self.state,
                                                         i)

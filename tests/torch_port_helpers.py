@@ -133,11 +133,20 @@ def run_lockstep(jsched, tsched, jreqs, treqs, validate=True):
     return jsched.tick
 
 
+def frames(d_model, n, seed, b=1):
+    """(b, n, d_model) f32 encoder frames, the reference's ``0.1 *
+    normal``, from ``numpy.random.default_rng((2, seed))``."""
+    return (0.1 * np.random.default_rng((2, seed)).standard_normal(
+        (b, n, d_model))).astype(np.float32)
+
+
 def tiny_fixture(arch="phi3-mini-3.8b"):
     """The scheduler tests' fixture: ``arch`` (phi3 unless named) at
     ``tiny(dtype="float32")`` with 9x8 blocks and 8-bit activations in both
     packages, the reference's ``init(PRNGKey(0))`` QAT tree, its int8
-    deploy, and that deploy carried across through numpy."""
+    deploy, and that deploy carried across through numpy.  For an
+    encoder-decoder ``arch``, ``frames`` holds four prompts' seeded
+    frames of 8 positions (:func:`frames`, seed 0); else None."""
     import jax
     from repro.configs import REGISTRY as JREG
     from repro.models.api import build as jbuild
@@ -156,7 +165,9 @@ def tiny_fixture(arch="phi3-mini-3.8b"):
     jdep = j_deploy(qat, 8)
     return dict(japi=japi, tapi=tapi, qat=qat, jdep=jdep,
                 tdep=params_from_numpy(tree_to_numpy(jdep), device="cpu"),
-                vocab=jcfg.vocab, engines={})
+                vocab=jcfg.vocab, engines={},
+                frames=frames(jcfg.d_model, 8, 0, b=4) if jcfg.is_encdec
+                else None)
 
 
 def engine_pair(fx, kv=8):

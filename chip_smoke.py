@@ -141,7 +141,30 @@ It builds the four CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
    request (prefix cache warned off, parking), then quantizers off in
    f32 against one-shot reruns, every one identical.
 
-7. train phase — with every serving tree freed, BWQ-A training through
+7. CNN phase — the paper's own pipeline through the CIFAR launcher's
+   ``main`` (``python -m repro_torch.launch.cifar``), in process:
+   ResNet-20 and VGG-16-BN at full width on 32x32x3 images, bit-plane
+   mode at the paper's 9x8 blocks (and BSQ, one block a layer), trained
+   4 steps at B=64 with maintenance twice (every step finite; the frozen
+   leaves moved by SGD's weight decay alone, bit for bit; each
+   maintenance monotone with binary planes; the bit-width maps off 8).
+   The BWQ tree deployed packed int8, int4 and as bit planes runs B=128
+   images through the kernels (``packed_matmul``, ``bitplane_matmul``:
+   M = B x H x W up to 131,072, K from 16 to 4,608, N from 16 to 512)
+   against the plain versions: activations unquantized (logits within
+   ``EXACT_TOL_REL``, argmax equal) and with 8-bit PACT (within
+   ``CNN_QUANT_TOL_REL``, set between a host-CPU witness and planted
+   faults, one corrupted block in each layout); launches counted (21
+   weight matmuls a ResNet-20 forward, 13 a VGG-16); each call's first
+   shape held against the plain version and timed beside its bound and
+   ``torch.matmul``; forwards timed against the plain versions and the
+   cuDNN conv; one ResNet-20 step on the card against the host, in f32
+   with the card's ReLU masks forced to the host's (the flips counted)
+   and in float64 with its own, each held to ``GRAD_TOL_REL``; the
+   BWQ-H simulator's speedup and energy against ISAAC (a ReRAM model's
+   outputs, not measurements).
+
+8. train phase — with every serving tree freed, BWQ-A training through
    the train launcher's ``main`` (``python -m repro_torch.launch.train``),
    in process: full-width phi3 (32 layers, bf16 compute, f32 master
    weights, 8x128 blocks, 8-bit PACT, remat) in fake mode, 8 steps of
@@ -161,7 +184,8 @@ It builds the four CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
 
 Output: a ``{"train": {...}}`` line with the train phase's figures and
 the card, a ``{"moe": {...}}`` line with the MoE phase's, an
-``{"encdec": {...}}`` line with the enc-dec phase's, a
+``{"encdec": {...}}`` line with the enc-dec phase's, a ``{"cnn": {...}}``
+line with the CNN phase's, a
 ``{"kernels": [...]}`` JSON line, the card's name and power
 limit, and as the last line ``{"ok": true, "device": {...}}``.  Details go
 to ``chiprun_out/chip_smoke_detail.json``.  Any failure exits non-zero; so
@@ -1366,6 +1390,7 @@ class MatmulCapture:
         self.mod = common
         self.orig = {n: getattr(common, n) for n in self.NAMES}
         self.calls, self.live = {}, set()
+        self.counts = {}                 # calls a drive made at each key
 
     def __enter__(self):
         for name, fn in self.orig.items():
@@ -1380,6 +1405,7 @@ class MatmulCapture:
         def call(x, *ops, **kw):
             y = fn(x, *ops, **kw)
             key = (name, x.shape[0], x.shape[1], y.shape[1], str(x.dtype))
+            self.counts[key] = self.counts.get(key, 0) + 1
             if key not in self.live:
                 live = int(x.abs().amax(-1).gt(0).sum())
                 if live or key not in self.calls:
@@ -2642,6 +2668,554 @@ def encdec_summary(res) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# CNN phase
+# ---------------------------------------------------------------------------
+
+# The paper's own pipeline through ``python -m repro_torch.launch.cifar``
+# (its ``main``, in process): ResNet-20 and VGG-16-BN at full width on
+# 32x32x3 CIFAR-like images, 10 classes, BWQ-A bit-plane mode at the
+# paper's 9x8 blocks (BSQ, one block a layer, beside it for the
+# simulator); SGD under a cosine schedule from 0.05, maintenance and an
+# alpha round every CNN_EVERY steps.
+CNN_MODELS = (("resnet", 20), ("vgg", 16))
+CNN_TRAIN_B = 64                # benchmarks/common.py's trainer batch
+CNN_EVAL_B = 128                # cnn_accuracy's batch
+CNN_STEPS, CNN_EVERY = 4, 2
+# Deployed CNN with 8-bit PACT activations, logits of the B=128 batch,
+# kernels against the plain versions, relative to the largest logit.  A
+# PACT level (beta / 255) can flip where two summation orders straddle a
+# rounding tie, and BatchNorm over the batch spreads a flip to every row.
+# Set between that noise and planted faults (H100, four runs of the
+# phase, each tree trained 4 steps):
+#   kernel vs plain: ResNet-20 1.51e-3 (int8, bit-plane) / 1.62e-3 to
+#     1.65e-3 (int4), VGG-16 1.44e-2 to 1.70e-2 / 1.07e-2 to 1.55e-2;
+#     host-CPU witness vs plain 9.8e-4 to 1.12e-3 / 1.00e-2 to 1.13e-2;
+#   one block's scale negated (either layout) in the first conv: ResNet-20
+#     0.102, VGG-16 0.130 to 0.136.
+# Unquantized, the same paths agree within 1.8e-5 (EXACT_TOL_REL).
+CNN_QUANT_TOL_REL = 0.04
+
+
+def cnn_decayed(steps):
+    """``checked_trainer``'s ``decayed`` for the CIFAR launcher's SGD: the
+    frozen leaves after a step with zero gradient, replayed through the
+    same optimizer and learning rate from copies of the leaves and their
+    momentum (the weight decay reaches them, as the reference's)."""
+    import torch
+    from repro_torch.core.state import tensor_leaves
+    from repro_torch.launch.cifar import lr_schedule, optimizer
+
+    def decayed(frozen, state):
+        mu = dict(tensor_leaves(state.opt_state["mu"]))
+        keys = sorted(frozen)
+        p = [frozen[k] for k in keys]
+        optimizer().update([torch.zeros_like(t) for t in p],
+                           {"mu": [mu[k].clone() for k in keys]}, p,
+                           lr_schedule(steps)(state.step))
+        return dict(zip(keys, p))
+    return decayed
+
+
+def run_cifar(argv):
+    """``repro_torch.launch.cifar.main(argv)`` with the port's Trainer
+    replaced by :func:`checked_trainer`'s (frozen leaves moved by the
+    weight decay alone) for the call; its printout kept."""
+    import contextlib
+    import io
+    import torch
+    import repro_torch.train as rt
+    from repro_torch.launch.cifar import main as cifar_main
+    buf = io.StringIO()
+    base = rt.Trainer
+    rt.Trainer = checked_trainer(base, cnn_decayed(
+        int(argv[argv.index("--steps") + 1])))
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(buf):
+            out = cifar_main(argv)
+    finally:
+        rt.Trainer = base
+    out["run_s"] = time.perf_counter() - t0
+    out["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    out["stdout"] = buf.getvalue()
+    return out
+
+
+def logits_compare(a, b):
+    """``a`` against ``b`` (B, classes): the largest |difference| relative
+    to b's largest |logit|, and the share of rows whose argmax agrees."""
+    import torch
+    a, b = a.float().cpu(), b.float().cpu()
+    return dict(err=float((a - b).abs().max() / b.abs().max()),
+                top1_agreement=float((a.argmax(-1) == b.argmax(-1))
+                                     .float().mean()),
+                finite=bool(torch.isfinite(a).all()))
+
+
+def cnn_fault(dep, path):
+    """``dep`` with one weight block of the conv leaf at ``path`` (keys
+    into the tree) corrupted: block (0, 0)'s scale negated, so its 72
+    weights change sign (either layout).  The rest is shared."""
+    def put(node, keys):
+        node = list(node) if isinstance(node, list) else dict(node)
+        if len(keys) == 1:
+            sw = node[keys[0]]
+            scale = sw.scale.clone()
+            scale[0, 0] = -scale[0, 0]
+            node[keys[0]] = dataclasses.replace(sw, scale=scale)
+        else:
+            node[keys[0]] = put(node[keys[0]], keys[1:])
+        return node
+    return put(dep, path)
+
+
+def time_cnn_call(name, x, ops, kw, n):
+    """One captured CNN weight-matmul call timed as the forward makes it
+    (x f32 as the model's, far past L2 at the large M; the weights, at most
+    2.4 MB, stay in L2): the kernel (ms, device ms), its plain version and
+    ``torch.matmul`` on the weight dequantized to f32, beside the bound:
+    x, the weight's bytes (``bitplane_stream_bytes`` for bit planes) and
+    the output over HBM, or the live blocks' operations over the f32
+    peak, whichever is larger."""
+    import torch
+    from repro_torch.core.blocking import BlockingSpec
+    from repro_torch.kernels import bitplane_matmul, packed_matmul
+    from repro_torch.kernels.ref import bitplane_matmul_ref, packed_matmul_ref
+    from repro_torch.serve.deploy import (BitplaneServingWeight,
+                                          ServingWeight,
+                                          bitplane_serving_compose,
+                                          bitplane_stream_bytes,
+                                          serving_compose)
+    m, k = x.shape
+    spec = BlockingSpec(kw["wbr"], kw["wbc"])
+    if name == "packed_matmul":
+        w_int, scale = ops
+        sw = ServingWeight(w_int, scale, (k, n), spec, kw["bits"])
+        dense = serving_compose(sw, torch.float32)
+        wbytes, live = w_int.nbytes + scale.nbytes, 1.0
+
+        def kern():
+            return packed_matmul(x, *ops, **kw)
+
+        def plain():
+            return packed_matmul_ref(x, *ops, kw["bits"], kw["wbr"],
+                                     kw["wbc"])
+    else:
+        sw = BitplaneServingWeight(*ops, (k, n), spec, ops[0].shape[0])
+        dense = bitplane_serving_compose(sw, torch.float32)
+        wbytes = bitplane_stream_bytes(sw)
+        live = float((ops[2].sum(dim=-3) > 0).float().mean())
+
+        def kern():
+            return bitplane_matmul(x, *ops, **kw)
+
+        def plain():
+            return bitplane_matmul_ref(x, *ops, kw["wbr"], kw["wbc"])
+    ms, dev, host = cuda_times(kern, iters=10, warmup=2)
+    plain_ms = cuda_ms(plain, iters=3, warmup=1)
+    lib, lib_dev, lib_host = cuda_times(lambda: torch.matmul(x, dense),
+                                        iters=10, warmup=2)
+    nbytes = x.nbytes + wbytes + m * n * 4
+    flops = 2.0 * m * k * n * live
+    bound = max(nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS) * 1e3
+    by = "bytes" if nbytes / HBM_BYTES_PER_S >= flops / F32_FLOPS \
+        else "operations"
+    return dict(kernel=name, m=m, k=k, n=n, x=str(x.dtype), ms=ms,
+                device_ms=dev, host_ms=host, plain_ms=plain_ms,
+                library_ms=lib, library_device_ms=lib_dev,
+                library_host_ms=lib_host, bound_ms=bound, bound_by=by,
+                bytes=nbytes, flops=flops, live_block_share=live)
+
+
+def cnn_forward_legs(model, apply_fn, deps, x, n_mm, qcs, time_shapes):
+    """Every deploy of one model (``deps``: name -> tree) through the
+    kernels against the plain versions on the same B=128 batch, with
+    activations unquantized and with 8-bit PACT (``qcs``): launches
+    counted (``n_mm`` weight matmuls a forward), the first call at each
+    shape held against the plain version (``MatmulCapture``) and, for
+    ``time_shapes``, timed; forwards timed (kernels, plain)."""
+    import torch
+    legs, shapes = [], []
+    for name, dep in deps.items():
+        be = "bitplane" if name == "bitplane" else "kernel"
+        matmul = "bitplane_matmul" if name == "bitplane" else "packed_matmul"
+        want = {"packed_matmul": 0, "paged_attention": 0,
+                "bitplane_matmul": 0, "pact_quant": 0}
+        want[matmul] = n_mm
+        for act, qc in qcs.items():
+            def fwd(dep=dep, qc=qc, be=be):
+                return apply_fn(dep, x, qc, be)
+
+            def plain(dep=dep, qc=qc):
+                return apply_fn(dep, x, qc, "ref")
+            fwd()
+            with MatmulCapture() as mm:
+                k = counted(lambda: {"logits": fwd()}, want)
+            calls = dict(mm.calls)
+            rows = mm.check()
+            for r in rows:
+                r["calls_a_forward"] = mm.counts[(r["kernel"], r["m"], r["k"],
+                                                  r["n"], r["x"])]
+            p = plain()
+            leg = dict(model=model, deploy=name, backend=be, act_bits=act,
+                       launches=k["launches"], matmul_calls=rows,
+                       kernel_vs_plain=logits_compare(k["logits"], p))
+            if act >= 32:
+                leg["ms"] = cuda_ms(fwd, iters=5, warmup=1)
+                leg["plain_ms"] = cuda_ms(plain, iters=3, warmup=1)
+                leg["profile"] = cnn_profile(fwd)
+                if name in time_shapes:
+                    for key, (cx, ops, kw, y, _) in sorted(calls.items()):
+                        t = time_cnn_call(key[0], cx, ops, kw, key[3])
+                        t.update(model=model, deploy=name,
+                                 calls_a_forward=mm.counts[key],
+                                 err=next(r["err"] for r in rows
+                                          if (r["kernel"], r["m"], r["k"],
+                                              r["n"]) == key[:4]))
+                        shapes.append(t)
+            legs.append(leg)
+            del k, p, calls, mm
+            torch.cuda.empty_cache()
+    return legs, shapes
+
+
+def cnn_model_case(model, depth, size=()):
+    """One CNN through the pipeline: trained (BSQ and BWQ, checked
+    trainer), its BWQ tree deployed packed int8, int4 and bit-plane and
+    run on B=128 images through the kernels against the plain versions
+    (:func:`cnn_forward_legs`), a host-CPU witness of the quantized
+    path's noise, a planted fault in each layout, the forwards and the
+    library conv timed, the simulator's figures."""
+    import torch
+    from repro_torch.core.bitrep import bitwidths
+    from repro_torch.core.state import quantized_leaves
+    from repro_torch.data import SyntheticCIFAR
+    from repro_torch.launch import cifar
+    from repro_torch.models.cnn import MODELS, conv_matmuls
+    from repro_torch.models.common import prepare_params
+    from repro_torch.serve.deploy import to_serving_params, tree_to
+    t0 = time.perf_counter()
+    argv = ["--model", model, *(size or ("--depth", str(depth))),
+            "--steps", str(CNN_STEPS), "--requant-every", str(CNN_EVERY),
+            "--batch", str(CNN_TRAIN_B), "--scheme", "bsq", "bwq",
+            "--backend", "kernel", "--eval-batches", "1", "--device", DEV]
+    run = run_cifar(argv)
+    out = dict(model=model, depth=run["geometry"]["depth"],
+               image=run["geometry"]["image"], argv=argv,
+               train_s=run["run_s"], peak_mem_gb=run["peak_mem_gb"],
+               sim=run["sim"], stdout=run["stdout"], schemes={})
+    for scheme, tr in run["trainers"].items():
+        res = run["results"][scheme]
+        steady = sorted(tr.step_ms[1:]) or tr.step_ms
+        out["schemes"][scheme] = dict(
+            step_ms=tr.step_ms, step_ms_median_after_first=steady[
+                len(steady) // 2], maintenance_ms=tr.maint_ms,
+            loss=res["loss"], acc=res["acc"],
+            acc_deployed=res.get("acc_deployed"),
+            avg_bitwidth=res["avg_bitwidth"],
+            compression_x=res["compression_x"])
+        assert all(math.isfinite(v) for h in tr.history
+                   for v in h.values()), (model, scheme)
+        assert len(tr.maint_ms) == CNN_STEPS // CNN_EVERY, tr.maint_ms
+    qat = run["trainers"]["bwq"].state.params
+    # the weight decay leaves an 8-bit block's mask sum at 7.9999: count
+    # the blocks whose width dropped by a plane
+    maps = [bitwidths(q) for q in quantized_leaves(qat).values()]
+    out["blocks_below_8_share"] = float(
+        sum(int((m < 7.5).sum()) for m in maps) / sum(m.numel()
+                                                     for m in maps))
+    assert out["blocks_below_8_share"] > 0, "bit-width maps never moved"
+    del run
+    torch.cuda.empty_cache()
+
+    _, apply_fn = MODELS[model]
+    x = SyntheticCIFAR(image=out["image"], batch=CNN_EVAL_B, noise=0.5,
+                       seed=0).batch_at(cifar.EVAL_STEP)["images"].to(DEV)
+    n_mm = conv_matmuls(qat)
+    deps = {"int8": to_serving_params(qat, 8, device=DEV),
+            "int4": to_serving_params(qat, 4, device=DEV),
+            "bitplane": to_serving_params(qat, 8, layout="bitplane",
+                                          device=DEV)}
+    qcs = {32: cifar.quant_config("bwq", 32), 8: cifar.quant_config("bwq",
+                                                                     8)}
+    out["legs"], out["shapes"] = cnn_forward_legs(
+        model, apply_fn, deps, x, n_mm, qcs, ("int8", "bitplane"))
+    out["conv_matmuls"] = n_mm
+
+    # the library's conv (cuDNN, f32) on the same weights, composed once
+    composed = prepare_params(qat)
+    out["library_conv_ms"] = cuda_ms(lambda: apply_fn(composed, x, qcs[32]),
+                                     iters=5, warmup=1)
+    del composed
+
+    # noise witness: the plain path on the host CPU against the card's
+    q8 = qcs[8]
+    plain8 = apply_fn(deps["int8"], x, q8, "ref")
+    host = apply_fn(tree_to(deps["int8"], "cpu"), x.cpu(), q8, "ref")
+    out["host_witness_int8_act8"] = logits_compare(host, plain8)
+    # planted faults: one WB of the first conv's leaf, each layout
+    first = ["layers", 0, "conv", "qt"] if model == "vgg" else \
+        ["stem", "qt"]
+    out["faults"] = {}
+    for name, be in (("int8", "kernel"), ("bitplane", "bitplane")):
+        bad = cnn_fault(deps[name], first)
+        clean = apply_fn(deps[name], x, q8, "ref")
+        out["faults"][name] = dict(
+            fault="first conv block (0, 0) scale negated",
+            **logits_compare(apply_fn(bad, x, q8, be), clean))
+        del bad
+    del deps, qat, x
+    torch.cuda.empty_cache()
+    out["case_s"] = time.perf_counter() - t0
+    return out
+
+
+class ReluTrace:
+    """Observer around the ReLU of ``models.cnn`` (its ``F.relu``; every
+    other op of ``F`` passes through): each call's keep mask (x > 0) is
+    kept on the host.  With ``replay`` (another run's trace) each call
+    keeps that run's elements instead of its own, and records where its
+    own mask differs and the largest |x| there relative to the call's
+    largest: the same step with its ReLU decisions forced to the other
+    run's."""
+
+    def __init__(self, replay=None):
+        import torch.nn.functional as F
+        from repro_torch.models import cnn
+        self.mod, self.orig = cnn, F
+        self.replay, self.calls = replay, []
+
+    def __enter__(self):
+        self.mod.F = self
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.F = self.orig
+
+    def __getattr__(self, name):
+        return getattr(self.orig, name)
+
+    def relu(self, x):
+        import torch
+        own = x > 0
+        if self.replay is None:
+            self.calls.append({"keep": own.cpu()})
+            return self.orig.relu(x)
+        keep = self.replay.calls[len(self.calls)]["keep"].to(x.device)
+        diff, mag = own != keep, x.detach().abs()
+        self.calls.append({"keep": keep.cpu(), "flips": int(diff.sum()),
+                           "elements": diff.numel(),
+                           "gap": float(mag[diff].max() / mag.max())
+                           if diff.any() else 0.0})
+        return torch.where(keep, x, torch.zeros((), dtype=x.dtype,
+                                                device=x.device))
+
+
+def cnn_card_vs_host(size=()):
+    """One step of ResNet-20 (bit-plane mode at 9x8 blocks, activations
+    unquantized, alpha 1e-3, B=64 from the CIFAR stream) on the card and
+    on the host CPU from the same tree and batch, held by
+    :func:`compare_steps` in f32 and in float64.  ReLU keeps or drops an
+    element by its sign, and a weight gradient sums ~65,536 positions'
+    terms, so an element within f32 noise of zero that the card and the
+    host put on other sides moves a leaf by ~65,536^-1/2 of its largest
+    magnitude.  The card's f32 step therefore takes the host's ReLU masks
+    (:class:`ReluTrace`); the flips it was spared are counted, with the
+    card's error unforced beside them.  Witness of the host's own f32
+    noise: its gradients against its float64 ones.  The float64 step
+    keeps its own masks."""
+    import torch
+    from repro_torch.data import SyntheticCIFAR
+    from repro_torch.launch import cifar
+    from repro_torch.models.cnn import cnn_loss, resnet_apply, resnet_init
+    from repro_torch.train.step import quant_reg_loss
+    depth, image = (8, 8) if size else (20, 32)
+    qc = cifar.quant_config("bwq", 32)
+    alpha = torch.tensor(1e-3, dtype=torch.float32)
+
+    def total(p, b):
+        reg = quant_reg_loss(p, alpha)
+        loss, m = cnn_loss(resnet_apply, p, b, qc)
+        return loss + reg, (m, reg)
+
+    batch = SyntheticCIFAR(image=image, batch=CNN_TRAIN_B, noise=0.5,
+                           seed=2).batch_at(0)
+    params = resnet_init(qc, depth=depth, seed=1, device=DEV)
+    f32, f64 = torch.float32, torch.float64
+    with ReluTrace() as host_relu:
+        host = step_grads(total, params, batch, "cpu", f32)
+    unforced = step_grads(total, params, batch, DEV, f32)
+    with ReluTrace(replay=host_relu) as card_relu:
+        card = step_grads(total, params, batch, DEV, f32)
+    card64 = step_grads(total, params, batch, DEV, f64)
+    host64 = step_grads(total, params, batch, "cpu", f64)
+    del params
+    torch.cuda.empty_cache()
+    err = compare_steps(card, host)
+    err64 = compare_steps(card64, host64)
+    free = grad_errs(unforced["grads"], host["grads"])
+    witness = grad_errs(host["grads"], host64["grads"])
+    calls = card_relu.calls
+    return dict(
+        model=f"resnet{depth}", image=image, batch=CNN_TRAIN_B,
+        loss_card=card["loss"], loss_host=host["loss"],
+        loss_card_f64=card64["loss"], loss_host_f64=host64["loss"],
+        reg_card=card["reg"], reg_host=host["reg"],
+        loss_err=err["loss_err"], grad_err_max=err["grad_err_max"],
+        grad_err_f64_max=err64["grad_err_max"],
+        grad_err_unforced_max=max(free.values()),
+        grad_witness_max=max(witness.values()),
+        relu_flips=sum(c["flips"] for c in calls),
+        relu_elements=sum(c["elements"] for c in calls),
+        relu_flip_gap_max=max(c["gap"] for c in calls),
+        grad_tol=GRAD_TOL_REL, loss_tol=HOST_LOSS_TOL_REL,
+        card_s=card["s"], host_s=host["s"],
+        leaves=[dict(leaf=k, max_abs=float(host["grads"][k].abs().max()),
+                     err=v, err_f64=err64["err"][k], unforced=free[k],
+                     witness=witness[k]) for k, v in err["err"].items()])
+
+
+def cnn_profile(fwd):
+    """One forward ``fwd()`` under ``torch.profiler``: its wall time and
+    the device time of its CUDA kernels, split into the weight matmuls
+    (``packed_matmul`` / ``bitplane_matmul``), im2col (the kernels of the
+    ops inside each ``models.cnn.im2col`` call), BatchNorm (those inside
+    each ``_bn_apply``) and the rest (PACT, ReLU, pads, the head)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from repro_torch.models import cnn
+    orig = {n: getattr(cnn, n) for n in ("im2col", "_bn_apply")}
+
+    def annotated(name, fn):
+        def call(*a, **kw):
+            with record_function(f"cnn.{name}"):
+                return fn(*a, **kw)
+        return call
+    for n, fn in orig.items():
+        setattr(cnn, n, annotated(n, fn))
+    try:
+        fwd()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fwd()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        for n, fn in orig.items():
+            setattr(cnn, n, fn)
+    cuda, cpu = torch.autograd.DeviceType.CUDA, torch.autograd.DeviceType.CPU
+    parts = {"weight_matmul": 0.0, "im2col": 0.0, "batchnorm": 0.0,
+             "rest": 0.0}
+    top = []
+    for e in prof.key_averages():
+        if e.device_type != cuda or e.key.startswith("cnn."):
+            continue
+        ms = e.self_device_time_total / 1e3
+        parts["weight_matmul" if "wmm::" in e.key else "rest"] += ms
+        top.append((ms, e.key[:100], e.count))
+    for n, part in (("im2col", "im2col"), ("_bn_apply", "batchnorm")):
+        ev = [e for e in prof.events()
+              if e.name == f"cnn.{n}" and e.device_type == cpu]
+        parts[part] = sum(ch.device_time_total for e in ev
+                          for ch in e.cpu_children) / 1e3
+        parts["rest"] -= parts[part]
+    device_ms = sum(parts.values())
+    return dict(wall_ms=wall_ms, device_ms=device_ms,
+                idle_share=max(0.0, 1 - device_ms / wall_ms),
+                device_ms_by_part=parts,
+                share=({k: v / device_ms for k, v in parts.items()}
+                       if device_ms else None),
+                top_kernels=[dict(ms=m, kernel=k, calls=c)
+                             for m, k, c in sorted(top, reverse=True)[:12]])
+
+
+def cnn_phase(size=()):
+    """The paper's CNN pipeline on the card (``size`` ``("--tiny",)`` for a
+    CPU rehearsal): :func:`cnn_model_case` for ResNet-20 and VGG-16-BN,
+    then :func:`cnn_card_vs_host`.  Returns the readings; :func:`check_cnn`
+    judges the forwards."""
+    t0 = time.perf_counter()
+    out = {"models": [cnn_model_case(m, d, size) for m, d in CNN_MODELS]}
+    out["card_vs_host"] = cnn_card_vs_host(size)
+    out["phase_s"] = time.perf_counter() - t0
+    return out
+
+
+def check_cnn(res):
+    """Each model's deployed forwards: finite; unquantized, within
+    ``EXACT_TOL_REL`` of the largest logit with every argmax equal;
+    8-bit PACT within ``CNN_QUANT_TOL_REL``; launches counted (in
+    :func:`cnn_forward_legs`); every planted fault above
+    ``CNN_QUANT_TOL_REL``; the simulator's BWQ-H and BSQ ahead of ISAAC."""
+    for m in res["models"]:
+        for leg in m["legs"]:
+            tag = (m["model"], leg["deploy"], leg["act_bits"])
+            c = leg["kernel_vs_plain"]
+            assert c["finite"], tag
+            if leg["act_bits"] >= 32:
+                assert c["err"] <= EXACT_TOL_REL and \
+                    c["top1_agreement"] == 1.0, (tag, c)
+            else:
+                assert c["err"] <= CNN_QUANT_TOL_REL, (tag, c)
+        assert {(leg["deploy"], leg["act_bits"]) for leg in m["legs"]} == {
+            (d, a) for d in ("int8", "int4", "bitplane") for a in (32, 8)}
+        for name, f in m["faults"].items():
+            assert f["err"] > CNN_QUANT_TOL_REL, (m["model"], name, f)
+        for key in ("bwq_vs_isaac", "bsq_vs_isaac"):
+            s = m["sim"][key]
+            assert s["speedup_x"] > 1 and s["energy_saving_x"] > 1, (key, s)
+
+
+def cnn_summary(res) -> dict:
+    """The CNN phase's figures for the printout."""
+    out = {"phase_s": res["phase_s"], "models": []}
+    for m in res["models"]:
+        bwq = m["schemes"]["bwq"]
+        out["models"].append({
+            "model": f"{m['model']}{m['depth']}", "image": m["image"],
+            "conv_matmuls": m["conv_matmuls"],
+            "train_step_ms": bwq["step_ms_median_after_first"],
+            "train_peak_mem_gb": m["peak_mem_gb"],
+            "avg_bitwidth": bwq["avg_bitwidth"],
+            "compression_x": bwq["compression_x"],
+            "blocks_below_8_share": m["blocks_below_8_share"],
+            "forward_ms": {f"{leg['deploy']}": leg["ms"] for leg in
+                           m["legs"] if "ms" in leg},
+            "forward_plain_ms": {f"{leg['deploy']}": leg["plain_ms"] for leg
+                                 in m["legs"] if "plain_ms" in leg},
+            "library_conv_ms": m["library_conv_ms"],
+            "forward_profile": {
+                leg["deploy"]: {k: leg["profile"][k] for k in (
+                    "wall_ms", "device_ms", "idle_share",
+                    "device_ms_by_part")}
+                for leg in m["legs"] if "profile" in leg},
+            "err": {f"{leg['deploy']}_act{leg['act_bits']}":
+                    leg["kernel_vs_plain"]["err"] for leg in m["legs"]},
+            "host_witness_err": m["host_witness_int8_act8"]["err"],
+            "fault_err": {k: v["err"] for k, v in m["faults"].items()},
+            "simulator": m["sim"]})
+    cvh = res["card_vs_host"]
+    out["card_vs_host"] = {k: cvh[k] for k in (
+        "model", "loss_err", "grad_err_max", "grad_err_unforced_max",
+        "relu_flips", "relu_elements", "grad_witness_max", "grad_tol",
+        "grad_err_f64_max")}
+    return out
+
+
+def cnn_kernel_rows(res, kernel):
+    """The CNN's timed calls of ``kernel`` for its kernels entry."""
+    return [{k: r[k] for k in ("model", "m", "k", "n", "calls_a_forward",
+                               "err", "ms", "device_ms", "bound_ms",
+                               "bound_by", "plain_ms", "library_ms",
+                               "library_device_ms")}
+            for m in res["models"] for r in m["shapes"]
+            if r["kernel"] == kernel]
+
+
+# ---------------------------------------------------------------------------
 # train phase
 # ---------------------------------------------------------------------------
 
@@ -2681,12 +3255,16 @@ def _frozen_leaves(params):
             if p.endswith(FROZEN_FIELDS)}
 
 
-def checked_trainer(base):
+def checked_trainer(base, decayed=None):
     """``base`` (the port's Trainer) with each train step timed
     (synchronized) and its frozen leaves held unchanged bit for bit, and
     each maintenance timed and held: no LUT grows, and every weight is on
     its grid (fake mode: maintenance again changes no ``w``; bit-plane
-    mode: every plane is 0 or 1)."""
+    mode: every plane is 0 or 1).  Under an optimizer whose weight decay
+    reaches every leaf (the CNN's SGD, as the reference's), ``decayed(
+    frozen, state)`` gives what the decay alone makes of the frozen leaves
+    in the coming step (their gradient zero), and they must equal that
+    bit for bit."""
     import torch
     from repro_torch.core.bitrep import QuantizedTensor, bitwidths
     from repro_torch.core.fakequant import fq_maintenance
@@ -2705,6 +3283,8 @@ def checked_trainer(base):
 
             def timed_step(state, batch):
                 frozen = _frozen_leaves(state.params)
+                if decayed is not None:
+                    frozen = decayed(frozen, state)
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
                 out = step(state, batch)
@@ -2871,21 +3451,72 @@ def serve_trained(trainer, cfg, layout, backend):
     return out
 
 
+def step_grads(total, params, batch, dev, dtype=None, num_mb=1):
+    """One ``microbatched_value_and_grad(total, num_mb)`` step on ``dev``
+    (the float tensors of ``params`` and ``batch`` cast to ``dtype`` when
+    it is given; ``total``'s aux is ``(metrics, reg)``): the loss, the
+    regularizer, the seconds and each gradient leaf on the host."""
+    import torch
+    from repro_torch.core.state import map_tensors, tensor_leaves
+    from repro_torch.train.step import microbatched_value_and_grad
+
+    def to(t):
+        return t.to(dev, dtype) if dtype is not None and \
+            t.is_floating_point() else t.to(dev)
+    p = map_tensors(to, params)
+    b = {k: to(v) for k, v in batch.items()}
+    t0 = time.perf_counter()
+    (loss, (_, reg)), g = microbatched_value_and_grad(total, num_mb)(p, b)
+    torch.cuda.synchronize()
+    s = time.perf_counter() - t0
+    return dict(loss=float(loss), reg=float(reg), s=s,
+                grads={k: v.cpu() for k, v in tensor_leaves(g)})
+
+
+def grad_errs(got, ref):
+    """Each gradient leaf of ``got`` against ``ref`` (dicts on the host):
+    the largest |difference| relative to ``ref``'s largest magnitude; a
+    leaf that ``ref`` holds at zero must be zero in ``got``."""
+    out = {}
+    for k, r in ref.items():
+        scale = float(r.abs().max())
+        if scale == 0.0:
+            assert not got[k].any(), ("a gradient where the other has none",
+                                      k)
+            out[k] = 0.0
+        else:
+            out[k] = float((got[k].double() - r.double()).abs().max()) \
+                / scale
+    return out
+
+
+def compare_steps(card, host):
+    """Two :func:`step_grads` results, ``card`` against ``host``: the
+    regularizer live, the loss within HOST_LOSS_TOL_REL and each gradient
+    leaf within GRAD_TOL_REL of its largest magnitude."""
+    err = grad_errs(card["grads"], host["grads"])
+    out = dict(loss_err=abs(card["loss"] - host["loss"]) / abs(host["loss"]),
+               grad_err_max=max(err.values()), err=err)
+    worst = max(err, key=err.get)
+    assert card["reg"] > 0 and out["loss_err"] <= HOST_LOSS_TOL_REL, (
+        card["loss"], host["loss"], card["reg"])
+    assert out["grad_err_max"] <= GRAD_TOL_REL, (worst, out["grad_err_max"])
+    return out
+
+
 def card_vs_host(size=("--no-tiny",)):
     """One f32 train step without activation quantization (fake mode,
     depth cut to TRAIN_DEPTH_CUT, remat on as registered, alpha at
     TRAIN_DELTA_ALPHA) on the card and on the host CPU, from the same
-    tree and batch: the loss within HOST_LOSS_TOL_REL and each gradient
-    leaf within GRAD_TOL_REL of its largest magnitude.  The witness of the
-    card's own summation noise is the same step run as two microbatches."""
+    tree and batch, held by :func:`compare_steps`.  The witness of the
+    card's own summation noise is the same step run as two
+    microbatches."""
     import dataclasses as dc
     import torch
-    from repro_torch.core.state import map_tensors, tensor_leaves
     from repro_torch.data import SyntheticLM
     from repro_torch.launch import train as tl
     from repro_torch.models.api import build
-    from repro_torch.train.step import (microbatched_value_and_grad,
-                                        quant_reg_loss)
+    from repro_torch.train.step import quant_reg_loss
     args = tl.build_parser().parse_args(
         ["--arch", ARCH, *size, "--act-bits", "32", "--layers",
          str(TRAIN_DEPTH_CUT)])
@@ -2900,47 +3531,24 @@ def card_vs_host(size=("--no-tiny",)):
 
     batch = SyntheticLM(cfg.vocab, HOST_SEQ, HOST_B, seed=2).batch_at(0)
     params = api.init(seed=1, device=DEV)
-    card_b = {k: v.to(DEV) for k, v in batch.items()}
-    t0 = time.perf_counter()
-    (loss_c, (_, reg_c)), g_card = microbatched_value_and_grad(total)(
-        params, card_b)
-    torch.cuda.synchronize()
-    card_s = time.perf_counter() - t0
-    (loss_w, _), g_wit = microbatched_value_and_grad(total, 2)(params,
-                                                               card_b)
-    host_params = map_tensors(lambda t: t.cpu(), params)
-    t0 = time.perf_counter()
-    (loss_h, (_, reg_h)), g_host = microbatched_value_and_grad(total)(
-        host_params, batch)
-    host_s = time.perf_counter() - t0
-    host = dict(tensor_leaves(g_host))
-    wit = dict(tensor_leaves(g_wit))
-    leaves = []
-    for path, g in tensor_leaves(g_card):
-        gc, gh = g.cpu(), host[path]
-        scale = float(gh.abs().max())
-        if scale == 0.0:
-            assert not gc.any(), path
-            continue
-        leaves.append(dict(
-            leaf=path, max_abs=scale,
-            err=float((gc - gh).abs().max()) / scale,
-            witness=float((gc - wit[path].cpu()).abs().max()) / scale))
-    out = dict(layers=cfg.n_layers, dtype=cfg.dtype, batch=HOST_B,
-               seq=HOST_SEQ, loss_card=float(loss_c), loss_host=float(loss_h),
-               loss_witness=float(loss_w), reg_card=float(reg_c),
-               reg_host=float(reg_h),
-               loss_err=abs(float(loss_c) - float(loss_h)) / abs(
-                   float(loss_h)),
-               grad_err_max=max(r["err"] for r in leaves),
-               grad_witness_max=max(r["witness"] for r in leaves),
-               grad_tol=GRAD_TOL_REL, loss_tol=HOST_LOSS_TOL_REL,
-               card_s=card_s, host_s=host_s, leaves=leaves)
-    del params, g_card, g_wit, host_params, g_host
+    card = step_grads(total, params, batch, DEV)
+    wit = step_grads(total, params, batch, DEV, num_mb=2)
+    host = step_grads(total, params, batch, "cpu")
+    del params
     torch.cuda.empty_cache()
-    assert float(reg_c) > 0 and out["loss_err"] <= HOST_LOSS_TOL_REL, out
-    assert out["grad_err_max"] <= GRAD_TOL_REL, out
-    return out
+    err = compare_steps(card, host)
+    witness = grad_errs(card["grads"], wit["grads"])
+    return dict(layers=cfg.n_layers, dtype=cfg.dtype, batch=HOST_B,
+                seq=HOST_SEQ, loss_card=card["loss"], loss_host=host["loss"],
+                loss_witness=wit["loss"], reg_card=card["reg"],
+                reg_host=host["reg"], loss_err=err["loss_err"],
+                grad_err_max=err["grad_err_max"],
+                grad_witness_max=max(witness.values()),
+                grad_tol=GRAD_TOL_REL, loss_tol=HOST_LOSS_TOL_REL,
+                card_s=card["s"], host_s=host["s"],
+                leaves=[dict(leaf=k, max_abs=float(
+                    host["grads"][k].abs().max()), err=v,
+                    witness=witness[k]) for k, v in err["err"].items()])
 
 
 def train_phase(size=("--no-tiny",)):
@@ -3339,6 +3947,8 @@ def main() -> int:
                                   card=smi)}))
     print(json.dumps({"encdec": dict(encdec_summary(detail["encdec_phase"]),
                                      card=smi)}))
+    print(json.dumps({"cnn": dict(cnn_summary(detail["cnn_phase"]),
+                                  card=smi)}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
@@ -3535,6 +4145,21 @@ def run(detail) -> list:
     log(f"enc-dec phase ran in {detail['encdec_phase']['phase_s']:.1f} s")
     save_detail(detail)
     check_encdec(detail["encdec_phase"])
+
+    detail["cnn_phase"] = cnn = cnn_phase()
+    log(f"CNN phase ran in {cnn['phase_s']:.1f} s")
+    save_detail(detail)
+    check_cnn(cnn)
+    for k in kernels:
+        if k["name"] in ("packed_matmul", "bitplane_matmul"):
+            k["cnn_calls"] = rows = cnn_kernel_rows(cnn, k["name"])
+            k["cnn_launches_a_forward"] = {
+                f"{m['model']}{m['depth']}": leg["launches"][k["name"]]
+                for m in cnn["models"] for leg in m["legs"]
+                if leg["act_bits"] == 32 and leg["launches"][k["name"]]
+                and leg["deploy"] != "int4"}
+            k["max_abs_err"] = max([k["max_abs_err"]] +
+                                   [r["err"] for r in rows])
 
     t0 = time.perf_counter()
     detail["train_phase"] = train_phase()

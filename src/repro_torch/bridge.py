@@ -1,8 +1,8 @@
 """Weight carry-across: a param tree given as numpy arrays -> the port's
 tree of tensors.
 
-The input is a nested dict whose leaves are numpy arrays; a quantized
-weight arrives as a dict of its arrays plus its static fields:
+The input is nested dicts and lists whose leaves are numpy arrays; a
+quantized weight arrives as a dict of its arrays plus its static fields:
 
 * FakeQuantTensor: ``w``, ``scale``, ``bitwidth``, ``shape``, ``wb_rows``,
   ``wb_cols``, ``n_bits``;
@@ -13,9 +13,11 @@ weight arrives as a dict of its arrays plus its static fields:
 * BitplaneServingWeight: ``planes``, ``sign``, ``mask``, ``scale``,
   ``shape``, ``wb_rows``, ``wb_cols``, ``bits``.
 
-Both a QAT tree (to deploy or train in the port) and a deployed tree are
-accepted, and so is any other tree of the same form, such as an
-optimizer state (whose ``m`` and ``v`` mirror the params).  Dtypes are
+Any other leaf that is not a numpy array (a CNN conv's ``ConvMeta``, the
+``"M"`` between VGG's conv layers) passes through unchanged.  Both a QAT
+tree (to deploy or train in the port) and a deployed tree are accepted,
+and so is any other tree of the same form, such as an optimizer state
+(whose ``m`` and ``v`` mirror the params).  Dtypes are
 kept (int8, uint8, int32, float32), so wire formats cross bit for bit.
 """
 from __future__ import annotations
@@ -67,6 +69,10 @@ def params_from_numpy(tree: Any, device=None) -> Any:
                                        shape=tuple(node["shape"]), spec=spec,
                                        n_bits=int(node["n_bits"]))
             return {k: conv(v) for k, v in node.items()}
-        return t(node)
+        if isinstance(node, (list, tuple)):
+            return type(node)(conv(v) for v in node)
+        if isinstance(node, (np.ndarray, np.generic)):
+            return t(node)
+        return node
 
     return conv(tree)

@@ -3,7 +3,9 @@
 Every weight matrix ``(K, N)`` (K = fan-in, N = fan-out) is partitioned
 into 2-D Weight Blocks of ``wb_rows`` x ``wb_cols``: the hardware
 Operation Unit of the paper (9x8), or a wider accelerator-aligned variant
-(8x128).
+(8x128).  Convolutional weights ``(C_out, C_in, kh, kw)`` are first
+flattened to ``(C_in*kh*kw, C_out)`` following the CSP reshaping (paper
+§III-A, Fig. 2).
 """
 from __future__ import annotations
 
@@ -36,6 +38,17 @@ class BlockingSpec:
     def padded(self, k: int, n: int) -> Tuple[int, int]:
         gr, gc = self.grid(k, n)
         return gr * self.wb_rows, gc * self.wb_cols
+
+
+def conv_to_2d(w: torch.Tensor) -> torch.Tensor:
+    """CSP reshape: (C_out, C_in, kh, kw) -> (C_in*kh*kw, C_out)."""
+    return w.reshape(w.shape[0], -1).T
+
+
+def conv_from_2d(w2d: torch.Tensor, conv_shape: Tuple[int, ...]
+                 ) -> torch.Tensor:
+    """Inverse of :func:`conv_to_2d`."""
+    return w2d.T.reshape(conv_shape)
 
 
 def pad_to_blocks(w: torch.Tensor, spec: BlockingSpec) -> torch.Tensor:

@@ -2,12 +2,15 @@
 (port of ``repro.core.state``, plus the tree walks that the reference
 gets from ``jax.tree_util``).
 
-A param tree is a nested dict; a quantized weight (``QuantizedTensor``,
-``FakeQuantTensor``) is a dataclass node whose tensor fields are the
-tree's leaves and whose other fields are static.  Paths are spelt as the
-reference's ``jax.tree_util.keystr`` spells them (``['layers']['attn']
-['wq'].w``) and dict keys are walked in sorted order, as the reference
-flattens them, so a path names the same leaf in both packages.
+A param tree is nested dicts and lists; a quantized weight
+(``QuantizedTensor``, ``FakeQuantTensor``) is a dataclass node whose
+tensor fields are the tree's leaves and whose other fields are static.
+Any other leaf that is not a tensor (a CNN conv's static ``ConvMeta``, the
+``"M"`` between VGG's conv layers) passes through every walk unchanged.
+Paths are spelt as the reference's ``jax.tree_util.keystr`` spells them
+(``['layers']['attn']['wq'].w``, ``['blocks'][0]['conv1']['qt']``) and
+dict keys are walked in sorted order, as the reference flattens them, so
+a path names the same leaf in both packages.
 """
 from __future__ import annotations
 
@@ -24,7 +27,31 @@ QUANT_TYPES = (QuantizedTensor, FakeQuantTensor)
 
 
 def _is_node(x) -> bool:
-    return dataclasses.is_dataclass(x) and not isinstance(x, type)
+    """A dataclass instance holding tensors (a quantized weight); one
+    without tensor fields (``ConvMeta``) is a static leaf."""
+    return dataclasses.is_dataclass(x) and not isinstance(x, type) and any(
+        isinstance(getattr(x, f.name), torch.Tensor)
+        for f in dataclasses.fields(x))
+
+
+def tree_map(fn: Callable, tree: Any) -> Any:
+    """Map ``fn`` over the leaves of a param tree, quantized and serving
+    weights and static leaves (``ConvMeta``, ``"M"``) included: ``fn``
+    passes what it does not convert."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_map(fn, v) for v in tree)
+    return fn(tree)
+
+
+def tree_leaves(tree: Any) -> list:
+    """The leaves :func:`tree_map` visits, in its order."""
+    if isinstance(tree, dict):
+        return [leaf for v in tree.values() for leaf in tree_leaves(v)]
+    if isinstance(tree, (list, tuple)):
+        return [leaf for v in tree for leaf in tree_leaves(v)]
+    return [tree]
 
 
 def tensor_leaves(tree: Any, path: str = ""
@@ -33,6 +60,9 @@ def tensor_leaves(tree: Any, path: str = ""
     if isinstance(tree, dict):
         for k in sorted(tree):
             yield from tensor_leaves(tree[k], f"{path}[{k!r}]")
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from tensor_leaves(v, f"{path}[{i}]")
     elif _is_node(tree):
         for f in dataclasses.fields(tree):
             v = getattr(tree, f.name)
@@ -48,6 +78,9 @@ def map_tensors(fn: Callable, tree: Any, *rest: Any) -> Any:
     if isinstance(tree, dict):
         return {k: map_tensors(fn, v, *(r[k] for r in rest))
                 for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(map_tensors(fn, v, *(r[i] for r in rest))
+                          for i, v in enumerate(tree))
     if _is_node(tree):
         return dataclasses.replace(tree, **{
             f.name: fn(getattr(tree, f.name),
@@ -69,6 +102,9 @@ def quant_nodes(params: Any, types=QUANT_TYPES,
     if isinstance(params, dict):
         for k in sorted(params):
             out.update(quant_nodes(params[k], types, f"{path}[{k!r}]"))
+    elif isinstance(params, (list, tuple)):
+        for i, v in enumerate(params):
+            out.update(quant_nodes(v, types, f"{path}[{i}]"))
     return out
 
 
@@ -80,11 +116,8 @@ def quantized_leaves(params: Any) -> Dict[str, QuantizedTensor]:
 def map_quantized(fn: Callable[[QuantizedTensor], Any], params: Any) -> Any:
     """Apply ``fn`` to every QuantizedTensor leaf, pass the rest
     through."""
-    if isinstance(params, QuantizedTensor):
-        return fn(params)
-    if isinstance(params, dict):
-        return {k: map_quantized(fn, v) for k, v in params.items()}
-    return params
+    return tree_map(lambda x: fn(x) if isinstance(x, QuantizedTensor)
+                    else x, params)
 
 
 def quant_summary(params: Any) -> Dict[str, float]:

@@ -1,5 +1,6 @@
-"""Deterministic synthetic data (port of ``repro.data``; the CIFAR-like
-stream of the CNN experiments is not ported yet)."""
-from .synthetic import SyntheticLM, lm_batch_for, make_lm_pipeline
+"""Deterministic synthetic data (port of ``repro.data``)."""
+from .synthetic import (SyntheticCIFAR, SyntheticLM, lm_batch_for,
+                        make_lm_pipeline)
 
-__all__ = ["SyntheticLM", "lm_batch_for", "make_lm_pipeline"]
+__all__ = ["SyntheticCIFAR", "SyntheticLM", "lm_batch_for",
+           "make_lm_pipeline"]

@@ -1,17 +1,21 @@
-"""Deterministic, index-addressable synthetic LM data (port of the LM part
-of ``repro.data.synthetic``).
+"""Deterministic, index-addressable synthetic data (port of
+``repro.data.synthetic``: the LM stream and the CIFAR-like stream).
 
 Every global batch is a pure function of (seed, step), so any process can
 regenerate any batch without coordination and a restart at step N needs
-no replay.  The stream has planted bigram structure (a peaked random
-successor table), so cross-entropy decreases under training.
+no replay.  The LM stream has planted bigram structure (a peaked random
+successor table), so cross-entropy decreases under training; the
+CIFAR-like stream plants class templates plus noise for the paper's CNN
+experiments.
 
-The successor table comes from ``numpy.random.default_rng(seed)``, as the
-reference's does, and equals it bit for bit.  The walk's start tokens and
-successor choices are drawn by ``jax.random`` in the reference, which
-torch cannot reproduce: here they come from a ``torch.Generator`` seeded
-from (seed, step), so the port's batches follow the same table and law but
-are not the reference's.
+The successor table and the class templates come from
+``numpy.random.default_rng`` (seeded ``seed`` and ``seed + 1``), as the
+reference's do, and equal them bit for bit.  The per-batch draws (the
+walk's start tokens and successor choices; the image labels and noise)
+are drawn by ``jax.random`` in the reference, which torch cannot
+reproduce: here they come from a ``torch.Generator`` seeded from (seed,
+step), so the port's batches follow the same law but are not the
+reference's.
 """
 from __future__ import annotations
 
@@ -20,6 +24,13 @@ from typing import Dict, Iterator
 
 import numpy as np
 import torch
+
+
+def batch_generator(seed: int, step: int) -> torch.Generator:
+    """The host generator of batch ``step``: seeded from (seed, step)
+    through ``numpy.random.SeedSequence``."""
+    key = np.random.SeedSequence([seed, step]).generate_state(2, np.uint32)
+    return torch.Generator().manual_seed(int(key[0]) << 32 | int(key[1]))
 
 
 @dataclasses.dataclass
@@ -35,18 +46,10 @@ class SyntheticLM:
         self.succ = rng.integers(0, self.vocab,
                                  size=(self.vocab, self.branching))
 
-    def generator(self, step: int) -> torch.Generator:
-        """The host generator of batch ``step``: seeded from (seed, step)
-        through ``numpy.random.SeedSequence``."""
-        key = np.random.SeedSequence([self.seed, step]).generate_state(
-            2, np.uint32)
-        return torch.Generator().manual_seed(
-            int(key[0]) << 32 | int(key[1]))
-
     def batch_at(self, step: int) -> Dict[str, torch.Tensor]:
         """Pure function of step: (tokens, labels) int32 host tensors with
         labels = next token."""
-        gen = self.generator(step)
+        gen = batch_generator(self.seed, step)
         start = torch.randint(0, self.vocab, (self.batch,), generator=gen)
         choices = torch.randint(0, self.branching,
                                 (self.batch, self.seq_len + 1),
@@ -59,6 +62,37 @@ class SyntheticLM:
             seq[:, t] = tok
         return {"tokens": seq[:, :-1].to(torch.int32),
                 "labels": seq[:, 1:].to(torch.int32)}
+
+    def __iter__(self) -> Iterator[Dict[str, torch.Tensor]]:
+        step = 0
+        while True:
+            yield self.batch_at(step)
+            step += 1
+
+
+@dataclasses.dataclass
+class SyntheticCIFAR:
+    num_classes: int = 10
+    image: int = 32
+    batch: int = 128
+    seed: int = 0
+    noise: float = 0.6
+
+    def __post_init__(self):
+        rng = np.random.default_rng(self.seed + 1)
+        self.templates = rng.normal(
+            size=(self.num_classes, self.image, self.image, 3)).astype("f4")
+
+    def batch_at(self, step: int) -> Dict[str, torch.Tensor]:
+        """Pure function of step: NHWC f32 ``images`` (the labels' class
+        templates plus ``noise`` x normal) and int32 ``labels``, host
+        tensors."""
+        gen = batch_generator(self.seed, step)
+        labels = torch.randint(0, self.num_classes, (self.batch,),
+                               generator=gen)
+        base = torch.from_numpy(self.templates)[labels]
+        noise = torch.randn(base.shape, generator=gen) * self.noise
+        return {"images": base + noise, "labels": labels.to(torch.int32)}
 
     def __iter__(self) -> Iterator[Dict[str, torch.Tensor]]:
         step = 0

@@ -23,6 +23,7 @@ N_SMS = 132              # H100 SXM streaming multiprocessors
 BLOCK_N = 128            # output columns of a block (kBN)
 BLOCK_K = 32             # K rows of a tensor-regime tile (kBK)
 X_STAGE = 8192           # f32 words of the stream regime's x stage (kXStage)
+MAX_GRID_Y = 65535       # CUDA's limit on grid.y, which holds the row tiles
 
 
 def round_up(x: int, multiple: int) -> int:
@@ -111,6 +112,9 @@ def _plan(regime: str, m: int, kend: int, n: int, unit: int, wbr: int
         align = math.lcm(BLOCK_K, unit, wbr)
         cap = None
     tiles_m = -(-m // rows)
+    if tiles_m > MAX_GRID_Y:
+        raise ValueError(f"M={m} needs {tiles_m} row tiles of {rows}; the "
+                         f"grid holds at most {MAX_GRID_Y}")
     tiles_n = -(-n // BLOCK_N)
     tiles = tiles_m * tiles_n
     want = max(1, -(-2 * N_SMS // tiles) if regime == "stream"

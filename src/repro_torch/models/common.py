@@ -30,6 +30,7 @@ from ..configs.base import QuantConfig
 from ..core.bitrep import QuantizedTensor, compose, from_float
 from ..core.fakequant import FakeQuantTensor, fq_compose, fq_from_float
 from ..core.pact import pact_sym_quant
+from ..core.state import tree_map
 from ..kernels.bitplane_matmul import bitplane_matmul
 from ..kernels.packed_matmul import packed_matmul
 from ..kernels.ref import bitplane_matmul_ref, packed_matmul_ref
@@ -130,14 +131,14 @@ def prepare_params(params: Any, dtype=None) -> Any:
     bit axis leads, so the layer loop cannot slice them).  The other
     quantized leaves stay in their storage; :func:`qmatmul` consumes them
     one layer at a time."""
-    if isinstance(params, dict):
-        return {k: prepare_params(v, dtype) for k, v in params.items()}
-    if isinstance(params, QuantizedTensor):
-        return compose(params, dtype)
-    if dtype is not None and isinstance(params, torch.Tensor) \
-            and params.is_floating_point():
-        return params.to(dtype)
-    return params
+    def leaf(x):
+        if isinstance(x, QuantizedTensor):
+            return compose(x, dtype)
+        if dtype is not None and isinstance(x, torch.Tensor) \
+                and x.is_floating_point():
+            return x.to(dtype)
+        return x
+    return tree_map(leaf, params)
 
 
 def act_quant(x: torch.Tensor, beta: Optional[torch.Tensor],

@@ -34,6 +34,7 @@ from ..core.blocking import BlockingSpec, expand_block_map, pad_to_blocks
 from ..core.device import resolve_device
 from ..core.fakequant import FakeQuantTensor
 from ..core.quantize import pack_int4, unpack_int4
+from ..core.state import tree_leaves, tree_map
 from ..kernels.ref import pack_bits, unpack_bits, unpack_bits_u8
 
 SERVING_LAYOUTS = ("packed", "bitplane")
@@ -197,20 +198,6 @@ def _convert_layer(x, bits: int, layout: str):
         return _quantize_leaf(x.w, x.scale, x.bitwidth, x.spec, x.n_bits,
                               bits, layout)
     return x
-
-
-def tree_map(fn, tree):
-    """Map ``fn`` over the leaves of a nested-dict param tree (quantized
-    weights are leaves)."""
-    if isinstance(tree, dict):
-        return {k: tree_map(fn, v) for k, v in tree.items()}
-    return fn(tree)
-
-
-def tree_leaves(tree):
-    if isinstance(tree, dict):
-        return [leaf for v in tree.values() for leaf in tree_leaves(v)]
-    return [tree]
 
 
 def tree_to(tree, device):

@@ -29,7 +29,7 @@ from ..core.fakequant import (FakeQuantTensor, fq_group_lasso, fq_live_bits,
 from ..core.group_lasso import layer_bit_count, wb_group_lasso
 from ..core.precision import adjust_precision
 from ..core.quantize import requantize
-from ..core.state import map_tensors, quant_nodes, tensor_leaves
+from ..core.state import map_tensors, quant_nodes, tensor_leaves, tree_map
 from ..optim.optimizers import Optimizer, global_norm
 from .state import TrainState
 
@@ -89,6 +89,9 @@ def freeze_mask(grads):
     def one(path, node):
         if isinstance(node, dict):
             return {k: one(f"{path}[{k!r}]", v) for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return type(node)(one(f"{path}[{i}]", v)
+                              for i, v in enumerate(node))
         if isinstance(node, (QuantizedTensor, FakeQuantTensor)):
             return dataclasses.replace(node, **{
                 f.name: one(f"{path}.{f.name}", getattr(node, f.name))
@@ -101,11 +104,8 @@ def freeze_mask(grads):
 
 
 def _detached(x):
-    if isinstance(x, dict):
-        return {k: _detached(v) for k, v in x.items()}
-    if isinstance(x, tuple):
-        return tuple(_detached(v) for v in x)
-    return x.detach() if isinstance(x, torch.Tensor) else x
+    return tree_map(lambda t: t.detach() if isinstance(t, torch.Tensor)
+                    else t, x)
 
 
 def microbatched_value_and_grad(loss_fn: Callable, num_mb: int = 1):

@@ -10,8 +10,17 @@ from repro.serve.deploy import BitplaneServingWeight, ServingWeight
 
 
 def tree_to_numpy(tree):
-    """JAX param tree -> nested dict of numpy arrays; quantized leaves
-    become dicts of their arrays plus their static fields."""
+    """JAX param tree -> nested dicts and lists of numpy arrays; quantized
+    leaves become dicts of their arrays plus their static fields, a CNN
+    conv's ``ConvMeta`` the port's, and VGG's ``"M"`` stays a string."""
+    from repro.models.cnn import ConvMeta
+    if isinstance(tree, ConvMeta):
+        from repro_torch.models.cnn import ConvMeta as TConvMeta
+        return TConvMeta(c_in=tree.c_in, c_out=tree.c_out, k=tree.k)
+    if isinstance(tree, str):
+        return tree
+    if isinstance(tree, list):
+        return [tree_to_numpy(v) for v in tree]
     if isinstance(tree, FakeQuantTensor):
         return {"w": np.asarray(tree.w), "scale": np.asarray(tree.scale),
                 "bitwidth": np.asarray(tree.bitwidth),

@@ -96,7 +96,8 @@ It builds the four CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
    tokens.
 
 5. MoE phase — with the phi3 trees freed, the MoE family at full width:
-   granite-moe-3b-a800m (all 32 layers, 40 experts top-8, random weights
+   granite-moe-3b-a800m (its first 8 of 32 layers, ``MOE_DEPTH``, 40
+   experts top-8, random weights
    from seed 0, bf16) deployed packed int8 and int4 and as mixed-width bit
    planes (its composed weights equal the packed deploy's), served
    one-shot (B=4, 128-token prompts, 32 new, 16-token pages) through the
@@ -182,10 +183,37 @@ It builds the four CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
    versions.  Step ms (median after the first), tokens/s, maintenance ms,
    deploy s, peak memory, bit-width and compression are reported.
 
+9. deploy phase — from a trainer's checkpoint to budget-autotuned
+   bit-plane serving, full-width phi3 cut to ``DEPLOY_LAYERS`` = 2 layers
+   (a 2-layer TrainState is ~3.9 GB a save), under
+   ``chiprun_out/deploy_ckpt`` (free space checked first, removed at the
+   end).  The train launcher's trainer (``--ckpt-dir``: a save every
+   step) crashed before data step 3 and restarted by
+   ``run_with_restarts`` ends bit for bit as the uninterrupted launcher
+   run (saves and the restore timed); ``validate_checkpoint`` clean on
+   the save, CK2 / CK3 on a small save torn and with debris beside it.
+   The serve launcher (its config cut to 2 layers) cold-starts the
+   checkpoint to bit planes (bit for bit the live deploy of the restored
+   params; peak host bytes below the dense tree's), autotunes per-block
+   occupancies under a budget of the fixed bytes plus
+   ``DEPLOY_BUDGET_SHARE`` of the plane bytes, calibrated on its prompt
+   batch (AT1 and SW/BP clean; the sorted search's occupancies equal
+   the heap's on the card's scores), and serves the tuned tree through
+   the scheduler (4 requests of 256 tokens, 16 new, 16-token pages,
+   256-token chunks) through ``bitplane_matmul`` and ``paged_attention``
+   and through the plain versions: quantizers off in f32 (tokens
+   identical; one-shot logits within ``EXACT_TOL_REL``) and 8-bit PACT
+   with int8 KV in bf16 (one-shot within ``QUANT_TOL_REL``), launches
+   against the tick logs.  The engine refuses a tree with one
+   non-prefix mask (BP2); the packed cold start serves one decode step
+   through ``packed_matmul``.  ``bitplane_matmul`` is timed over a
+   layer at decode M on the tuned tree and the full one.
+
 Output: a ``{"train": {...}}`` line with the train phase's figures and
 the card, a ``{"moe": {...}}`` line with the MoE phase's, an
 ``{"encdec": {...}}`` line with the enc-dec phase's, a ``{"cnn": {...}}``
-line with the CNN phase's, a
+line with the CNN phase's, a ``{"deploy": {...}}`` line with the deploy
+phase's, a
 ``{"kernels": [...]}`` JSON line, the card's name and power
 limit, and as the last line ``{"ok": true, "device": {...}}``.  Details go
 to ``chiprun_out/chip_smoke_detail.json``.  Any failure exits non-zero; so
@@ -1180,9 +1208,12 @@ def bitplane_path_phase(bp, tok):
     faults = []
     for name, catch_kv, tree in bitplane_faults(bp):
         for kv in (8, 4):
+            # a fault may break the wire contract (the truncated masks are
+            # not prefix-monotone): the engine's check is off, so the
+            # output check must catch it
             eng = ServeEngine(api_for(8), tree, kv_quant_bits=kv,
                               backend="bitplane", attn_backend="fused",
-                              device=DEV)
+                              device=DEV, validate=False)
             reading = compare(greedy(eng, tok, 1), plain_act8[kv])
             faults.append(dict(name=name, kv=kv, must_catch=kv in catch_kv,
                                **reading))
@@ -1669,7 +1700,8 @@ def drive_record(out, matmul):
         assert sched.prefix_cache.outstanding_refs == 0 and \
             len(sched.prefix_cache) == 0, rep
     assert not sched.tables.any()
-    want = tick_launches(sched, matmul)
+    want = tick_launches(sched, matmul) if matmul else \
+        dict.fromkeys(out["launches"], 0)
     assert out["launches"] == want, (out["launches"], want)
     log, ms = sched.tick_log, out["tick_ms"]
     assert len(ms) == len(log) == sched.tick, (len(ms), len(log))
@@ -1839,11 +1871,12 @@ MOE_RUNS = ((8, 32, 32, "float32"), (8, 8, 8, "bfloat16"),
             (4, 4, 8, "bfloat16"))
 MOE_BP_RUNS = ((32, 32, "float32"), (8, 8, "bfloat16"))
 MOE_CAP_NEW = 8                 # the capacity-dispatch one-shot's tokens
-# granite's bit-plane and capacity one-shot legs serve the first 8 of its
-# 32 layers (the full-width tree, cut in depth): their host-bound decode
-# steps (0.4-0.7 s each at full depth) kept the smoke past its budget
-# once the enc-dec phase came after them
-MOE_CUT_LAYERS = 8
+# granite serves the first 8 of its 32 layers (the full-width tree, cut
+# in depth): its bit-plane and capacity legs since PR 17 (host-bound
+# decode steps of 0.4-0.7 s at full depth), every leg since PR 20 (with
+# the deploy phase, ~97 s, the smoke ran 921.8 s with the rest at 16
+# layers; at 32 the MoE phase was the largest, 217 s)
+MOE_DEPTH = 8
 MOE_ONESHOT = 4                 # quantizer-free requests rerun one-shot
 # (K, N) of a routed expert's projections: gate and up, then down
 MOE_EXPERT_SHAPES = ((1536, 512), (512, 1536))
@@ -2087,11 +2120,11 @@ def moe_scheduler(tree, size=("--no-tiny",)):
 
 
 def moe_phase(size=("--no-tiny",)):
-    """The MoE family at full width (``size``): granite-moe-3b-a800m, all
-    32 layers, deployed packed int8 and int4 and bit-plane (mixed
+    """The MoE family at full width (``size``): granite-moe-3b-a800m, its
+    first ``MOE_DEPTH`` layers, deployed packed int8 and int4 and
+    bit-plane (mixed
     widths), one-shot through the kernels against the plain versions
-    (paged, ``ragged``; then ``capacity``, contiguous; the bit-plane and
-    ``capacity`` legs on the first ``MOE_CUT_LAYERS`` layers), the grouped
+    (paged, ``ragged``; then ``capacity``, contiguous), the grouped
     product timed and its row independence recorded, ``packed_matmul``
     timed at the expert shapes, the scheduler drive; then
     llama4-scout-17b-a16e at full width cut to ``SCOUT_LAYERS`` layers.
@@ -2102,7 +2135,9 @@ def moe_phase(size=("--no-tiny",)):
     out = {"runs": []}
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    cfg = served_config(MOE_ARCH, 8, "bfloat16", size)
+    depth = min(MOE_DEPTH, served_config(MOE_ARCH, 8, "bfloat16",
+                                         size).n_layers)
+    cfg = served_config(MOE_ARCH, 8, "bfloat16", size, depth)
     qat = build(cfg).init(seed=0, device=DEV)
     packed = {b: to_serving_params(qat, b, device=DEV) for b in (8, 4)}
     bp, out["bitplane_deploy"] = deploy_bitplane(qat)
@@ -2114,19 +2149,18 @@ def moe_phase(size=("--no-tiny",)):
     log(f"{MOE_ARCH}: init and three deploys in {out['deploy_s']:.1f} s")
 
     for bits, kv, act, dt in MOE_RUNS:
-        r = dict(moe_pair(served_config(MOE_ARCH, act, dt, size), packed[bits],
-                          tok, kv), bits=bits)
+        r = dict(moe_pair(served_config(MOE_ARCH, act, dt, size, depth),
+                          packed[bits], tok, kv), bits=bits)
         out["runs"].append(r)
         moe_log(r)
-    cut = min(MOE_CUT_LAYERS, cfg.n_layers)
     for kv, act, dt in MOE_BP_RUNS:
-        r = dict(moe_pair(served_config(MOE_ARCH, act, dt, size, cut), bp,
+        r = dict(moe_pair(served_config(MOE_ARCH, act, dt, size, depth), bp,
                           tok, kv, backend="bitplane"), bits="bitplane")
         out["runs"].append(r)
         moe_log(r)
     del bp
     for kv, act, dt in ((32, 32, "float32"), (8, 8, "bfloat16")):
-        r = dict(moe_pair(served_config(MOE_ARCH, act, dt, size, cut),
+        r = dict(moe_pair(served_config(MOE_ARCH, act, dt, size, depth),
                           packed[8], tok, kv, new=MOE_CAP_NEW, page=0,
                           impl="capacity"), bits=8)
         out["runs"].append(r)
@@ -2148,7 +2182,8 @@ def moe_phase(size=("--no-tiny",)):
 
     t1 = time.perf_counter()
     del packed[4]
-    out["scheduler"] = moe_scheduler(packed[8], size)
+    with cut_serve_config(depth):
+        out["scheduler"] = moe_scheduler(packed[8], size)
     out["scheduler_s"] = time.perf_counter() - t1
     del packed
     torch.cuda.empty_cache()
@@ -3616,6 +3651,568 @@ def train_phase(size=("--no-tiny",)):
 
 
 # ---------------------------------------------------------------------------
+# deploy phase: checkpoint -> cold start -> contracts -> autotune -> serve
+# ---------------------------------------------------------------------------
+
+# full-width phi3 cut to 2 layers: a 2-layer TrainState (f32 params with
+# the tied embedding, AdamW m and v) is ~3.9 GB a save; at 32 layers ~45 GB
+DEPLOY_LAYERS = 2
+DEPLOY_STEPS, DEPLOY_EVERY, DEPLOY_FAULT = 4, 2, 3  # steps, requant, crash
+DEPLOY_DISK_GB = 24             # free space the checkpoints need, checked
+# the autotune budget: the fixed bytes (LUTs and the non-bit-plane
+# leaves) plus this share of the bit-plane leaves' plane and sign bytes.
+# 0.6 of the whole stream would not be feasible at 2 layers: the tied
+# 32064 x 3072 f32 embedding alone is ~3/4 of it
+DEPLOY_BUDGET_SHARE = 0.6
+DEPLOY_B, DEPLOY_P, DEPLOY_NEW = 4, 256, 16
+
+
+def cut_serve_config(n_layers):
+    """``repro_torch.launch.serve._config`` cut to ``n_layers`` for the
+    calls inside the context: the serve launcher serves the registered
+    depth, and the checkpoint holds ``n_layers``."""
+    import contextlib
+    import repro_torch.launch.serve as ls
+
+    @contextlib.contextmanager
+    def ctx():
+        base = ls._config
+        ls._config = lambda args: dataclasses.replace(base(args),
+                                                      n_layers=n_layers)
+        try:
+            yield
+        finally:
+            ls._config = base
+    return ctx()
+
+
+class CkptClock:
+    """Observer around the checkpoint module's ``save_tree`` (run by the
+    manager's writer thread) and ``restore_tree``: seconds and bytes on
+    disk of each call."""
+
+    def __init__(self):
+        import repro_torch.ckpt.checkpoint as ck
+        self.mod, self.orig = ck, (ck.save_tree, ck.restore_tree)
+        self.saves, self.restores = [], []
+
+    def __enter__(self):
+        save, restore = self.orig
+
+        def timed_save(tree, path, *a, **k):
+            t0 = time.perf_counter()
+            save(tree, path, *a, **k)
+            self.saves.append(dict(path=str(path), s=time.perf_counter() - t0,
+                                   bytes=dir_bytes(path)))
+
+        def timed_restore(template, path, *a, **k):
+            import torch
+            t0 = time.perf_counter()
+            out = restore(template, path, *a, **k)
+            torch.cuda.synchronize()
+            self.restores.append(dict(path=str(path),
+                                      s=time.perf_counter() - t0,
+                                      bytes=dir_bytes(path)))
+            return out
+        self.mod.save_tree, self.mod.restore_tree = timed_save, timed_restore
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.save_tree, self.mod.restore_tree = self.orig
+
+
+def dir_bytes(path) -> int:
+    return sum(f.stat().st_size for f in Path(path).iterdir())
+
+
+def deploy_train_argv(ckpt=None, size=("--no-tiny",)):
+    return ["--arch", ARCH, *size, "--device", DEV, "--layers",
+            str(DEPLOY_LAYERS), "--steps", str(DEPLOY_STEPS),
+            "--requant-every", str(DEPLOY_EVERY), "--seq", str(TRAIN_SEQ),
+            "--batch", str(TRAIN_BATCH), "--delta-alpha",
+            str(TRAIN_DELTA_ALPHA),
+            *(["--ckpt-dir", str(ckpt)] if ckpt else [])]
+
+
+def trees_equal(a, b):
+    """(leaves equal bit for bit, largest |difference|, leaf count, the
+    paths that differ) over the array leaves of two trees of one
+    structure (checkpoint paths)."""
+    import numpy as np
+    import torch
+    from repro_torch.ckpt.checkpoint import iter_leaves
+    la, lb = dict(iter_leaves(a)), dict(iter_leaves(b))
+    assert la.keys() == lb.keys(), sorted(set(la) ^ set(lb))[:4]
+    differ, worst = [], 0.0
+    for k, x in la.items():
+        y = lb[k]
+        if not isinstance(x, torch.Tensor):
+            ok = np.array_equal(np.asarray(x), np.asarray(y))
+        else:
+            y = y.to(x.device)
+            ok = x.dtype == y.dtype and x.shape == y.shape and \
+                bool(torch.equal(x, y))
+            if not ok and x.is_floating_point() and x.shape == y.shape:
+                worst = max(worst, float((x.double() - y.double())
+                                         .abs().max()))
+        if not ok:
+            differ.append(k)
+    return not differ, worst, len(la), differ
+
+
+def restart_leg(ck, size):
+    """Leg 1: the launcher's trainer with checkpoints every
+    ``DEPLOY_EVERY`` steps, crashed before data step ``DEPLOY_FAULT`` and
+    restarted by ``run_with_restarts``, against the uninterrupted
+    launcher run: last loss and every leaf of params and optimizer state
+    bit for bit."""
+    import torch
+    from repro_torch.data import make_lm_pipeline
+    from repro_torch.launch import train as tl
+    from repro_torch.train import run_with_restarts
+    argv = deploy_train_argv(ck, size)
+    args = tl.build_parser().parse_args(argv)
+    cfg = tl.config(args)
+    attempts = []
+
+    def make():
+        attempts.append(time.perf_counter())
+        return tl.make_trainer(args)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with CkptClock() as clock:
+        restarted = run_with_restarts(
+            make, lambda s: make_lm_pipeline(cfg, args.seq, args.batch,
+                                             start_step=s),
+            DEPLOY_STEPS, fault_at=DEPLOY_FAULT)
+    run_s = time.perf_counter() - t0
+    straight = tl.main(deploy_train_argv(None, size))
+    same, worst, n, differ = trees_equal(restarted.state, straight.state)
+    out = dict(attempts=len(attempts), run_s=run_s, saves=clock.saves,
+               restores=clock.restores, leaves=n, bit_exact=same,
+               max_abs_diff=worst, differ=differ[:8],
+               loss_restarted=restarted.history[-1]["loss"],
+               loss_straight=straight.history[-1]["loss"],
+               history_steps=[h["step"] for h in restarted.history],
+               steps=sorted(p.name for p in Path(ck).iterdir()))
+    sv = clock.saves
+    out["save_s_each"] = [s["s"] for s in sv]
+    out["save_bytes"] = sv[-1]["bytes"]
+    out["save_gb_per_s"] = sum(s["bytes"] for s in sv) / sum(
+        s["s"] for s in sv) / 1e9
+    out["restore_s"] = clock.restores[0]["s"]
+    out["restore_gb_per_s"] = clock.restores[0]["bytes"] / \
+        clock.restores[0]["s"] / 1e9
+    assert len(attempts) == 2 and restarted.state.step == DEPLOY_STEPS, out
+    # the launcher saves every max(steps // 4, 1) = 1 step, asynchronously:
+    # the restart resumes from the last save committed at the crash (the
+    # crashed run's save of the step before it may still be in flight)
+    out["resumed_at"] = int(Path(clock.restores[0]["path"]).name[5:])
+    assert out["resumed_at"] in (DEPLOY_FAULT - 1, DEPLOY_FAULT), out
+    assert out["history_steps"] == list(range(out["resumed_at"] + 1,
+                                              DEPLOY_STEPS + 1)), out
+    assert same and out["loss_restarted"] == out["loss_straight"], out
+    del restarted, straight
+    torch.cuda.empty_cache()
+    return out
+
+
+def contracts_leg(step_dir):
+    """Leg 2: CK findings on the real checkpoint (clean), and on a small
+    save with its shard removed (CK2) and with ``.tmp.`` debris beside it
+    (CK3)."""
+    import shutil
+    import torch
+    from repro_torch.analysis.contracts import validate_checkpoint
+    from repro_torch.ckpt import save_tree
+    t0 = time.perf_counter()
+    real = validate_checkpoint(str(step_dir))
+    out = dict(real=[f.format() for f in real],
+               real_s=time.perf_counter() - t0)
+    assert [f.rule for f in real] == ["CK0"], out
+    small = step_dir.parent.parent / "small"
+    save_tree({"w": torch.arange(12.0).reshape(3, 4),
+               "q": torch.arange(6, dtype=torch.int8)}, str(small))
+    shutil.copytree(small, str(small) + ".tmp.deadbeef")
+    debris = validate_checkpoint(str(small))
+    (small / "shard_00000-of-00001.npz").unlink()
+    torn = validate_checkpoint(str(small))
+    out["debris"] = sorted({(f.rule, f.severity) for f in debris})
+    out["torn"] = sorted({(f.rule, f.severity) for f in torn})
+    assert out["debris"] == [("CK3", "warning")], out
+    assert ("CK2", "error") in out["torn"], out
+    return out
+
+
+def deploy_drive(ck, extra, size, params=None, matmul="bitplane_matmul"):
+    """The serve launcher over the checkpoint (depth cut), counted and
+    checked by :func:`drive_record`: ``DEPLOY_B`` requests of
+    ``DEPLOY_P`` tokens, ``DEPLOY_NEW`` new, 16-token pages, 256-token
+    chunks; ``params`` (a tuned tree) replaces the cold start; a plain
+    drive (``matmul`` None) launches nothing."""
+    argv = ["--arch", ARCH, *size, "--device", DEV, "--requests",
+            "--ckpt", str(ck), "--batch", str(DEPLOY_B), "--prompt-len",
+            str(DEPLOY_P), "--max-new", str(DEPLOY_NEW), "--page-size",
+            str(PAGE), "--prefill-chunk", str(SCHED_CHUNK), "--seed", "0",
+            *extra]
+    with cut_serve_config(DEPLOY_LAYERS):
+        out = launch(argv, params=params)
+    out["record"] = drive_record(out, matmul)
+    return out
+
+
+def bp2_refused(tree, api):
+    """A copy of ``tree`` with one block of one mask made non-prefix
+    (plane 0 cleared where the block keeps more than one plane): the
+    engine must refuse it, naming BP2."""
+    import torch
+    from repro_torch.serve.engine import ServeEngine
+    leaf = tree["layers"]["mlp"]["w_up"]
+    mask = leaf.mask.clone()
+    occ = mask.sum(dim=-3)
+    idx = (occ[0] > 1).nonzero()[0]
+    mask[0, 0, idx[0], idx[1]] = 0.0
+    bad = dict(tree, layers=dict(tree["layers"], mlp=dict(
+        tree["layers"]["mlp"], w_up=dataclasses.replace(leaf, mask=mask))))
+    try:
+        ServeEngine(api, bad, backend="bitplane", device=DEV)
+    except ValueError as e:
+        assert "BP2" in str(e), e
+        return str(e).splitlines()[1]
+    raise AssertionError("the engine served a non-prefix mask")
+
+
+def time_leaf_matmuls(tree, m):
+    """``bitplane_matmul`` over one layer's 7 projections of ``tree`` at
+    M=m, bf16 x, each call on a rotating copy so weights are read cold:
+    (device ms summed over the layer, ms summed)."""
+    import torch
+    from repro_torch.kernels import bitplane_matmul
+    dev_ms = ms = 0.0
+    for sub, name in LAYER_LEAVES:
+        leaf = tree["layers"][sub][name]
+        k = leaf.shape[-2]
+        x = torch.randn((m, k), device=DEV, dtype=torch.bfloat16,
+                        generator=torch.Generator(device=DEV).manual_seed(6))
+        layer = leaf.layer(0)
+        copies = rotating(lambda: dataclasses.replace(
+            layer, planes=layer.planes.clone(), sign=layer.sign.clone(),
+            mask=layer.mask.clone(), scale=layer.scale.clone()),
+            layer.planes.nbytes)
+        it = {"i": 0}
+
+        def call():
+            it["i"] = (it["i"] + 1) % len(copies)
+            v = copies[it["i"]]
+            return bitplane_matmul(x, v.planes, v.sign, v.mask, v.scale,
+                                   wbr=v.spec.wb_rows, wbc=v.spec.wb_cols)
+        a, d, _ = cuda_times(call)
+        ms += a
+        dev_ms += d
+        del copies
+    return dev_ms, ms
+
+
+def oneshot_pair(api, tree, tok, kv, backend, new=DEPLOY_NEW):
+    """Greedy one-shot of ``tree`` through ``backend`` and fused
+    attention, launches counted, against the plain versions."""
+    from repro_torch.serve.engine import ServeEngine
+    n = api.cfg.n_layers
+    matmul = "bitplane_matmul" if backend == "bitplane" else "packed_matmul"
+    ker = ServeEngine(api, tree, kv_quant_bits=kv, backend=backend,
+                      attn_backend="fused", device=DEV)
+    run = counted(lambda: greedy(ker, tok, new),
+                  expected_launches(n, new, new - 1, matmul))
+    del ker
+    ref = ServeEngine(api, tree, kv_quant_bits=kv, backend="ref",
+                      attn_backend="ref", device=DEV)
+    plain = greedy(ref, tok, new)
+    del ref
+    return run, plain
+
+
+def deploy_phase(size=("--no-tiny",)):
+    """Checkpoint to budget-autotuned bit-plane serving at full phi3 width
+    cut to ``DEPLOY_LAYERS`` layers (legs 1-6: restart, CK contracts, the
+    bit-plane cold start through the launcher, the packed cold start,
+    autotune, serving the tuned tree).  Writes under
+    ``chiprun_out/deploy_ckpt`` (free space checked first) and removes it
+    at the end, pass or fail."""
+    import shutil
+    import numpy as np
+    import torch
+    from repro_torch.analysis.contracts import (validate_allocation,
+                                                validate_serving_tree)
+    from repro_torch.ckpt import restore_tree
+    from repro_torch.launch.serve import resolve_ckpt_dir
+    from repro_torch.serve.autotune import (calibrate_activations,
+                                            greedy_allocate,
+                                            sensitivity_tree)
+    from repro_torch.core.state import quant_nodes
+    from repro_torch.serve.deploy import (BitplaneServingWeight,
+                                          bitplane_stream_bytes,
+                                          to_serving_params,
+                                          weight_stream_bytes)
+    from repro_torch.train import TrainState
+    root = ROOT / "chiprun_out" / "deploy_ckpt"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    free_gb = shutil.disk_usage(root).free / 1e9
+    if free_gb < DEPLOY_DISK_GB:
+        raise AssertionError(f"deploy phase: {free_gb:.1f} GB free under "
+                             f"{root}, needs {DEPLOY_DISK_GB}")
+    out = {"free_gb": free_gb, "layers": DEPLOY_LAYERS}
+    t_phase = time.perf_counter()
+    try:
+        ck = root / "run"
+        out["restart"] = r = restart_leg(ck, size)
+        log(f"deploy restart: {r['attempts']} attempts, bit exact "
+            f"{r['bit_exact']} over {r['leaves']} leaves, save "
+            f"{r['save_bytes'] / 1e9:.2f} GB at {r['save_gb_per_s']:.2f} "
+            f"GB/s, restore {r['restore_s']:.2f} s")
+        step_dir = Path(resolve_ckpt_dir(str(ck)))
+        out["contracts"] = contracts_leg(step_dir)
+
+        # leg 3: the bit-plane cold start through the launcher, with the
+        # tuned tree served (legs 5, 6); quantizers off in f32 first
+        exact = ["--backend", "bitplane", "--attn-backend", "fused",
+                 "--act-bits", "32", "--dtype", "float32", "--kv-bits", "32"]
+        quant = ["--backend", "bitplane", "--attn-backend", "fused",
+                 "--act-bits", "8", "--kv-bits", "8"]
+        out["budget"] = probe = deploy_drive_budget(ck, exact, size)
+        budget = probe["budget"]
+        drives = {}
+        for name, flags in (("exact", exact), ("quant", quant)):
+            kern = deploy_drive(ck, flags + ["--autotune-budget-bytes",
+                                             str(budget)], size)
+            alloc = kern["allocation"]
+            plain_flags = [f if f not in ("bitplane", "fused") else "ref"
+                           for f in flags]
+            plain = deploy_drive(ck, plain_flags, size, params=alloc.params,
+                                 matmul=None)
+            drives[name] = (kern, plain)
+        kern, plain = drives["exact"]
+        dep, alloc = kern["deployed"], kern["allocation"]
+        api = kern["engine"].api
+        stats = kern["stats"]
+        out["cold_start"] = dict(stats, s=probe["cold_start_s"],
+                                 launcher_main_s=kern["main_s"])
+        assert 0 < stats["peak_host_bytes"] < stats["dense_tree_bytes"], \
+            stats
+
+        # the cold-start tree against the live deploy of the restored
+        # params, bit for bit; then the BP2 refusal
+        tmpl = api.abstract_params()
+        t0 = time.perf_counter()
+        restored = restore_tree(TrainState(step=0, params=tmpl,
+                                           alpha=torch.empty(
+                                               (), device="meta")),
+                                str(step_dir), partial=True, device=DEV)
+        torch.cuda.synchronize()
+        out["restore_params_s"] = time.perf_counter() - t0
+        live = to_serving_params(restored.params, 8, layout="bitplane",
+                                 device=DEV)
+        same, _, n, _ = trees_equal(live, dep)
+        out["cold_vs_live_bitplane"] = dict(bit_exact=same, leaves=n)
+        assert same, out["cold_vs_live_bitplane"]
+        out["bp2_refusal"] = bp2_refused(dep, api)
+
+        # leg 4: the packed cold start, one decode step through the kernels
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pstats = {}
+        packed = to_serving_params(str(step_dir), 8, layout="packed",
+                                   device=DEV, template=tmpl, stats=pstats)
+        torch.cuda.synchronize()
+        pk_s = time.perf_counter() - t0
+        same, _, n, _ = trees_equal(packed, to_serving_params(
+            restored.params, 8, layout="packed", device=DEV))
+        assert same
+        del restored, live
+        tok = torch.randint(0, api.cfg.vocab, (DEPLOY_B, DEPLOY_P),
+                            generator=torch.Generator(device=DEV)
+                            .manual_seed(8), device=DEV, dtype=torch.int32)
+        run, ref = oneshot_pair(api, packed, tok, 32, "kernel", new=2)
+        c = compare(run, ref)
+        out["packed_cold_start"] = dict(stats=pstats, s=pk_s, leaves=n,
+                                        launches=run["launches"], **c)
+        assert c["err"] <= EXACT_TOL_REL and c["token_agreement"] == 1.0, c
+        del packed, run, ref
+
+        # leg 5: the allocation's contracts, and the sorted search against
+        # the heap on the card's own scores
+        at = dict(budget=budget, before=weight_stream_bytes(dep),
+                  after=alloc.total_bytes, steps=alloc.steps_taken,
+                  steps_available=alloc.steps_available,
+                  gate=alloc.gate, timings=kern["autotune_timings"])
+        assert not validate_allocation(alloc.params, budget)
+        assert not [f for f in validate_serving_tree(alloc.params)
+                    if f.severity == "error"]
+        batch = {"tokens": np.concatenate([r.inputs["tokens"]
+                                           for r in kern["requests"]])}
+        scores = sensitivity_tree(dep, calibrate_activations(api, dep,
+                                                             batch))
+        fast = greedy_allocate(dep, scores, budget)
+        t0 = time.perf_counter()
+        heap = greedy_allocate(dep, scores, budget, search="heap")
+        at["heap_s"] = time.perf_counter() - t0
+        at["sorted_equals_heap"] = all(
+            np.array_equal(fast.occupancies[p], heap.occupancies[p])
+            for p in heap.occupancies) and \
+            fast.steps_taken == heap.steps_taken and \
+            fast.predicted_error == heap.predicted_error
+        at["launcher_equals_sorted"] = all(
+            np.array_equal(fast.occupancies[p], alloc.occupancies[p])
+            for p in fast.occupancies)
+        at["occupancy_hist"] = np.bincount(np.concatenate(
+            [o.ravel() for o in alloc.occupancies.values()]),
+            minlength=9).tolist()
+        out["autotune"] = at
+        assert at["sorted_equals_heap"], at
+        del fast, heap, scores
+
+        # leg 6: the tuned tree served through the kernels against the
+        # plain versions: scheduler drives and one-shot logits
+        serve = {}
+        for name, (kern_d, plain_d) in drives.items():
+            kt = [r.tokens for r in kern_d["results"]]
+            pt = [r.tokens for r in plain_d["results"]]
+            serve[name] = dict(
+                kernel=kern_d["record"], plain=plain_d["record"],
+                tokens_equal=kt == pt,
+                token_agreement=float(np.mean([a == b for x, y in
+                                               zip(kt, pt)
+                                               for a, b in zip(x, y)])))
+        assert serve["exact"]["tokens_equal"], serve["exact"]
+        kq = drives["quant"][0]
+        tuned_q, dep_q = kq["allocation"].params, kq["deployed"]
+        api_q = kq["engine"].api
+        api_x = api
+        for name, api_, tree, kv, tol in (
+                ("exact", api_x, alloc.params, 32, EXACT_TOL_REL),
+                ("quant", api_q, tuned_q, 8, QUANT_TOL_REL[8])):
+            run, ref = oneshot_pair(api_, tree, tok, kv, "bitplane")
+            c = compare(run, ref)
+            serve[name]["oneshot"] = dict(c, launches=run["launches"],
+                                          decode_ms_per_step=run[
+                                              "decode_ms_per_step"])
+            assert c["finite"] and c["err"] <= tol, (name, c)
+            if name == "exact":
+                assert c["token_agreement"] == 1.0, c
+        full = oneshot_pair(api_q, dep_q, tok, 8, "bitplane")[0]
+        serve["quant"]["full_tree_decode_ms_per_step"] = \
+            full["decode_ms_per_step"]
+        del full
+        t_dev, t_ms = time_leaf_matmuls(tuned_q, DEPLOY_B)
+        f_dev, f_ms = time_leaf_matmuls(dep_q, DEPLOY_B)
+        serve["bitplane_matmul_layer_at_decode"] = dict(
+            m=DEPLOY_B, tuned_device_ms=t_dev, tuned_ms=t_ms,
+            full_device_ms=f_dev, full_ms=f_ms,
+            tuned_stream_bytes=sum(bitplane_stream_bytes(x.layer(0)) for x in
+                                   quant_nodes(tuned_q, BitplaneServingWeight)
+                                   .values()),
+            full_stream_bytes=sum(bitplane_stream_bytes(x.layer(0)) for x in
+                                  quant_nodes(dep_q, BitplaneServingWeight)
+                                  .values()))
+        out["serve"] = serve
+        out["matmul_calls"] = [row for d in drives.values()
+                               for row in d[0]["record"]["matmul_calls"]]
+        out["launches"] = {
+            k: sum(d[0]["launches"][k] for d in drives.values())
+            for k in ("bitplane_matmul", "paged_attention", "packed_matmul",
+                      "pact_quant")}
+        out["launches"]["packed_matmul"] += \
+            out["packed_cold_start"]["launches"]["packed_matmul"]
+        out["launches"]["paged_attention"] += \
+            out["packed_cold_start"]["launches"]["paged_attention"]
+        del drives, kern, plain, dep, alloc, kq, tuned_q, dep_q
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        torch.cuda.empty_cache()
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out
+
+
+def deploy_drive_budget(ck, flags, size):
+    """The autotune budget of the bit-plane cold start (timed: the
+    launcher's own call): the fixed bytes plus ``DEPLOY_BUDGET_SHARE`` of
+    the bit-plane leaves' plane and sign bytes."""
+    import torch
+    import repro_torch.launch.serve as ls
+    from repro_torch.models.api import build
+    from repro_torch.core.state import quant_nodes
+    from repro_torch.serve.autotune.allocate import _leaf_bytes
+    from repro_torch.serve.deploy import (BitplaneServingWeight,
+                                          bitplane_stream_bytes,
+                                          to_serving_params,
+                                          weight_stream_bytes)
+    args = ls.build_parser().parse_args(["--arch", ARCH, *size, *flags])
+    with cut_serve_config(DEPLOY_LAYERS):
+        api = build(ls._config(args))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    dep = to_serving_params(ls.resolve_ckpt_dir(str(ck)), 8,
+                            layout="bitplane", device=DEV,
+                            template=api.abstract_params())
+    torch.cuda.synchronize()
+    cold_s = time.perf_counter() - t0
+    leaves = quant_nodes(dep, BitplaneServingWeight)
+    total = weight_stream_bytes(dep)
+    planes = sum(bitplane_stream_bytes(l) - _leaf_bytes(l, 0, 0)
+                 for l in leaves.values())
+    fixed = total - planes
+    budget = int(fixed + DEPLOY_BUDGET_SHARE * planes)
+    del dep
+    torch.cuda.empty_cache()
+    return dict(budget=budget, stream_bytes=total, fixed_bytes=fixed,
+                plane_bytes=planes, budget_share_of_total=budget / total,
+                cold_start_s=cold_s)
+
+
+def check_deploy(res):
+    """The deploy phase's judgments that :func:`deploy_phase` does not
+    assert inline (the quantized drive's tokens are recorded)."""
+    for name in ("exact", "quant"):
+        for drive in ("kernel", "plain"):
+            rec = res["serve"][name][drive]
+            assert rec["generated_tokens"] == DEPLOY_B * DEPLOY_NEW, rec
+    assert res["launches"]["bitplane_matmul"] > 0 and \
+        res["launches"]["paged_attention"] > 0 and \
+        res["launches"]["packed_matmul"] > 0, res["launches"]
+
+
+def deploy_summary(res) -> dict:
+    r, at, s = res["restart"], res["autotune"], res["serve"]
+    lm = s["bitplane_matmul_layer_at_decode"]
+    return {
+        "phase_s": res["phase_s"], "layers": res["layers"],
+        "restart_bit_exact": r["bit_exact"],
+        "save_gb": r["save_bytes"] / 1e9,
+        "save_s_each": r["save_s_each"],
+        "save_gb_per_s": r["save_gb_per_s"],
+        "restore_s": r["restore_s"],
+        "restore_gb_per_s": r["restore_gb_per_s"],
+        "cold_start_s": res["cold_start"]["s"],
+        "peak_host_bytes": res["cold_start"]["peak_host_bytes"],
+        "dense_tree_bytes": res["cold_start"]["dense_tree_bytes"],
+        "packed_cold_start_s": res["packed_cold_start"]["s"],
+        "stream_bytes_before": at["before"],
+        "stream_bytes_after": at["after"], "budget": at["budget"],
+        "autotune_s": at["timings"], "heap_s": at["heap_s"],
+        "sorted_equals_heap": at["sorted_equals_heap"],
+        "gate": at["gate"],
+        "exact_oneshot_err": s["exact"]["oneshot"]["err"],
+        "quant_oneshot_err": s["quant"]["oneshot"]["err"],
+        "quant_scheduler_token_agreement": s["quant"]["token_agreement"],
+        "decode_ms_per_step_tuned": s["quant"]["oneshot"][
+            "decode_ms_per_step"],
+        "decode_ms_per_step_full": s["quant"]["full_tree_decode_ms_per_step"],
+        "bitplane_matmul_layer_device_ms_tuned": lm["tuned_device_ms"],
+        "bitplane_matmul_layer_device_ms_full": lm["full_device_ms"],
+        "launches": res["launches"]}
+
+
+# ---------------------------------------------------------------------------
 # time phase
 # ---------------------------------------------------------------------------
 
@@ -3949,6 +4546,8 @@ def main() -> int:
                                      card=smi)}))
     print(json.dumps({"cnn": dict(cnn_summary(detail["cnn_phase"]),
                                   card=smi)}))
+    print(json.dumps({"deploy": dict(deploy_summary(detail["deploy_phase"]),
+                                     card=smi)}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
@@ -4166,6 +4765,15 @@ def run(detail) -> list:
     detail["train_phase_s"] = time.perf_counter() - t0
     log(f"train phase ran in {detail['train_phase_s']:.1f} s")
     save_detail(detail)
+
+    detail["deploy_phase"] = dp = deploy_phase()
+    log(f"deploy phase ran in {dp['phase_s']:.1f} s")
+    save_detail(detail)
+    check_deploy(dp)
+    for k in kernels:
+        k["deploy_launches"] = dp["launches"][k["name"]]
+        k["max_abs_err"] = max([k["max_abs_err"]] + [
+            r["err"] for r in dp["matmul_calls"] if r["kernel"] == k["name"]])
     return kernels
 
 

@@ -2,7 +2,8 @@
 
 A second package beside the JAX reference (``repro``): the same module
 layout (``configs``, ``core``, ``kernels``, ``models``, ``serve``,
-``analysis``, ``launch``) and names, written in PyTorch.  Each of the
+``train``, ``ckpt``, ``analysis``, ``launch``) and names, written in
+PyTorch.  Each of the
 reference's four TPU kernels is hand-written CUDA C++ for Hopper
 (``kernels/csrc``), built with ``nvcc`` at first use; each sits beside its
 plain PyTorch version, which the wrapper takes only for tensors that lie

@@ -11,7 +11,8 @@ quantized weight arrives as a dict of its arrays plus its static fields:
 * ServingWeight: ``w_int``, ``scale``, ``shape``, ``wb_rows``, ``wb_cols``,
   ``bits``;
 * BitplaneServingWeight: ``planes``, ``sign``, ``mask``, ``scale``,
-  ``shape``, ``wb_rows``, ``wb_cols``, ``bits``.
+  ``shape``, ``wb_rows``, ``wb_cols``, ``bits`` (and its ``tag``, if
+  given).
 
 Any other leaf that is not a numpy array (a CNN conv's ``ConvMeta``, the
 ``"M"`` between VGG's conv layers) passes through unchanged.  Both a QAT
@@ -62,7 +63,7 @@ def params_from_numpy(tree: Any, device=None) -> Any:
                     planes=t(node["planes"]), sign=t(node["sign"]),
                     mask=t(node["mask"]), scale=t(node["scale"]),
                     shape=tuple(node["shape"]), spec=spec,
-                    bits=int(node["bits"]))
+                    bits=int(node["bits"]), tag=node.get("tag", ""))
             if "bitwidth" in node:
                 return FakeQuantTensor(w=t(node["w"]), scale=t(node["scale"]),
                                        bitwidth=t(node["bitwidth"]),

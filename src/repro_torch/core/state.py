@@ -108,6 +108,20 @@ def quant_nodes(params: Any, types=QUANT_TYPES,
     return out
 
 
+def replace_nodes(tree: Any, new: Dict[str, Any], path: str = "") -> Any:
+    """``tree`` with the node at each path of ``new`` (paths as
+    :func:`quant_nodes` spells them) replaced; the rest is shared."""
+    if path in new:
+        return new[path]
+    if isinstance(tree, dict):
+        return {k: replace_nodes(v, new, f"{path}[{k!r}]")
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(replace_nodes(v, new, f"{path}[{i}]")
+                          for i, v in enumerate(tree))
+    return tree
+
+
 def quantized_leaves(params: Any) -> Dict[str, QuantizedTensor]:
     """All QuantizedTensor leaves keyed by their path string."""
     return quant_nodes(params, QuantizedTensor)

@@ -34,13 +34,15 @@ architecture (``seamless-m4t-large-v2``) also gives each request frames
 (1, ``--prompt-len``, d_model), 0.1 x standard normal from the same
 generator: every request shares one encoder length, as the reference's
 launcher gives them, while ``--prompt-lens`` still varies the tokens.
-Not ported yet: ``--ckpt``/``--ckpt-step``, ``--lint`` and
-``--autotune-budget-bytes``.
+Not ported yet: ``--lint`` (the graph lint).
 
 ``main(argv, params=None, record_ticks=False)`` returns what it served
-(engine, scheduler, requests, results); ``params`` replaces the seeded
-init with a caller's deployed tree, and ``record_ticks`` has the
-scheduler keep its per-tick log.
+(engine, scheduler, requests, results), the tree it deployed
+(``deployed``, before any autotune), the cold start's ``stats`` and the
+autotune's ``allocation`` (with its stage seconds in
+``autotune_timings``); ``params`` replaces the seeded init with a
+caller's deployed tree, and ``record_ticks`` has the scheduler keep its
+per-tick log.
 """
 from __future__ import annotations
 
@@ -149,7 +151,39 @@ def build_parser() -> argparse.ArgumentParser:
                          "top-k live planes of each block (0 = off)")
     ap.add_argument("--draft-gamma", type=int, default=4,
                     help="draft tokens proposed per speculative round")
+    ap.add_argument("--autotune-budget-bytes", type=int, default=0,
+                    help="search per-block bit-widths under this "
+                         "weight-stream-bytes budget before serving "
+                         "(bitplane layout only; 0 = off)")
+    ap.add_argument("--ckpt", default="",
+                    help="cold-start from a checkpoint directory (a "
+                         "CheckpointManager dir or a single step_N dir): "
+                         "weights stream leaf by leaf straight into the "
+                         "serving wire format, never materializing the "
+                         "dense tree")
+    ap.add_argument("--ckpt-step", type=int, default=-1,
+                    help="with --ckpt on a manager dir: the step to load "
+                         "(-1 = latest)")
     return ap
+
+
+def resolve_ckpt_dir(path: str, step: int = -1) -> str:
+    """Resolve ``--ckpt`` to a checkpoint directory: the path itself (it
+    holds a META) or a ``step_<N>`` child of a CheckpointManager
+    directory (``step`` -1 picks the latest)."""
+    import os
+    if os.path.exists(os.path.join(path, "META")):
+        return path
+    if step < 0:
+        from ..ckpt.checkpoint import CheckpointManager
+        latest = CheckpointManager(path).latest_step()
+        if latest is None:
+            raise SystemExit(f"--ckpt {path}: no step_N checkpoints found")
+        step = latest
+    out = os.path.join(path, f"step_{step}")
+    if not os.path.exists(os.path.join(out, "META")):
+        raise SystemExit(f"--ckpt: {out} is not a checkpoint directory")
+    return out
 
 
 def _config(args):
@@ -205,16 +239,48 @@ def main(argv: Optional[List[str]] = None, params: Any = None,
 
     cfg = _config(args)
     api = build(cfg)
+    stats: Dict[str, Any] = {}
     if params is None:
-        params = api.init(seed=0, device=args.device)
         args.deploy_bits = default_deploy_bits(args.backend,
                                                args.deploy_bits)
-        if args.deploy_bits:
-            layout = default_deploy_layout(args.backend)
-            params = to_serving_params(params, args.deploy_bits,
-                                       layout=layout, device=args.device)
-            print(f"deployed: {layout} int{args.deploy_bits} "
-                  f"serving weights")
+        layout = default_deploy_layout(args.backend)
+        if args.ckpt:
+            path = resolve_ckpt_dir(args.ckpt, args.ckpt_step)
+            params = to_serving_params(path, args.deploy_bits or 8,
+                                       layout=layout, device=args.device,
+                                       template=api.abstract_params(),
+                                       stats=stats)
+            print(f"cold-start: {path} -> {layout} "
+                  f"int{args.deploy_bits or 8} serving weights "
+                  f"(peak {stats['peak_host_bytes']} B host vs "
+                  f"{stats['dense_tree_bytes']} B dense tree)")
+        else:
+            params = api.init(seed=0, device=args.device)
+            if args.deploy_bits:
+                params = to_serving_params(params, args.deploy_bits,
+                                           layout=layout, device=args.device)
+                print(f"deployed: {layout} int{args.deploy_bits} "
+                      f"serving weights")
+    deployed = params
+    prompts = _prompts(cfg, args)
+
+    alloc, timings = None, {}
+    if args.autotune_budget_bytes:
+        from ..serve.autotune import autotune_params
+        from ..serve.deploy import weight_stream_bytes
+        if len({x["tokens"].shape[1] for x in prompts}) > 1:
+            raise SystemExit("--autotune-budget-bytes calibrates on the "
+                             "prompt batch: give every request one width")
+        batch = {k: np.concatenate([x[k] for x in prompts], axis=0)
+                 for k in prompts[0]}
+        before = weight_stream_bytes(params)
+        alloc = autotune_params(api, params, args.autotune_budget_bytes,
+                                batch=batch, timings=timings)
+        params = alloc.params
+        print(f"autotuned: {before} -> {alloc.total_bytes} B/step under a "
+              f"{alloc.budget_bytes} B budget "
+              f"({alloc.steps_taken}/{alloc.steps_available} plane "
+              f"increments kept); gate {alloc.gate}")
 
     eng = ServeEngine(api, params, kv_quant_bits=args.kv_bits,
                       backend=args.backend, attn_backend=args.attn_backend,
@@ -225,7 +291,8 @@ def main(argv: Optional[List[str]] = None, params: Any = None,
                       prefix_cache=args.prefix_cache,
                       speculate_planes=args.speculate_planes,
                       draft_gamma=args.draft_gamma, device=args.device)
-    prompts = _prompts(cfg, args)
+    served = dict(deployed=deployed, stats=stats, allocation=alloc,
+                  autotune_timings=timings)
 
     if args.requests:
         prios = _ints(args.priority) or [0]
@@ -256,7 +323,7 @@ def main(argv: Optional[List[str]] = None, params: Any = None,
                     json.dump(stats, f, indent=2)
         if args.speculate_planes:
             print(f"speculative: {sched.spec_stats}")
-        return dict(engine=eng, scheduler=sched, requests=reqs,
+        return dict(served, engine=eng, scheduler=sched, requests=reqs,
                     results=results)
 
     batch = {k: np.concatenate([x[k] for x in prompts], axis=0)
@@ -269,7 +336,7 @@ def main(argv: Optional[List[str]] = None, params: Any = None,
                        temperature=args.temperature, top_k=args.top_k)
     for i, row in enumerate(out.tolist()):
         print(f"[{i}] {row}")
-    return dict(engine=eng, tokens=out)
+    return dict(served, engine=eng, tokens=out)
 
 
 if __name__ == "__main__":

@@ -15,11 +15,17 @@ depth to N layers; 0 keeps the config's).  ``--no-tiny`` keeps the
 registered config's weight-block geometry (phi3: 8x128), where the
 reference replaces it with the default 9x8; the tiny config takes the
 reference's 9x8.  A model the port trains thus deploys at the geometry
-its serve launcher serves.  Not ported yet: ``--ckpt-dir`` (checkpoints)
-and ``--mesh`` (distribution).  The MoE architectures are refused
+its serve launcher serves.  ``--ckpt-dir D`` saves a checkpoint every
+``max(steps // 4, 1)`` steps into D (the reference's format, read by
+``python -m repro_torch.launch.serve --ckpt D``) and resumes from the
+latest one there, the data pipeline starting at the resumed step.  Not
+ported yet: ``--mesh`` (distribution).  The MoE architectures are refused
 (``NotImplementedError``): their training is not ported.
 
-``main(argv)`` returns the :class:`~repro_torch.train.Trainer` it ran.
+``main(argv)`` returns the :class:`~repro_torch.train.Trainer` it ran;
+``make_trainer(args)`` builds the launcher's trainer without running it
+(what ``repro_torch.train.loop.run_with_restarts`` rebuilds after a
+crash).
 """
 from __future__ import annotations
 
@@ -43,6 +49,7 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--quant-mode", default="fake",
                     choices=["none", "bitplane", "fake"])
     ap.add_argument("--act-bits", type=int, default=8)
+    ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--requant-every", type=int, default=50)
     ap.add_argument("--delta-alpha", type=float, default=1e-3)
     ap.add_argument("--device", default="cuda",
@@ -67,26 +74,37 @@ def config(args):
         cfg.quant, mode=args.quant_mode, n_bits=8, act_bits=args.act_bits))
 
 
-def main(argv: Optional[List[str]] = None):
-    from ..data import make_lm_pipeline
+def make_trainer(args):
+    """The launcher's trainer over a fresh seed-0 init (not yet restored
+    from ``--ckpt-dir``)."""
     from ..models.api import build
     from ..models.transformer import check_trainable
     from ..optim import adamw, cosine_schedule
     from ..train import Trainer, TrainerConfig
-    args = build_parser().parse_args(argv)
     cfg = config(args)
     check_trainable(cfg)
     api = build(cfg)
     params = api.init(seed=0, device=args.device)
-    trainer = Trainer(
+    return Trainer(
         api.loss, adamw(weight_decay=0.0), cosine_schedule(2e-3, args.steps),
         params,
         TrainerConfig(total_steps=args.steps,
+                      ckpt_every=max(args.steps // 4, 1)
+                      if args.ckpt_dir else 0,
+                      ckpt_dir=args.ckpt_dir,
                       log_every=max(args.steps // 10, 1),
                       requant_interval=args.requant_every,
                       alpha_round_steps=args.requant_every,
                       delta_alpha=args.delta_alpha))
-    data = make_lm_pipeline(cfg, args.seq, args.batch)
+
+
+def main(argv: Optional[List[str]] = None):
+    from ..data import make_lm_pipeline
+    args = build_parser().parse_args(argv)
+    trainer = make_trainer(args)
+    resumed = trainer.try_restore()
+    data = make_lm_pipeline(config(args), args.seq, args.batch,
+                            start_step=resumed)
     trainer.run(data, steps=args.steps)
     for h in trainer.history:
         print(f"step {h['step']:6d} ce={h['ce']:.4f} "

@@ -1,6 +1,7 @@
 """Model API over the decoder-only LM (dense and MoE families) and the
 encoder-decoder family (port of those parts of ``repro.models.api``):
-init, the training loss (dense family only), prefill, decode, and
+init and the abstract template of a checkpoint restore, the training
+loss (dense family only), prefill, decode, and
 per-slot insertion into a live decode state.  The MoE family differs
 only in its forward; an encoder-decoder state also holds the encoder
 output, one ``(S_enc, d_model)`` row a slot (``enc_out``), written by a
@@ -84,6 +85,18 @@ class ModelAPI:
         :func:`repro_torch.bridge.params_from_numpy`."""
         dev = resolve_device(device)
         gen = torch.Generator(device=dev).manual_seed(seed)
+        if self.cfg.is_encdec:
+            return encdec.init_encdec(self.cfg, gen, dev)
+        return transformer.init_lm(self.cfg, gen, dev)
+
+    def abstract_params(self) -> Any:
+        """The param tree's template (the reference's ``jax.eval_shape``
+        of ``init``): every tensor on the ``meta`` device, so nothing is
+        allocated, with the static fields (shapes, blocking specs, bit
+        counts) a checkpoint does not store.  The draw comes from a CPU
+        generator (a ``meta`` generator does not exist)."""
+        gen = torch.Generator().manual_seed(0)
+        dev = torch.device("meta")
         if self.cfg.is_encdec:
             return encdec.init_encdec(self.cfg, gen, dev)
         return transformer.init_lm(self.cfg, gen, dev)

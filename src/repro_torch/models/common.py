@@ -22,6 +22,7 @@ execution backend, passed explicitly per call:
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Any, Optional
 
 import torch
@@ -40,8 +41,8 @@ from ..serve.deploy import (BitplaneServingWeight, ServingWeight,
 MATMUL_BACKENDS = ("dense", "kernel", "bitplane", "ref")
 
 __all__ = ["QuantConfig", "MATMUL_BACKENDS", "make_weight", "qdense",
-           "qmatmul", "prepare_params", "act_quant", "make_beta",
-           "rms_norm", "embed_init", "softcap"]
+           "qmatmul", "record_qmatmul_inputs", "prepare_params",
+           "act_quant", "make_beta", "rms_norm", "embed_init", "softcap"]
 
 
 def make_weight(shape, qc: QuantConfig, *, generator: torch.Generator,
@@ -115,7 +116,17 @@ def qmatmul(x: torch.Tensor, w: Any, backend: str = "dense") -> torch.Tensor:
     a packed leaf runs ``packed_matmul`` under ``kernel`` and its plain
     version under ``ref``.  Every other combination (a packed leaf under
     ``bitplane`` included) dequantizes the single leaf and runs a plain
-    matmul."""
+    matmul.
+
+    Inside :func:`record_qmatmul_inputs`, a call on a tagged bit-plane
+    leaf first records the mean square of its input rows (the autotune
+    calibration)."""
+    if _ACT_RECORDERS and isinstance(w, BitplaneServingWeight) and w.tag:
+        # (K,) per-input-feature second moment, kept on the device; the
+        # layer loop runs the layers in order, so the appends restack
+        x2 = torch.mean(torch.square(
+            x.reshape(-1, x.shape[-1]).to(torch.float32)), dim=0)
+        _ACT_RECORDERS[-1].setdefault(w.tag, []).append(x2)
     if isinstance(w, BitplaneServingWeight) and backend != "dense" \
             and w.sign.ndim == 2:
         return _qmatmul_bitplane(x, w, backend)
@@ -123,6 +134,26 @@ def qmatmul(x: torch.Tensor, w: Any, backend: str = "dense") -> torch.Tensor:
             and w.w_int.ndim == 2:
         return _qmatmul_packed(x, w, backend)
     return x @ qdense(w, x.dtype)
+
+
+# Stack of active calibration stores (dicts tag -> [x2 per consuming
+# call, in call order]); empty in normal serving, so the hot path pays
+# one falsy check a qmatmul.
+_ACT_RECORDERS: list = []
+
+
+@contextlib.contextmanager
+def record_qmatmul_inputs(store: Optional[dict] = None):
+    """Capture activation second moments for tagged bit-plane leaves:
+    inside the context every :func:`qmatmul` against a ``tag``-labelled
+    BitplaneServingWeight appends the (K,) mean square of its input
+    activations to ``store[tag]``.  Yields the store."""
+    store = {} if store is None else store
+    _ACT_RECORDERS.append(store)
+    try:
+        yield store
+    finally:
+        _ACT_RECORDERS.pop()
 
 
 def prepare_params(params: Any, dtype=None) -> Any:

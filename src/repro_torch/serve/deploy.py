@@ -19,7 +19,15 @@ one expert at a time by the capacity dispatch).  A stacked quantized leaf
 is converted one layer at a time and the results stacked: the conversion
 is elementwise, so the payload is the same bit for bit, and the f32
 temporaries shrink to one layer's size.
-Checkpoint cold-start is not ported yet.
+
+``to_serving_params`` also cold-starts from a **checkpoint directory**
+(a training save, ``repro_torch.ckpt``): each quantized leaf is read on
+the host, moved to the device, converted there and its host arrays
+dropped, so neither the host nor the device ever holds the dense tree
+(``stats`` reports the host's peak against the dense tree's bytes).  By
+default the result is contract-checked (``analysis.contracts``).
+:func:`repack_bitplane_leaf` re-packs a bit-plane leaf to lower per-block
+occupancies (the autotuner's output).
 """
 from __future__ import annotations
 
@@ -34,8 +42,10 @@ from ..core.blocking import BlockingSpec, expand_block_map, pad_to_blocks
 from ..core.device import resolve_device
 from ..core.fakequant import FakeQuantTensor
 from ..core.quantize import pack_int4, unpack_int4
-from ..core.state import tree_leaves, tree_map
+from ..core.state import quant_nodes, replace_nodes, tree_leaves, tree_map
 from ..kernels.ref import pack_bits, unpack_bits, unpack_bits_u8
+
+_QUANT = (QuantizedTensor, FakeQuantTensor)
 
 SERVING_LAYOUTS = ("packed", "bitplane")
 
@@ -77,6 +87,11 @@ class BitplaneServingWeight:
     shape: Tuple[int, ...]   # true (unpadded) shape, stack dims included
     spec: BlockingSpec
     bits: int = 8
+    # the leaf's tree path, set by the autotune calibration
+    # (``tag_bitplane_leaves``): carried by ``layer()`` and ``to()``, it
+    # lets ``qmatmul``'s recorder key activation moments back to the
+    # stacked leaf.  Empty outside calibration.
+    tag: str = ""
 
     def layer(self, i: int) -> "BitplaneServingWeight":
         """Layer ``i`` of a stacked (L, ...) leaf: contiguous views, no
@@ -205,18 +220,99 @@ def tree_to(tree, device):
     return tree_map(lambda x: x.to(device) if hasattr(x, "to") else x, tree)
 
 
+def _serving_params_from_ckpt(path: str, bits: int, layout: str,
+                              template: Any, stats: Any, dev) -> Any:
+    """Stream a checkpoint into serving form, one leaf at a time.
+
+    A leaf's arrays are read on the host, moved to ``dev`` and converted
+    there (``_convert_leaf``, a stacked leaf a layer at a time); the host
+    arrays are dropped before the next leaf is read.  ``template`` (the
+    abstract tree of ``ModelAPI.abstract_params``) carries the static
+    structure the checkpoint does not store.  A ``TrainState``
+    checkpoint is recognized by its ``.params`` key prefix, and its
+    optimizer state is never read."""
+    from ..ckpt.checkpoint import CheckpointReader, to_tensor
+    reader = CheckpointReader(path)
+    try:
+        keys = set(reader.keys())
+        nodes = list(quant_nodes(template, _QUANT + (torch.Tensor,))
+                     .items())
+        prefix = ""
+        probe = nodes[0][0] if nodes else ""
+        if not any(k.startswith(probe) for k in keys) \
+                and any(k.startswith(".params") for k in keys):
+            prefix = ".params"
+        peak = in_flight = dense = 0
+        out = {}
+        for p, node in nodes:
+            base = prefix + p
+            if isinstance(node, _QUANT):
+                names = [f.name for f in dataclasses.fields(node)
+                         if isinstance(getattr(node, f.name), torch.Tensor)]
+                keyed = [(n, f"{base}.{n}") for n in names]
+            else:
+                keyed = [(None, base)]
+            arrays = [reader.read(k) for _, k in keyed]
+            in_flight += sum(a.nbytes for a in arrays)
+            peak = max(peak, in_flight)
+            tensors = [to_tensor(a, reader.manifest[k].get("dtype"), dev)
+                       for a, (_, k) in zip(arrays, keyed)]
+            for a in arrays:
+                in_flight -= a.nbytes
+                dense += a.nbytes
+            del arrays
+            if isinstance(node, _QUANT):
+                rebuilt = dataclasses.replace(node, **{
+                    n: t for (n, _), t in zip(keyed, tensors)})
+                out[p] = _convert_leaf(rebuilt, bits, layout)
+            else:
+                out[p] = tensors[0]
+            del tensors
+        if isinstance(stats, dict):
+            stats.update(peak_host_bytes=peak, dense_tree_bytes=dense,
+                         leaves=len(nodes), source=path)
+        return replace_nodes(template, out)
+    finally:
+        reader.close()
+
+
 def to_serving_params(params: Any, bits: int = 8, layout: str = "packed",
-                      device=None) -> Any:
-    """Convert every quantized leaf of a live QAT tree to the chosen wire
-    format (``layout`` "packed" or "bitplane").  The tree is moved to
-    ``device`` (the CUDA card unless the caller names another) and
-    converted there, one leaf at a time."""
+                      device=None, validate: bool = True,
+                      template: Any = None, stats: Any = None) -> Any:
+    """Convert every quantized leaf to the chosen wire format (``layout``
+    "packed" or "bitplane") on ``device`` (the CUDA card unless the caller
+    names another), one leaf at a time.
+
+    ``params`` is a live QAT tree (moved to the device and converted
+    there) or a **checkpoint directory path**, streamed by
+    :func:`_serving_params_from_ckpt`; that needs ``template`` (the
+    abstract QAT tree, ``api.abstract_params()``), and ``stats`` (a dict,
+    updated in place) then reports ``peak_host_bytes`` against
+    ``dense_tree_bytes``.  ``validate`` contract-checks the result (SW/BP
+    rules) and raises on an error finding."""
     if layout not in SERVING_LAYOUTS:
         raise ValueError(f"unknown serving layout {layout!r}; choose from "
                          f"{SERVING_LAYOUTS}")
     dev = resolve_device(device)
-    return tree_map(lambda x: _convert_leaf(
-        x.to(dev) if hasattr(x, "to") else x, bits, layout), params)
+    if isinstance(params, str):
+        if template is None:
+            raise ValueError(
+                "to_serving_params(checkpoint_path, ...) needs template= "
+                "(the abstract QAT tree from api.abstract_params())")
+        out = _serving_params_from_ckpt(params, bits, layout, template,
+                                        stats, dev)
+    else:
+        out = tree_map(lambda x: _convert_leaf(
+            x.to(dev) if hasattr(x, "to") else x, bits, layout), params)
+    if validate:
+        from ..analysis.contracts import validate_serving_tree
+        bad = [f for f in validate_serving_tree(out)
+               if f.severity == "error"]
+        if bad:
+            raise ValueError(
+                "deployment produced a contract-violating tree:\n"
+                + "\n".join(f.format() for f in bad[:8]))
+    return out
 
 
 def default_deploy_bits(backend: str, deploy_bits: int) -> int:
@@ -303,3 +399,67 @@ def bitplane_serving_compose(sw: BitplaneServingWeight,
                              * expand_block_map(sw.scale, sw.spec))
     k, n = sw.shape[-2], sw.shape[-1]
     return w[..., :k, :n].to(dtype)
+
+
+def _repack_layer(planes, mask, scale, occ, new_occ, spec, bits):
+    """One layer's (bits, Kp8//8, Np) planes re-packed to ``new_occ``."""
+    wbr, wbc = spec.wb_rows, spec.wb_cols
+    gr, gc = mask.shape[-2], mask.shape[-1]
+    kp = gr * wbr
+    pl = unpack_bits_u8(planes)                    # (bits, Kp8, Np)
+    kp8 = pl.shape[-2]
+    live = expand_block_map(mask.to(torch.uint8), spec)   # (bits, Kp, Np)
+    shifts = torch.arange(bits, device=pl.device,
+                          dtype=torch.int32).reshape(bits, 1, 1)
+    mag = torch.sum((pl[:, :kp, :] & live).to(torch.int32) << shifts,
+                    dim=0)
+    del pl, live
+    drop = occ - new_occ                           # (GR, GC) float64
+    q = torch.round(mag.to(torch.float64)
+                    / expand_block_map(2.0 ** drop, spec))
+    # round() can carry into plane new_occ (q near the old ceiling); clip
+    # back onto the coarser grid so the prefix mask stays exact
+    q = torch.minimum(q, expand_block_map(2.0 ** new_occ - 1.0, spec))
+    q = q.to(torch.int32)
+    if kp8 != kp:                                  # restore byte-pad rows
+        q = F.pad(q, (0, 0, 0, kp8 - kp))
+    new_planes = pack_bits(torch.stack([(q >> b) & 1 for b in range(bits)]))
+    plane_idx = torch.arange(bits, dtype=torch.float64,
+                             device=mask.device).reshape(bits, 1, 1)
+    new_mask = (plane_idx < new_occ[None]).to(torch.float32)
+    new_scale = (scale.to(torch.float64) * 2.0 ** drop).to(torch.float32)
+    return new_planes, new_mask, new_scale
+
+
+def repack_bitplane_leaf(sw: BitplaneServingWeight,
+                         new_occ) -> BitplaneServingWeight:
+    """Re-pack a bit-plane leaf to reduced per-block plane occupancies.
+
+    ``new_occ`` is an (..., GR, GC) integer-valued array or tensor with
+    ``0 <= new_occ <= current occupancy``.  A block dropping ``d`` planes
+    re-rounds its magnitudes onto the coarser grid, ``q' = clip(round(q /
+    2^d), 0, 2^new_occ - 1)`` (round half to even, as the reference's
+    ``np.round``), and folds ``2^d`` into its effective scale entry: the
+    mask stays prefix-monotone (BP2) and byte-pad rows zero (BP1).  A
+    block with ``d == 0`` is reproduced bit for bit, so a full-budget
+    allocation round-trips the deployed tree exactly.  Runs on the leaf's
+    device, one layer of a stacked leaf at a time."""
+    mask = sw.mask
+    occ = mask.to(torch.float64).sum(dim=-3)       # (..., GR, GC)
+    new_occ = torch.as_tensor(new_occ).to(device=mask.device,
+                                          dtype=torch.float64)
+    if tuple(new_occ.shape) != tuple(occ.shape):
+        raise ValueError(f"new_occ shape {tuple(new_occ.shape)} != grid "
+                         f"{tuple(occ.shape)}")
+    if bool((new_occ < 0).any()) or bool((new_occ > occ).any()):
+        raise ValueError("new occupancy must lie in [0, deployed occupancy]")
+    lead = tuple(mask.shape[:-3])
+    flat = [t.reshape((-1,) + tuple(t.shape[len(lead):]))
+            for t in (sw.planes, mask, sw.scale, occ, new_occ)]
+    parts = [_repack_layer(*(t[i] for t in flat), sw.spec, sw.bits)
+             for i in range(flat[0].shape[0])]
+    planes, new_mask, scale = (torch.stack(list(x)).reshape(
+        lead + tuple(x[0].shape)) for x in zip(*parts))
+    return dataclasses.replace(sw, planes=planes.contiguous(),
+                               mask=new_mask.contiguous(),
+                               scale=scale.contiguous())

@@ -19,8 +19,11 @@ non-speculative greedy decoding.
 
 The engine runs on ``device``: the CUDA card unless the caller names
 another; it raises when no card is present and the caller did not ask for
-the CPU.  At construction it moves the params there and casts plain float
-leaves to the compute dtype once, so no step repeats that cast.
+the CPU.  At construction it contract-checks the deployed leaves
+(``validate``, on by default: a tree with an SW/BP error finding is
+refused), warns when a non-dense backend gets no leaf it can accelerate,
+moves the params to the device and casts plain float leaves to the
+compute dtype once, so no step repeats that cast.
 
 Two call surfaces, as in the reference:
 
@@ -32,8 +35,7 @@ Two call surfaces, as in the reference:
   the paged block-table cache, chunked prompt insertion, reservation
   overcommit with park/restore preemption, and prompt-page sharing.
 
-Not ported yet: mesh placement and construction-time contract validation
-of the deployed tree (the decode-state and scheduler contracts are in
+Not ported yet: mesh placement (the contracts are in
 ``analysis/contracts.py``).
 """
 from __future__ import annotations
@@ -51,7 +53,8 @@ from ..models.common import MATMUL_BACKENDS, prepare_params
 from ..models.transformer import _cdtype
 from ..core.device import resolve_device
 from .autotune.speculative import greedy_verify, make_draft_params
-from .deploy import ServingWeight, tree_leaves, tree_to
+from .deploy import (BitplaneServingWeight, ServingWeight, tree_leaves,
+                     tree_to)
 from .sampling import SamplingParams, sample_token
 
 
@@ -73,6 +76,7 @@ class ServeEngine:
     overcommit: float = 1.0       # >1: admit past capacity, park victims
     prefix_cache: bool = False    # share full prompt pages by content hash
     device: Any = None            # None = the CUDA card
+    validate: bool = True         # contract-check deployed leaves on build
     speculate_planes: int = 0     # >0: self-speculative decode, top-k draft
     draft_gamma: int = 4          # draft tokens proposed per round
 
@@ -86,6 +90,17 @@ class ServeEngine:
                 f"got {self.attn_backend!r}")
         self.device = resolve_device(self.device)
         cfg = self.api.cfg
+        leaves = tree_leaves(self.params)
+        want = (BitplaneServingWeight,) if self.backend == "bitplane" \
+            else (ServingWeight, BitplaneServingWeight)
+        if self.backend != "dense" and not any(isinstance(x, want)
+                                               for x in leaves):
+            hint = ", layout='bitplane'" if self.backend == "bitplane" else ""
+            warnings.warn(
+                f"backend={self.backend!r} only accelerates deployed packed "
+                f"weights (serve.deploy.to_serving_params(...{hint})); this "
+                f"param tree has none, so execution is identical to 'dense'",
+                stacklevel=2)
         if self.kv_quant_bits < 32:
             if self.kv_quant_bits not in (4, 8):
                 raise ValueError(f"kv_quant_bits must be 4, 8 or >=32, "
@@ -94,13 +109,21 @@ class ServeEngine:
             self.api = ModelAPI(cfg)
         if self.backend == "bitplane":
             n_packed = sum(isinstance(leaf, ServingWeight)
-                           for leaf in tree_leaves(self.params))
+                           for leaf in leaves)
             if n_packed:
                 warnings.warn(
                     f"backend='bitplane' executes only the plane-sliced "
                     f"layout; {n_packed} packed ServingWeight leaves fall "
                     f"back to the dense dequant matmul (deploy with "
                     f"layout='bitplane')", stacklevel=2)
+        if self.validate:
+            from ..analysis.contracts import validate_serving_tree
+            bad = [f for f in validate_serving_tree(self.params)
+                   if f.severity == "error"]
+            if bad:
+                raise ValueError(
+                    "deployed param tree violates the serving contract:\n"
+                    + "\n".join(f.format() for f in bad[:8]))
         self.params = prepare_params(tree_to(self.params, self.device),
                                      _cdtype(cfg))
         self.draft_params = None

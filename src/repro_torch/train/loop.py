@@ -5,11 +5,13 @@
 * re-quantize and adjust precision every ``requant_interval`` steps;
 * grow the regularization strength alpha by ``delta_alpha`` each round
   while quality stays inside the budget (the Alg. 1 outer loop, step
-  based).
+  based);
+* checkpoint every ``ckpt_every`` steps (atomic, async) and restore on
+  start: the data pipeline is index-addressable, so a crash resumes
+  exactly (``run_with_restarts``; ``run``'s ``fault_at`` injects one).
 
-Checkpointing (``ckpt_dir``, ``try_restore``, ``run_with_restarts``) is not
-ported yet: a ``ckpt_dir`` raises rather than training without the saves
-it asks for.
+Checkpoints are single-shard (``repro_torch.ckpt``); the reference's save
+and restore under a live mesh belong to the distribution work.
 """
 from __future__ import annotations
 
@@ -19,6 +21,7 @@ from typing import Any, Callable, Dict, Iterator, Optional
 
 import torch
 
+from ..ckpt.checkpoint import CheckpointManager
 from ..core.state import tensor_leaves
 from ..optim.optimizers import Optimizer
 from .state import TrainState
@@ -27,15 +30,15 @@ from .step import build_maintenance_step, build_train_step
 
 @dataclasses.dataclass
 class TrainerConfig:
-    """The reference's fields less ``ckpt_every`` and ``keep_ckpts`` (no
-    checkpoints yet); a ``ckpt_dir`` is refused."""
     total_steps: int = 1000
+    ckpt_every: int = 200
     ckpt_dir: Optional[str] = None
     log_every: int = 50
     requant_interval: int = 200
     alpha_round_steps: int = 0      # bump alpha every N steps (0 = fixed)
     delta_alpha: float = 0.0
     quality_budget: float = 0.01    # allowed degradation vs the baseline
+    keep_ckpts: int = 3
 
 
 class Trainer:
@@ -44,10 +47,6 @@ class Trainer:
                  tcfg: TrainerConfig,
                  eval_fn: Optional[Callable[[Any], float]] = None,
                  alpha: float = 0.0):
-        if tcfg.ckpt_dir:
-            raise NotImplementedError(
-                "checkpointing is not ported yet (repro.ckpt, "
-                "Trainer.try_restore/_save); run without ckpt_dir")
         self.tcfg = tcfg
         self.train_step = build_train_step(loss_fn, optimizer, lr_schedule)
         self.maintenance = build_maintenance_step()
@@ -55,21 +54,44 @@ class Trainer:
         self.device = next(t for _, t in tensor_leaves(params)).device
         self.eval_fn = eval_fn
         self.baseline_quality: Optional[float] = None
+        self.ckpt = CheckpointManager(tcfg.ckpt_dir, keep=tcfg.keep_ckpts) \
+            if tcfg.ckpt_dir else None
         self.history: list = []
 
-    def run(self, data: Iterator, steps: Optional[int] = None
-            ) -> Dict[str, Any]:
+    # -- fault tolerance -------------------------------------------------
+    def try_restore(self, template_state: Optional[TrainState] = None) -> int:
+        """Resume from the latest checkpoint; each leaf lands on its
+        template leaf's device.  Returns the restored step (0 if none)."""
+        if self.ckpt is None:
+            return 0
+        meta, restored = self.ckpt.restore_latest(template_state
+                                                  or self.state)
+        if restored is None:
+            return 0
+        self.state = restored
+        return int(meta[0])
+
+    def _save(self, step: int):
+        if self.ckpt is not None:
+            self.ckpt.save(step, self.state, dict(step=step))
+
+    # -- main loop ---------------------------------------------------------
+    def run(self, data: Iterator, steps: Optional[int] = None,
+            fault_at: Optional[int] = None) -> Dict[str, Any]:
         """Train from the state's step to ``steps`` (default
         ``total_steps``), taking (step, batch) pairs from ``data``; batches
-        move to the params' device.  Returns the last logged metrics.
-        (The reference's ``fault_at`` hook serves ``run_with_restarts``,
-        which is not ported.)"""
+        move to the params' device.  ``fault_at`` raises before the batch
+        of that data step (the restart tests' injected crash).  Saves every
+        ``ckpt_every`` steps and at the end.  Returns the last logged
+        metrics."""
         tcfg = self.tcfg
         steps = steps or tcfg.total_steps
         t0 = time.time()
         last_metrics: Dict[str, Any] = {}
         for _ in range(self.state.step, steps):
-            _, batch = next(data)
+            step_idx, batch = next(data)
+            if fault_at is not None and step_idx == fault_at:
+                raise RuntimeError(f"injected fault at step {step_idx}")
             batch = {k: torch.as_tensor(v).to(self.device)
                      for k, v in batch.items()}
             self.state, metrics = self.train_step(self.state, batch)
@@ -85,6 +107,11 @@ class Trainer:
                 m["wall_s"] = time.time() - t0
                 self.history.append(m)
                 last_metrics = m
+            if tcfg.ckpt_every and step % tcfg.ckpt_every == 0:
+                self._save(step)
+        self._save(self.state.step)
+        if self.ckpt:
+            self.ckpt.wait()
         return last_metrics
 
     def _alpha_round(self):
@@ -96,3 +123,24 @@ class Trainer:
             if q < self.baseline_quality - self.tcfg.quality_budget:
                 return
         self.state.alpha = self.state.alpha + self.tcfg.delta_alpha
+
+
+def run_with_restarts(make_trainer: Callable[[], Trainer],
+                      make_data: Callable[[int], Iterator],
+                      total_steps: int, fault_at: Optional[int] = None,
+                      max_restarts: int = 3) -> Trainer:
+    """Crash-resilient driver: rebuild the trainer, restore, resume on
+    failure (``fault_at`` crashes the first attempt only)."""
+    attempts = 0
+    while True:
+        trainer = make_trainer()
+        resumed = trainer.try_restore()
+        data = make_data(resumed)
+        try:
+            trainer.run(data, steps=total_steps,
+                        fault_at=fault_at if attempts == 0 else None)
+            return trainer
+        except RuntimeError:
+            attempts += 1
+            if attempts > max_restarts:
+                raise

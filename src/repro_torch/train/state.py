@@ -9,10 +9,12 @@ import torch
 
 @dataclasses.dataclass
 class TrainState:
-    step: int                  # steps taken
-    params: Any
-    opt_state: Any
-    alpha: torch.Tensor        # () float32 BWQ regularization strength
+    # steps taken; a checkpoint stores it as the reference's 0-d int32
+    # ``.step`` leaf
+    step: int = dataclasses.field(metadata={"ckpt": "int32"})
+    params: Any = None
+    opt_state: Any = None
+    alpha: torch.Tensor = None  # () float32 BWQ regularization strength
 
     @classmethod
     def create(cls, params, optimizer, alpha: float = 0.0) -> "TrainState":

@@ -310,11 +310,24 @@ def test_trainer_matches_reference(fx, mode):
         jt.history[-1]["avg_bitwidth"], rel=1e-6)
 
 
-def test_trainer_refuses_checkpoints(fx):
+def test_trainer_refuses_checkpoints(fx, tmp_path):
+    """The trainer saves and restores checkpoints now; it refuses one that
+    does not match its state (another model's, here with no
+    quantization), naming the missing and extra leaves."""
+    from repro_torch.ckpt import CheckpointMismatchError
     _, tapi, jp = fx("fake", 32)
-    with pytest.raises(NotImplementedError, match="checkpoint"):
-        Trainer(tapi.loss, t_adamw(), t_cos(1e-3, 2), _bridged(jp),
-                TrainerConfig(ckpt_dir="/nonexistent"))
+    d = str(tmp_path)
+    other = TREG[ARCH].tiny(dtype="float32").with_quant(TQ(mode="none"))
+    stranger = Trainer(tapi.loss, t_adamw(), t_cos(1e-3, 2),
+                       tbuild(other).init(seed=0, device="cpu"),
+                       TrainerConfig(ckpt_dir=d))
+    stranger._save(1)
+    stranger.ckpt.wait()
+    tr = Trainer(tapi.loss, t_adamw(), t_cos(1e-3, 2), _bridged(jp),
+                 TrainerConfig(ckpt_dir=d))
+    with pytest.raises(CheckpointMismatchError, match="missing") as ei:
+        tr.try_restore()
+    assert ".params['layers']['attn']['wq'].bitwidth" in ei.value.missing
 
 
 def test_synthetic_lm_pipeline():

@@ -67,8 +67,9 @@ def test_launcher_bitplane_mode_and_depth():
 def test_launcher_geometry_and_flags():
     """Tiny takes 9x8 blocks, ``--no-tiny`` the registered 8x128 (the
     reference launcher's full width takes 9x8: a recorded divergence);
-    ``--quant-mode none`` turns quantization off; the reference's
-    ``--ckpt-dir`` and ``--mesh`` are not ported and are refused."""
+    ``--quant-mode none`` turns quantization off; ``--ckpt-dir`` is taken
+    (tests/test_torch_ckpt.py drives it) and the reference's ``--mesh``
+    is not ported and is refused."""
     parse = tl.build_parser().parse_args
     tiny = tl.config(parse(["--arch", ARCH]))
     full = tl.config(parse(["--arch", ARCH, "--no-tiny", "--act-bits",
@@ -84,9 +85,10 @@ def test_launcher_geometry_and_flags():
     assert not tl.config(parse(["--arch", ARCH, "--quant-mode",
                                 "none"])).quant.enabled
     assert tl.config(parse(["--arch", ARCH, "--layers", "1"])).n_layers == 1
-    for flag in (["--ckpt-dir", "/tmp/x"], ["--mesh", "single"]):
-        with pytest.raises(SystemExit):
-            parse(["--arch", ARCH] + flag)
+    assert parse(["--arch", ARCH, "--ckpt-dir", "run"]).ckpt_dir == "run"
+    assert parse(["--arch", ARCH]).ckpt_dir is None
+    with pytest.raises(SystemExit):
+        parse(["--arch", ARCH, "--mesh", "single"])
 
 
 def _drifted_qat():

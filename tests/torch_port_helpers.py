@@ -41,7 +41,7 @@ def tree_to_numpy(tree):
                 "sign": np.asarray(tree.sign), "mask": np.asarray(tree.mask),
                 "scale": np.asarray(tree.scale), "shape": tuple(tree.shape),
                 "wb_rows": tree.spec.wb_rows, "wb_cols": tree.spec.wb_cols,
-                "bits": tree.bits}
+                "bits": tree.bits, "tag": tree.tag}
     if isinstance(tree, dict):
         return {k: tree_to_numpy(v) for k, v in tree.items()}
     return np.asarray(tree)

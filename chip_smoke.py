@@ -15,17 +15,21 @@ It builds the four CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
    identity view and in a shuffled 16-token pool with trash-page tails,
    for int8, int4, bf16 and f32 pools; kv_len 1 and on split boundaries;
    windows that empty the leading splits; G=4 with softcap; G=12, two
-   query-head groups, with softcap; the MoE heads and the enc-dec
-   decoder's 16 KV heads at d_head 64),
+   query-head groups, with softcap; the MoE heads, the enc-dec
+   decoder's 16 KV heads at d_head 64, qwen2-vl's 2 KV heads at G=6
+   and zamba2's 32 at d_head 64),
    ``bitplane_matmul`` (mixed, fully masked and truncated draft masks, both
    scale modes, 9x8 blocks with byte-pad rows, ragged N) and ``pact_quant``.
    The two matmuls run every edge case in both of their regimes (byte
    streaming at M <= ``kernels.tiling.STREAM_MAX_M``, tensor-core tiles
    above), the phi3 shapes at the switch point, one past it, the verify M
    and the scheduler's M (decode, chunk, narrowest prompt; the
-   speculative drive's draft, verify and prompt M); two launches on the
-   same inputs must agree bit for bit (the matmuls, and
-   ``paged_attention`` at kv_len 144 and 4096);
+   speculative drive's draft, verify and prompt M), the served
+   families' new shapes (``FAMILY_SHAPES``: N = 64 and 256, K = 7168 and
+   8960) and whole-layer blocks taller than the x stage (``WB_TALL``,
+   wbr = 3072: the stream plan cuts a block); two launches on the same
+   inputs must agree bit for bit (the matmuls, and ``paged_attention``
+   at kv_len 144 and 4096);
 2. path phase — serves full-width ``phi3-mini-3.8b`` (all 32 layers,
    random weights from seed 0) in float32.
 
@@ -96,7 +100,7 @@ It builds the four CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
    tokens.
 
 5. MoE phase — with the phi3 trees freed, the MoE family at full width:
-   granite-moe-3b-a800m (its first 8 of 32 layers, ``MOE_DEPTH``, 40
+   granite-moe-3b-a800m (its first 4 of 32 layers, ``MOE_DEPTH``, 40
    experts top-8, random weights
    from seed 0, bf16) deployed packed int8 and int4 and as mixed-width bit
    planes (its composed weights equal the packed deploy's), served
@@ -105,7 +109,7 @@ It builds the four CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
    dispatch: quantizers off in f32 (tokens identical, logits within
    ``EXACT_TOL_REL``), 8-bit activations with int8 and int4 KV in bf16
    (``QUANT_TOL_REL``), and the bit-plane tree through ``bitplane_matmul``
-   (its legs, and the ``capacity`` ones below, on the first 8 layers).
+   (its legs, and the ``capacity`` ones below, on the first 4 layers).
    The router's top-k is a discrete choice: where the two runs' sums put
    a token across a near-tie they would route it to other experts, so
    each plain run takes its kernel run's routing (:class:`RouteTrace`),
@@ -123,7 +127,8 @@ It builds the four CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
    off and on.
 
 6. enc-dec phase — with the MoE trees freed, seamless-m4t-large-v2 at
-   full width and depth (24 encoder and 24 decoder layers, d_model 1024,
+   full width, cut to its first 6 encoder and 6 decoder layers
+   (``ENCDEC_DEPTH``; 24 + 24 registered; d_model 1024,
    vocab 256206, random weights from seed 0), deployed packed int8 and
    int4 and as mixed-width bit planes, each prompt 128 tokens over 256
    frames (0.1 x normal), one-shot B=4, 32 new, through the kernels
@@ -142,7 +147,30 @@ It builds the four CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
    request (prefix cache warned off, parking), then quantizers off in
    f32 against one-shot reruns, every one identical.
 
-7. CNN phase — the paper's own pipeline through the CIFAR launcher's
+7. families phase — with the enc-dec trees freed, the last three model
+   families at full width and depth, one at a time: qwen2-vl-2b (28
+   layers, M-RoPE, 256 random vision embeds a prompt, 2 KV heads at G=6),
+   rwkv6-1.6b (24 layers, no KV cache) and zamba2-1.2b (38 Mamba-2 layers,
+   one shared attention + MLP block every 6), random weights from seed
+   0, deployed packed int8 and as mixed-width bit planes.  One-shot B=4 x
+   128 tokens, 32 new, through the kernels against the plain versions:
+   quantizers off in f32 (tokens identical, logits within
+   ``EXACT_TOL_REL``; also through a 16-token pool where the family has
+   KV), the registered bf16 config with int8 KV (8-bit PACT for
+   qwen2-vl; ``QUANT_TOL_REL[8]``) and one planted fault a family (every
+   layer's output projection read one WB row off) above that limit, the
+   bit-plane tree in f32 (8 new).  Every drive counted
+   (:func:`family_launches`), its first matmul at each shape and first
+   attention read held against the plain versions; one decode step
+   profiled (matmuls, attention, the scans and small ops, idle share).
+   The scheduler trace (12 requests, prompts 64-1024 tokens, some off
+   the scan chunks so the per-token scans run; qwen2-vl chunked at 256,
+   rwkv6 unpaged, zamba2 paged with overcommit 1.5, parking its
+   recurrent rows) through the launcher, then quantizers off in f32
+   against one-shot reruns.  ``packed_matmul`` is timed at the families'
+   new shapes, ``paged_attention`` at the two new heads.
+
+8. CNN phase — the paper's own pipeline through the CIFAR launcher's
    ``main`` (``python -m repro_torch.launch.cifar``), in process:
    ResNet-20 and VGG-16-BN at full width on 32x32x3 images, bit-plane
    mode at the paper's 9x8 blocks (and BSQ, one block a layer), trained
@@ -165,7 +193,7 @@ It builds the four CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
    BWQ-H simulator's speedup and energy against ISAAC (a ReRAM model's
    outputs, not measurements).
 
-8. train phase — with every serving tree freed, BWQ-A training through
+9. train phase — with every serving tree freed, BWQ-A training through
    the train launcher's ``main`` (``python -m repro_torch.launch.train``),
    in process: full-width phi3 (32 layers, bf16 compute, f32 master
    weights, 8x128 blocks, 8-bit PACT, remat) in fake mode, 8 steps of
@@ -183,7 +211,7 @@ It builds the four CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
    versions.  Step ms (median after the first), tokens/s, maintenance ms,
    deploy s, peak memory, bit-width and compression are reported.
 
-9. deploy phase — from a trainer's checkpoint to budget-autotuned
+10. deploy phase — from a trainer's checkpoint to budget-autotuned
    bit-plane serving, full-width phi3 cut to ``DEPLOY_LAYERS`` = 2 layers
    (a 2-layer TrainState is ~3.9 GB a save), under
    ``chiprun_out/deploy_ckpt`` (free space checked first, removed at the
@@ -211,7 +239,9 @@ It builds the four CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
 
 Output: a ``{"train": {...}}`` line with the train phase's figures and
 the card, a ``{"moe": {...}}`` line with the MoE phase's, an
-``{"encdec": {...}}`` line with the enc-dec phase's, a ``{"cnn": {...}}``
+``{"encdec": {...}}`` line with the enc-dec phase's, a
+``{"families": {...}}`` line with the families phase's, a
+``{"cnn": {...}}``
 line with the CNN phase's, a ``{"deploy": {...}}`` line with the deploy
 phase's, a
 ``{"kernels": [...]}`` JSON line, the card's name and power
@@ -221,6 +251,7 @@ does a machine without CUDA, or a directory without the repository.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -346,6 +377,13 @@ def packed_case(m, k, n, bits, wbr, wbc, k_x=None, x_dtype=None, seed=0):
 LAYER_SHAPES = ((3072, 3072, 4), (3072, 8192, 2), (8192, 3072, 1))
 PHI3_SHAPES = tuple((k, n) for k, n, _ in LAYER_SHAPES)
 D_MODEL = 3072
+# (K, N) the served families add: qwen2-vl's K/V projections (N = 256)
+# and MLP down (K = 8960), rwkv6's channel-mix out (K = 7168), zamba2's
+# B / C / dt projections (N = 64, half of one 128-column block)
+FAMILY_SHAPES = ((1536, 256), (8960, 1536), (7168, 2048), (2048, 64))
+# (M, K) at N = 3072 of whole-layer weight blocks (wbr = 3072) taller
+# than the stream regime's x stage: the plan cuts a block on unit rows
+WB_TALL = ((4, 3072), (8, 8192), (16, 3072))
 
 
 def kernel_phase():
@@ -376,6 +414,10 @@ def kernel_phase():
               for m in (5, SWITCH_M + 5) for dt in (f32, bf16)]
     cases += [(m, 72, 200, b, 8, 128, 70, f32) for b in (8, 4)
               for m in (3, 40)]
+    cases += [(m, k, n, bits, 8, 128, None, bf16) for bits in (8, 4)
+              for m in (B, B * P) for k, n in FAMILY_SHAPES]
+    cases += [(m, k, 3072, bits, 3072, 128, None, xdt) for bits in (8, 4)
+              for m, k in WB_TALL for xdt in (f32, bf16)]
     for m, k, n, bits, wbr, wbc, k_x, xdt in cases:
         x, w, s = packed_case(m, k, n, bits, wbr, wbc, k_x, xdt)
         got = packed_matmul(x, w, s, bits=bits, wbr=wbr, wbc=wbc)
@@ -403,6 +445,8 @@ T_LONG = 4224                   # a long context's cache width (page 128)
 MOE_HEADS = ((3, 64), (5, 128))
 # (KV heads, G, d_head) of seamless-m4t-large-v2's decoder self-attention
 ENCDEC_HEAD = (16, 1, 64)
+# (KV heads, G, d_head): qwen2-vl-2b's GQA, zamba2-1.2b's shared block
+FAMILY_HEADS = ((2, 6, 128), (32, 1, 64))
 
 
 def attention_pool(bits, kvh, t, page, *, g=1, paged=False, seed=1,
@@ -465,7 +509,10 @@ def attention_kernel_phase():
     G=3 at d_head 64, llama4-scout's G=5 at 128, 8 KV heads) for int8,
     int4 and f32 pools at the decode shape and at long context paged;
     the same for the enc-dec decoder's head (16 KV heads, G=1, d_head
-    64)."""
+    64); the served families' heads (qwen2-vl's 2 KV heads, G=6, d_head
+    128; zamba2's shared block, 32 KV heads, G=1, d_head 64) for int8,
+    int4 and f32 pools at the decode shape and at long context,
+    contiguous and paged."""
     import torch
     from repro_torch.kernels import paged_attention
     from repro_torch.kernels.ref import paged_attention_ref
@@ -566,6 +613,22 @@ def attention_kernel_phase():
         kv_len = lens(4096, 2000, 1057, T_LONG)
         case(f"KV={kvh} G={g} dh={dh} long paged", bits, q, pool,
              trash_tails(table, kv_len, PAGE), kv_len)
+    for kvh, g, dh in FAMILY_HEADS:
+        for bits in (8, 4, 32):
+            q, pool, ident = attention_pool(bits, kvh, t, page, g=g, dh=dh,
+                                            seed=70 + g + bits)
+            case(f"KV={kvh} G={g} dh={dh} decode", bits, q, pool, ident,
+                 lens(P + 1, P + 17, 1, t))
+            q, pool, ident = attention_pool(bits, kvh, T_LONG, long_page,
+                                            g=g, dh=dh, seed=71 + g + bits)
+            case(f"KV={kvh} G={g} dh={dh} long contiguous", bits, q, pool,
+                 ident, long_lens)
+            q, pool, table = attention_pool(bits, kvh, T_LONG, PAGE, g=g,
+                                            dh=dh, paged=True,
+                                            seed=72 + g + bits)
+            kv_len = lens(4096, 2000, 1057, T_LONG)
+            case(f"KV={kvh} G={g} dh={dh} long paged", bits, q, pool,
+                 trash_tails(table, kv_len, PAGE), kv_len)
     return out
 
 
@@ -642,6 +705,11 @@ def bitplane_kernel_phase():
     # each edge case also at an M of the other regime
     cases += edge + [(B * 5 if m <= SWITCH_M else B, *rest)
                      for m, *rest in edge]
+    # the families' new shapes; whole-layer blocks taller than the x stage
+    cases += [(m, k, n, 8, 8, 128, dict(x_dtype=bf16))
+              for m in (B, B * P) for k, n in FAMILY_SHAPES]
+    cases += [(m, k, 3072, 8, 3072, 128, dict(x_dtype=dt))
+              for m, k in WB_TALL for dt in (f32, bf16)]
     out = []
     for i, (m, k, n, nb, wbr, wbc, opt) in enumerate(cases):
         x, pl, sg, mk, sc = bitplane_case(m, k, n, nb, wbr, wbc, seed=i,
@@ -741,23 +809,27 @@ def pact_kernel_phase():
 # the one greedy loop: comparison, counting and timing all run through it
 # ---------------------------------------------------------------------------
 
-def greedy(eng, tok, new, page=0, frames=None, after_prefill=None):
+def greedy(eng, tok, new, page=0, frames=None, after_prefill=None,
+           extra=None):
     """Greedy decode as ``ServeEngine.generate`` runs it: a prefill, then
     ``new - 1`` decode steps, each taking the argmax.  With ``page`` the
     state is paged: a non-identity block table (page 0 reserved),
     ``prefill_at`` per slot and a per-slot (B,) decode index.  An
     encoder-decoder model takes ``frames`` (B, S_enc, d_model) beside the
-    tokens; ``after_prefill`` (a planted fault) may rewrite the state
-    between the prefill and the first decode step.
+    tokens, a vlm model its ``vision_embeds`` in ``extra`` (decode starts
+    past the vision prefix); ``after_prefill`` (a planted fault) may
+    rewrite the state between the prefill and the first decode step.
 
     Returns the tokens (B, new), every step's logits (new, B, V) in f32,
     and host-clock prefill ms and decode ms/step (synchronized)."""
     import numpy as np
     import torch
     from repro_torch.serve.engine import _roundup64
-    b, p = tok.shape
+    b = tok.shape[0]
     inputs = {"tokens": tok} if frames is None else {"tokens": tok,
                                                      "frames": frames}
+    inputs.update(extra or {})
+    p = eng.prompt_width(inputs)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     if page:
@@ -863,6 +935,7 @@ def compare(a, b):
         top2 = b["logits"][first[1], first[0]].topk(2).values
         gap = float(top2[0] - top2[1])
     return dict(err=float((d * fed_same).max() / b["logits"].abs().max()),
+                max_logit=float(b["logits"].abs().max()),
                 token_agreement=float((ta == tb).float().mean()),
                 first_diff=first, top2_gap_at_first_diff=gap,
                 steps_compared=int(fed_same.sum()),
@@ -1514,6 +1587,9 @@ def tick_launches(sched, matmul):
                  + sum(w == 1 for w in r["inserts"]) for r in log)
     if cfg.is_encdec:       # the encoder runs once a request (first chunk)
         return encdec_launches(cfg, fwd, single, len(sched.results), matmul)
+    if cfg.family in ("vlm", "ssm", "hybrid"):
+        # a vlm request's first chunk projects its vision prefix once
+        return family_launches(cfg, fwd, single, len(sched.results), matmul)
     return expected_launches(cfg.n_layers, fwd, single, matmul,
                              layer_matmuls(cfg, GROUPED_IMPL["impl"]))
 
@@ -1694,12 +1770,13 @@ def drive_record(out, matmul):
             len(r.tokens) == q.sampling.max_new_tokens, (r.uid, r)
     assert not sched.validate(), sched.validate()
     al = sched.allocator
-    assert al.in_use == 0 and al.reserved == 0 and \
-        al.free_count == al.n_pages - 1, rep
+    if sched.paged:                 # an unpaged drive (rwkv6) has no pool
+        assert al.in_use == 0 and al.reserved == 0 and \
+            al.free_count == al.n_pages - 1, rep
+        assert not sched.tables.any()
     if sched.prefix_cache is not None:
         assert sched.prefix_cache.outstanding_refs == 0 and \
             len(sched.prefix_cache) == 0, rep
-    assert not sched.tables.any()
     want = tick_launches(sched, matmul) if matmul else \
         dict.fromkeys(out["launches"], 0)
     assert out["launches"] == want, (out["launches"], want)
@@ -1762,7 +1839,9 @@ def oneshot_rule(out, n=SCHED_ONESHOT):
         inputs = {k: torch.from_numpy(v).to(DEV)
                   for k, v in reqs[uid].inputs.items()}
         one = greedy(eng, inputs["tokens"], budget[uid],
-                     frames=inputs.get("frames"))
+                     frames=inputs.get("frames"),
+                     extra={k: v for k, v in inputs.items()
+                            if k == "vision_embeds"})
         got = res[uid].tokens
         want = one["tokens"][0].tolist()
         part = next((j for j in range(len(want)) if got[j] != want[j]), None)
@@ -1871,21 +1950,24 @@ MOE_RUNS = ((8, 32, 32, "float32"), (8, 8, 8, "bfloat16"),
             (4, 4, 8, "bfloat16"))
 MOE_BP_RUNS = ((32, 32, "float32"), (8, 8, "bfloat16"))
 MOE_CAP_NEW = 8                 # the capacity-dispatch one-shot's tokens
-# granite serves the first 8 of its 32 layers (the full-width tree, cut
+# granite serves the first 4 of its 32 layers (the full-width tree, cut
 # in depth): its bit-plane and capacity legs since PR 17 (host-bound
 # decode steps of 0.4-0.7 s at full depth), every leg since PR 20 (with
 # the deploy phase, ~97 s, the smoke ran 921.8 s with the rest at 16
-# layers; at 32 the MoE phase was the largest, 217 s)
-MOE_DEPTH = 8
+# layers; at 32 the MoE phase was the largest, 217 s), 4 beside the
+# families phase (with it a smoke on a slow host ran 1003 s at 8)
+MOE_DEPTH = 4
 MOE_ONESHOT = 4                 # quantizer-free requests rerun one-shot
 # (K, N) of a routed expert's projections: gate and up, then down
 MOE_EXPERT_SHAPES = ((1536, 512), (512, 1536))
 
 
-def served_config(arch, act_bits, dtype, size=("--no-tiny",), n_layers=0):
+def served_config(arch, act_bits, dtype, size=("--no-tiny",), n_layers=0,
+                  enc_layers=0):
     """The registered ``arch`` at ``dtype`` with ``act_bits`` PACT
     activations (its 8x128 blocks; with ``size`` ``--tiny`` the launcher's
-    tiny config and 9x8 blocks), cut to ``n_layers`` when given."""
+    tiny config and 9x8 blocks), cut to ``n_layers`` (and an enc-dec
+    config's encoder to ``enc_layers``) when given."""
     from repro_torch.configs import REGISTRY, QuantConfig
     base = REGISTRY[arch]
     if size == ("--tiny",):
@@ -1897,6 +1979,8 @@ def served_config(arch, act_bits, dtype, size=("--no-tiny",), n_layers=0):
                                                    act_bits=act_bits))
     if n_layers:
         base = dataclasses.replace(base, n_layers=n_layers)
+    if enc_layers:
+        base = dataclasses.replace(base, enc_layers=enc_layers)
     return base
 
 
@@ -2294,6 +2378,10 @@ def moe_summary(res) -> dict:
 # ---------------------------------------------------------------------------
 
 ENCDEC_ARCH = "seamless-m4t-large-v2"
+# layers of each stack in the smoke (24 + 24 registered): cut to keep the
+# smoke under ~900 s with the families phase (at 12 + 12 a smoke on a
+# slow host ran 1003 s)
+ENCDEC_DEPTH = 6
 S_ENC = 256                     # frames a prompt: cross K/V at M = B*S_ENC
 # (weights, KV bits, activation bits, dtype) of the one-shot enc-dec legs:
 # quantizer-free in f32, then the registered quantization in bf16 with
@@ -2492,7 +2580,7 @@ def encdec_profile(eng, tok, frames):
                              for m, k, c in sorted(top, reverse=True)[:12]])
 
 
-def encdec_scheduler(tree, size=("--no-tiny",)):
+def encdec_scheduler(tree, size=("--no-tiny",), depth=0):
     """The scheduler trace (``SCHED_*``) through the launcher on the
     enc-dec tree, every request's frames ``S_ENC`` wide (the launcher's
     ``--prompt-len``): bf16 with int8 weights and KV, then quantizers off
@@ -2508,8 +2596,10 @@ def encdec_scheduler(tree, size=("--no-tiny",)):
     import warnings
     out = {}
     extra = ["--prompt-len", str(S_ENC)]
+    cut = cut_serve_config(depth, depth) if depth else \
+        contextlib.nullcontext()
     with warnings.catch_warnings(record=True) as caught, \
-            TickCapture(aliased=False) as cap:
+            TickCapture(aliased=False) as cap, cut:
         warnings.simplefilter("always")
         main = launch(sched_argv(size, ["--kv-bits", "8", *extra],
                                  arch=ENCDEC_ARCH), params=tree)
@@ -2533,9 +2623,11 @@ def encdec_scheduler(tree, size=("--no-tiny",)):
         f"{rec['generated_tokens']} tokens, {rec['tokens_per_s']:.1f} tok/s, "
         f"decode tick {rec['decode_tick_ms']:.1f} ms, chunk tick "
         f"{rec['chunk_tick_ms']:.1f} ms, parks {rep['preemptions']}")
-    off = launch(sched_argv(size, ["--kv-bits", "32", "--act-bits", "32",
-                                   "--dtype", "float32", *extra],
-                            arch=ENCDEC_ARCH), params=tree)
+    with cut_serve_config(depth, depth) if depth else \
+            contextlib.nullcontext():
+        off = launch(sched_argv(size, ["--kv-bits", "32", "--act-bits",
+                                       "32", "--dtype", "float32", *extra],
+                                arch=ENCDEC_ARCH), params=tree)
     rec_off = out["quantizers_off"] = drive_record(off, "packed_matmul")
     for key in ("ticks", "admitted", "finished", "parked"):
         assert rec_off[key] == rec[key], (key, rec_off[key], rec[key])
@@ -2547,9 +2639,10 @@ def encdec_scheduler(tree, size=("--no-tiny",)):
 
 def encdec_phase(size=("--no-tiny",)):
     """The enc-dec family at full width (``size``): seamless-m4t-large-v2,
-    24 encoder and 24 decoder layers, random weights from seed 0, deployed
-    packed int8 and int4 and as mixed-width bit planes; one-shot legs (B=4
-    x 128 tokens over 256 frames each, 32 new) through the kernels
+    its first ``ENCDEC_DEPTH`` = 6 of 24 encoder and decoder layers,
+    random weights from seed 0, deployed packed int8 and int4 and as
+    mixed-width bit planes; one-shot legs (B=4 x 128 tokens over 256
+    frames each, 32 new) through the kernels
     against the plain versions (:func:`encdec_pair`); one decode step
     profiled; ``packed_matmul`` timed at its new shapes and
     ``paged_attention`` at its head; the scheduler drive.  Returns the
@@ -2561,7 +2654,11 @@ def encdec_phase(size=("--no-tiny",)):
     out = {"runs": []}
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    cfg = served_config(ENCDEC_ARCH, 8, "bfloat16", size)
+    full = served_config(ENCDEC_ARCH, 8, "bfloat16", size)
+    depth = min(ENCDEC_DEPTH, full.n_layers, full.enc_layers)
+    cut = dict(n_layers=depth, enc_layers=depth)
+    cfg = served_config(ENCDEC_ARCH, 8, "bfloat16", size, **cut)
+    out["layers"] = f"{depth}+{depth}"
     qat = build(cfg).init(seed=0, device=DEV)
     packed = {b: to_serving_params(qat, b, device=DEV) for b in (8, 4)}
     bp, out["bitplane_deploy"] = deploy_bitplane(qat)
@@ -2574,12 +2671,14 @@ def encdec_phase(size=("--no-tiny",)):
     log(f"{ENCDEC_ARCH}: init and three deploys in {out['deploy_s']:.1f} s")
 
     for bits, kv, act, dt in ENCDEC_RUNS:
-        r = dict(encdec_pair(served_config(ENCDEC_ARCH, act, dt, size),
+        r = dict(encdec_pair(served_config(ENCDEC_ARCH, act, dt, size,
+                                           **cut),
                              packed[bits], tok, frames, kv, paged=kv == 32,
                              fault=(bits, kv) == (8, 8)), bits=bits)
         out["runs"].append(r)
         encdec_log(r)
-    r = dict(encdec_pair(served_config(ENCDEC_ARCH, 32, "float32", size),
+    r = dict(encdec_pair(served_config(ENCDEC_ARCH, 32, "float32", size,
+                                       **cut),
                          bp, tok, frames, 32, backend="bitplane"),
              bits="bitplane")
     out["runs"].append(r)
@@ -2605,7 +2704,7 @@ def encdec_phase(size=("--no-tiny",)):
         f"{ {k: round(v, 4) for k, v in prof['device_ms_by_part'].items()} }")
 
     t1 = time.perf_counter()
-    out["scheduler"] = encdec_scheduler(packed[8], size)
+    out["scheduler"] = encdec_scheduler(packed[8], size, depth)
     out["scheduler_s"] = time.perf_counter() - t1
     del packed
     torch.cuda.empty_cache()
@@ -2670,7 +2769,7 @@ def encdec_summary(res) -> dict:
     sm, so = res["scheduler"]["main"], res["scheduler"]["quantizers_off"]
     prof = res["profile"]
     return {
-        "arch": ENCDEC_ARCH, "layers": "24+24", "s_enc": S_ENC,
+        "arch": ENCDEC_ARCH, "layers": res["layers"], "s_enc": S_ENC,
         "phase_s": res["phase_s"],
         "int8_kv32_f32": run("kernel", 8, 32),
         "int8_kv8_bf16": run("kernel", 8, 8),
@@ -2700,6 +2799,540 @@ def encdec_summary(res) -> dict:
             "kv", "dh", "kv_len", "device_ms", "bound_ms",
             "library_device_ms")},
         "peak_mem_gb": res["peak_mem_gb"]}
+
+
+# ---------------------------------------------------------------------------
+# families phase
+# ---------------------------------------------------------------------------
+
+# The last three model families at full width and depth: qwen2-vl-2b (vlm:
+# M-RoPE, a 256-token vision prefix a prompt, GQA 12 over 2 KV heads),
+# rwkv6-1.6b (ssm: no KV cache, a recurrent state a layer) and zamba2-1.2b
+# (hybrid: 38 Mamba-2 layers and one shared attention + MLP block called
+# every 6).  Random weights from seed 0, bf16 unless a leg says f32.
+FAMILY_ARCHS = ("qwen2-vl-2b", "rwkv6-1.6b", "zamba2-1.2b")
+FAMILY_BP_NEW = 8               # the bit-plane leg's new tokens
+# one fault a family, every layer's leaf at once: its K rows read one WB
+# row (8 rows) off
+FAMILY_FAULT = {"vlm": ("mlp", "w_down"), "ssm": ("cm_wv",),
+                "hybrid": ("out_proj",)}
+# the scheduler trace: 12 requests every 2 ticks, prompts 64-1024 tokens
+# (200, 300 and 450 are multiples of neither scan chunk, 32 and 128, so
+# the per-token scans run), budgets 16 / 32, 8 slots; qwen2-vl paged and
+# chunked at 256 (its vision prefix rides the first chunk), rwkv6 unpaged,
+# zamba2 paged with overcommit 1.5 over FAMILY_PAGES pages (parks)
+FAMILY_WIDTHS = (1024, 64, 200, 512, 128, 300, 768, 96, 450, 256, 640, 160)
+FAMILY_BUDGETS = (16, 32)
+FAMILY_PAGES = 120
+FAMILY_ONESHOT = 4              # quantizer-free requests rerun one-shot
+# The tensor regime's rounding a call: with f32 x, its bf16 hi/lo split
+# drops the x_lo * w_lo term, ~2^-16 of the output's rms (the stream
+# regime's products are exact).  The noise witness adds that much to
+# every deployed-weight matmul of a plain run (:class:`MatmulNoise`).
+WITNESS_SIGMA = 2.0 ** -16
+# Quantizer-free limits by family: the kernels' logits against the plain
+# versions', relative to the largest, while token prefixes agree; a
+# greedy token may part only where the plain run's top-two gap is below
+# the limit.  Set between each family's noise witness and its planted
+# fault.  Random rwkv6 and, far more, Mamba-2 layers carry a matmul's
+# rounding along the sequence into the logits: the witness reads 9.78e-5
+# (qwen2-vl), 3.35e-4 (rwkv6) and 0.102 (zamba2, its tokens parting at
+# step 11), the kernels 2.31e-5, 9.68e-5 and 5.84e-3, the planted faults
+# 1.13-1.22 (H100, scripts/families_probe.py).  qwen2-vl keeps
+# EXACT_TOL_REL (its witness is recorded); the other two limits hold the
+# witness.
+FAMILY_F32_TOL = {"vlm": EXACT_TOL_REL, "ssm": 1e-3, "hybrid": 0.3}
+
+
+def family_matmuls(cfg):
+    """(weight matmuls a forward, fused attention reads a single-token
+    forward) of a family's model: qwen2-vl 7 a layer and a read a layer;
+    rwkv6 8 a layer (5 time-mix, 3 channel-mix projections) and none;
+    zamba2 6 a Mamba-2 layer (x, z, B, C, dt, out) and 7 a shared-block
+    call (4 attention, 3 MLP) with a read each."""
+    L = cfg.n_layers
+    if cfg.family == "ssm":
+        return 8 * L, 0
+    if cfg.family == "hybrid":
+        calls = L // cfg.hybrid_attn_every
+        return 6 * L + 7 * calls, calls
+    return 7 * L, L
+
+
+def family_launches(cfg, forwards, decode_steps, vision=0,
+                    matmul="packed_matmul"):
+    """Launches of a family drive: :func:`family_matmuls` for every
+    forward, and ``vision`` vision-prefix projections (a vlm prefill's
+    ``vision_proj``, once a call that carries a prefix)."""
+    per, reads = family_matmuls(cfg)
+    out = {"packed_matmul": 0, "paged_attention": reads * decode_steps,
+           "bitplane_matmul": 0, "pact_quant": 0}
+    out[matmul] = per * forwards + (vision if cfg.family == "vlm" else 0)
+    return out
+
+
+def family_inputs(cfg, tok, seed=4):
+    """The prompt batch: ``tok``, and for a vlm its (B, vision_tokens,
+    d_model) vision prefix, 0.1 x standard normal, seeded."""
+    import torch
+    out = {"tokens": tok}
+    if cfg.family == "vlm":
+        g = torch.Generator(device=DEV).manual_seed(seed)
+        out["vision_embeds"] = torch.randn(
+            (tok.shape[0], cfg.vision_tokens, cfg.d_model), generator=g,
+            device=DEV) * 0.1
+    return out
+
+
+def family_fault(tree, cfg):
+    """The planted fault (``FAMILY_FAULT``): every layer's leaf with its
+    K rows rolled by one WB row, as a wrong row offset would read it."""
+    import torch
+    path = FAMILY_FAULT[cfg.family]
+    out = dict(tree)
+    node = out["layers"] = dict(tree["layers"])
+    for key in path[:-1]:
+        node[key] = dict(node[key])
+        node = node[key]
+    sw = node[path[-1]]
+    node[path[-1]] = dataclasses.replace(
+        sw, w_int=torch.roll(sw.w_int, 8, dims=1))
+    return out
+
+
+class MatmulNoise:
+    """Observer around the deployed-weight matmuls
+    (``models.common._qmatmul_packed`` / ``_qmatmul_bitplane``): each
+    output gets seeded Gaussian noise of ``WITNESS_SIGMA`` times its rms
+    added, the size of the tensor regime's rounding.  A plain run inside
+    it is the noise witness: how far the model carries a kernel's
+    rounding to its logits."""
+
+    NAMES = ("_qmatmul_packed", "_qmatmul_bitplane")
+
+    def __init__(self, seed=9):
+        import torch
+        from repro_torch.models import common
+        self.mod = common
+        self.orig = {n: getattr(common, n) for n in self.NAMES}
+        self.gen = torch.Generator(device=DEV).manual_seed(seed)
+
+    def __enter__(self):
+        for name, fn in self.orig.items():
+            setattr(self.mod, name, self.noisy(fn))
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self.orig.items():
+            setattr(self.mod, name, fn)
+
+    def noisy(self, fn):
+        import torch
+
+        def call(x, w, backend):
+            y = fn(x, w, backend).float()
+            rms = y.square().mean().sqrt()
+            n = torch.randn(y.shape, generator=self.gen, device=y.device)
+            return (y + WITNESS_SIGMA * rms * n).to(x.dtype)
+        return call
+
+
+def family_pair(cfg, tree, inputs, kv, backend="kernel", new=NEW,
+                paged=False, fault=None, witness=False):
+    """One configuration of a family, contiguous, through the kernels
+    (``backend``, ``fused`` attention; warmed up with ``generate``, then
+    counted, its first weight-matmul call at each shape and, where the
+    family has KV, its first layer-0 attention read held against the
+    plain versions) and through the plain versions.  ``paged`` adds a
+    counted kernel run through a 16-token pool with a non-identity table
+    (``prefill_at`` a slot: a fresh slot's recurrent rows zeroed);
+    ``fault`` a kernel run on that tree for one token, held against the
+    plain run; ``witness`` a plain run under :class:`MatmulNoise`, held
+    against the plain run."""
+    import torch
+    from repro_torch.models.api import build
+    from repro_torch.serve.engine import ServeEngine
+    api = build(cfg)
+    matmul = "bitplane_matmul" if backend == "bitplane" else "packed_matmul"
+    tok = inputs["tokens"]
+    extra = {k: v for k, v in inputs.items() if k != "tokens"}
+    b = tok.shape[0]
+    ker = ServeEngine(api, tree, kv_quant_bits=kv, backend=backend,
+                      attn_backend="fused", device=DEV)
+    warm = ker.generate(inputs, max_new=2).cpu()
+    with MatmulCapture() as mm, TickCapture(first=True) as cap:
+        k = counted(lambda: greedy(ker, tok, new, extra=extra),
+                    family_launches(cfg, new, new - 1, 1, matmul))
+    rec = dict(arch=cfg.name, family=cfg.family, layers=cfg.n_layers,
+               backend=backend, kv=kv, act_bits=cfg.quant.act_bits,
+               dtype=cfg.dtype, new=new, tokens=k["tokens"].tolist(),
+               launches=k["launches"],
+               generate_prefix_equal=torch.equal(warm, k["tokens"][:, :2]),
+               prefill_ms=k["prefill_ms"],
+               decode_ms_per_step=k["decode_ms_per_step"],
+               decode_tokens_per_s=b * 1e3 / k["decode_ms_per_step"],
+               matmul_calls=mm.check())
+    if cfg.family != "ssm":
+        rec["attention"], _, _ = attention_check(cap.case,
+                                                 "first decode read")
+    if paged:
+        pg = counted(lambda: greedy(ker, tok, new, page=PAGE, extra=extra),
+                     family_launches(cfg, b + new - 1, new - 1, b, matmul))
+        rec["paged"] = dict(launches=pg["launches"],
+                            tokens_equal=torch.equal(pg["tokens"],
+                                                     k["tokens"]),
+                            vs_contiguous=compare(pg, k))
+    del ker, mm, cap
+    f = None
+    if fault is not None:
+        eng = ServeEngine(api, fault, kv_quant_bits=kv, backend=backend,
+                          attn_backend="fused", device=DEV)
+        f = greedy(eng, tok, 1, extra=extra)
+        del eng
+    ref = ServeEngine(api, tree, kv_quant_bits=kv, backend="ref",
+                      attn_backend="ref", device=DEV)
+    p = greedy(ref, tok, new, extra=extra)
+    if witness:
+        with MatmulNoise():
+            rec["noise_witness"] = compare(greedy(ref, tok, new,
+                                                  extra=extra), p)
+    del ref
+    rec["plain_decode_ms_per_step"] = p["decode_ms_per_step"]
+    rec["plain_prefill_ms"] = p["prefill_ms"]
+    rec["kernel_vs_plain"] = compare(k, p)
+    if f is not None:
+        path = "/".join(FAMILY_FAULT[cfg.family])
+        rec["fault"] = dict(compare(f, p), name=f"every layer's {path}: K "
+                            f"rows read one WB row off")
+    return rec
+
+
+def family_log(r):
+    c = r["kernel_vs_plain"]
+    log(f"{r['arch']} ({r['layers']} layers) {r['backend']} w{r['bits']} "
+        f"kv{r['kv']} act{r['act_bits']} {r['dtype']}: kernel vs plain err "
+        f"{c['err']:.3g} tokens {c['token_agreement']:.3f}; prefill "
+        f"{r['prefill_ms']:.1f} ms, decode {r['decode_ms_per_step']:.2f} "
+        f"ms/step (plain {r['plain_decode_ms_per_step']:.2f})" +
+        (f"; paged tokens equal {r['paged']['tokens_equal']}"
+         if "paged" in r else "") +
+        (f"; noise witness err {r['noise_witness']['err']:.3g} tokens "
+         f"{r['noise_witness']['token_agreement']:.3f}"
+         if "noise_witness" in r else "") +
+        (f"; fault err {r['fault']['err']:.3g}" if "fault" in r else ""))
+
+
+def family_profile(eng, inputs):
+    """One decode step of ``eng`` (B rows after their prompts, contiguous)
+    under ``torch.profiler``: its wall time, and the device time of its
+    CUDA kernels split into the weight matmuls (``wmm::`` stream and
+    tensor kernels), ``paged_attention`` and the rest (the rwkv / mamba
+    scans' einsums and the small elementwise ops, norms, the tied head),
+    with the idle share."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    p = eng.prompt_width(inputs)
+    logits, state = eng.prefill(inputs, extra_slots=64)
+    cur = logits.argmax(-1)[:, None].to(torch.int32)
+    logits, state = eng.decode(cur, state, p)          # warm
+    cur = logits.argmax(-1)[:, None].to(torch.int32)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        eng.decode(cur, state, p + 1)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    parts = {"matmuls": 0.0, "attention": 0.0, "rest": 0.0}
+    calls = dict.fromkeys(parts, 0)
+    top = []
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        ms = e.self_device_time_total / 1e3
+        kind = "attention" if "paged_attention_kernel" in e.key else \
+            "matmuls" if "wmm::" in e.key else "rest"
+        parts[kind] += ms
+        calls[kind] += e.count
+        top.append((ms, e.key[:100], e.count))
+    device_ms = sum(parts.values())
+    return dict(wall_ms=wall_ms, device_ms=device_ms,
+                idle_share=max(0.0, 1 - device_ms / wall_ms),
+                device_ms_by_part=parts, calls=calls,
+                top_kernels=[dict(ms=m, kernel=k, calls=c)
+                             for m, k, c in sorted(top, reverse=True)[:10]])
+
+
+def family_argv(arch, size=("--no-tiny",), extra=()):
+    """The families phase's scheduler flags (``FAMILY_*``): ``arch`` at
+    full width (``size``) through the kernels; qwen2-vl paged and chunked,
+    rwkv6 unpaged, zamba2 paged and overcommitted."""
+    from repro_torch.configs import REGISTRY
+    family = REGISTRY[arch].family
+    argv = ["--arch", arch, *size, "--device", DEV, "--requests",
+            "--backend", "kernel", "--attn-backend", "fused",
+            "--batch", str(len(FAMILY_WIDTHS)),
+            "--n-slots", str(SCHED_SLOTS), "--arrival-gap", "2",
+            "--prompt-lens", ",".join(map(str, FAMILY_WIDTHS)),
+            "--max-news", ",".join(map(str, FAMILY_BUDGETS)),
+            "--validate-every", str(SCHED_VALIDATE_EVERY), "--seed", "0"]
+    if family == "vlm":
+        argv += ["--page-size", str(PAGE), "--prefill-chunk",
+                 str(SCHED_CHUNK)]
+    elif family == "hybrid":
+        argv += ["--page-size", str(PAGE), "--n-pages", str(FAMILY_PAGES),
+                 "--overcommit", "1.5"]
+    return argv + list(extra)
+
+
+def family_scheduler(arch, tree, size=("--no-tiny",)):
+    """The scheduler trace (``FAMILY_*``) through the launcher on the
+    family's int8 tree: bf16 (int8 KV where the family has KV), then
+    quantizers off in f32, whose requests are held against one-shot runs
+    (:func:`oneshot_rule`).  Both drives counted against their tick logs
+    and checked by :func:`drive_record`; the recurrent families insert
+    every prompt whole, zamba2 parks and restores; the bf16 drive's
+    captured decode tick (qwen2-vl, zamba2) is held against the plain
+    version."""
+    import torch
+    from repro_torch.configs import REGISTRY
+    family = REGISTRY[arch].family
+    kv = "32" if family == "ssm" else "8"
+    out = {}
+    with TickCapture(aliased=False) as cap:
+        main = launch(family_argv(arch, size, ["--kv-bits", kv]),
+                      params=tree)
+    rec = out["main"] = drive_record(main, "packed_matmul")
+    rep = rec["cache_report"]
+    sched = main["scheduler"]
+    widths = [w + (REGISTRY[arch].vision_tokens if family == "vlm" else 0)
+              for w in FAMILY_WIDTHS]
+    inserts = sorted(w for r in sched.tick_log for w in r["inserts"])
+    if family == "vlm":
+        assert max(inserts) == REGISTRY[arch].vision_tokens + SCHED_CHUNK \
+            or size != ("--no-tiny",), inserts
+        assert SCHED_SLOTS in {r["m"] for r in rec["matmul_calls"]}
+    else:
+        assert inserts == sorted(widths), ("whole insertions", inserts)
+    if family == "ssm":
+        assert not sched.paged, rep
+    if family == "hybrid":
+        assert rep["preemptions"] >= 1 and \
+            rep["resumes"] == rep["preemptions"], rep
+    if family != "ssm":
+        assert cap.case is not None, "no decode tick met the capture rule"
+        out["captured_tick"] = attention_check(cap.case,
+                                               "captured decode tick")[0]
+    del main, cap
+    log(f"{arch} scheduler drive: {rec['ticks']} ticks, "
+        f"{rec['generated_tokens']} tokens, {rec['tokens_per_s']:.1f} tok/s,"
+        f" decode tick {rec['decode_tick_ms']:.1f} ms, insert tick "
+        f"{rec['chunk_tick_ms']:.1f} ms, parks {len(rec['parked'])}")
+    off = launch(family_argv(arch, size, ["--kv-bits", "32", "--act-bits",
+                                          "32", "--dtype", "float32"]),
+                 params=tree)
+    rec_off = out["quantizers_off"] = drive_record(off, "packed_matmul")
+    for key in ("ticks", "admitted", "finished", "parked"):
+        assert rec_off[key] == rec[key], (key, rec_off[key], rec[key])
+    out["oneshot"] = oneshot_rule(off, FAMILY_ONESHOT)
+    del off
+    torch.cuda.empty_cache()
+    return out
+
+
+def family_phase(arch, size=("--no-tiny",)):
+    """One family at full width (``size``) and depth: random weights from
+    seed 0, deployed packed int8 and as mixed-width bit planes; one-shot
+    legs (B=4 x 128 tokens, a qwen2-vl prompt also 256 vision embeds; 32
+    new) through the kernels against the plain versions: quantizers off
+    in f32 (also paged, where the family has KV) with the noise witness
+    and the planted fault, the registered bf16 config with int8 KV
+    (8-bit PACT for qwen2-vl), and the bit-plane tree in f32 (8 new); one
+    decode step profiled;
+    ``packed_matmul`` timed at the family's new shapes; the scheduler
+    drives."""
+    import torch
+    from repro_torch.models.api import build
+    from repro_torch.serve.deploy import to_serving_params
+    from repro_torch.serve.engine import ServeEngine
+    out = {"arch": arch, "runs": []}
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    cfg = served_config(arch, 8, "bfloat16", size)
+    qat = build(cfg).init(seed=0, device=DEV)
+    packed = to_serving_params(qat, 8, device=DEV)
+    bp, out["bitplane_deploy"] = deploy_bitplane(qat)
+    del qat
+    torch.cuda.empty_cache()
+    out["deploy_s"] = time.perf_counter() - t0
+    out["layers"] = cfg.n_layers
+    tok = torch.randint(0, cfg.vocab, (B, P), device=DEV, dtype=torch.int32,
+                        generator=torch.Generator(device=DEV).manual_seed(3))
+    inputs = family_inputs(cfg, tok)
+    kv = 32 if cfg.family == "ssm" else 8
+    log(f"{arch}: init and two deploys in {out['deploy_s']:.1f} s")
+
+    f32 = served_config(arch, 32, "float32", size)
+    legs = ((f32, packed, 32, "kernel", NEW, cfg.family != "ssm",
+             family_fault(packed, cfg), True, 8),
+            (cfg, packed, kv, "kernel", NEW, False, None, False, 8),
+            (f32, bp, 32, "bitplane", FAMILY_BP_NEW, False, None, False,
+             "bitplane"))
+    for c, tree, k, be, new, paged, fault, witness, bits in legs:
+        r = dict(family_pair(c, tree, inputs, k, be, new, paged, fault,
+                             witness), bits=bits)
+        out["runs"].append(r)
+        family_log(r)
+        del fault
+    del bp
+    torch.cuda.empty_cache()
+    out["oneshot_s"] = time.perf_counter() - t0
+
+    t1 = time.perf_counter()
+    eng = ServeEngine(build(cfg), packed, kv_quant_bits=kv,
+                      backend="kernel", attn_backend="fused", device=DEV)
+    out["profile"] = prof = family_profile(eng, inputs)
+    del eng
+    out["time_s"] = time.perf_counter() - t1
+    log(f"{arch} profiled decode step: wall {prof['wall_ms']:.2f} ms, "
+        f"device {prof['device_ms']:.3f} ms, by part "
+        f"{ {k: round(v, 4) for k, v in prof['device_ms_by_part'].items()} }")
+
+    t1 = time.perf_counter()
+    out["scheduler"] = family_scheduler(arch, packed, size)
+    out["scheduler_s"] = time.perf_counter() - t1
+    del packed
+    torch.cuda.empty_cache()
+    out["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    out["phase_s"] = time.perf_counter() - t0
+    return out
+
+
+def families_phase(size=("--no-tiny",)):
+    """:func:`family_phase` for each of ``FAMILY_ARCHS``, one at a time
+    (each tree freed before the next), then ``packed_matmul`` timed at
+    ``FAMILY_SHAPES`` (decode M), ``paged_attention`` at the two new
+    heads and the stream regime at ``WB_TALL`` with 3072- and 8-row
+    blocks; :func:`check_families` judges the readings."""
+    t0 = time.perf_counter()
+    out = {"families": [family_phase(a, size) for a in FAMILY_ARCHS]}
+    t1 = time.perf_counter()
+    out["packed_matmul"] = [time_packed(B, k, n, 8)
+                            for k, n in FAMILY_SHAPES]
+    out["attention"] = [time_attention(8, P + NEW // 2, P + 64, kvh=kvh,
+                                       dh=dh, g=g)
+                        for kvh, g, dh in FAMILY_HEADS]
+    # the stream regime at whole-layer blocks against 8-row blocks, the
+    # same bytes: the plan's cut block against its usual slices
+    out["wb_tall"] = [time_packed(m, k, 3072, 8, wbr=w)
+                      for m, k in WB_TALL[:2] for w in (8, 3072)]
+    out["time_s"] = time.perf_counter() - t1
+    out["phase_s"] = time.perf_counter() - t0
+    return out
+
+
+def check_families(res):
+    """Every family drive finite, its tokens of the right shape and
+    vocabulary, its ``generate`` warm-up the loop's first tokens; kernels
+    vs plain: quantizer-free, logits within the family's
+    ``FAMILY_F32_TOL`` of the largest and tokens identical but at a
+    near-tie (a top-two gap below that limit), the paged run's tokens the
+    contiguous run's, the noise witness within a limit set from it
+    (rwkv6, zamba2) and the planted fault above it; the bf16 config within ``QUANT_TOL_REL[8]`` while
+    prefixes agree for qwen2-vl (8-bit PACT) and rwkv6, recorded for
+    zamba2 (its Mamba-2 layers carry bf16's rounding, 2^-9 a value, to
+    logits of the fault's size).  Launches were counted and captured
+    calls held in :func:`family_pair`, the scheduler drives checked in
+    :func:`family_scheduler`; a scheduler request may part from its
+    one-shot rerun only at a near-tie (``EXACT_TOL_REL``)."""
+    import torch
+    from repro_torch.configs import REGISTRY
+    assert [f["arch"] for f in res["families"]] == list(FAMILY_ARCHS)
+    for fam in res["families"]:
+        vocab = REGISTRY[fam["arch"]].vocab
+        assert {(r["backend"], r["dtype"]) for r in fam["runs"]} == {
+            ("kernel", "float32"), ("kernel", "bfloat16"),
+            ("bitplane", "float32")}, fam["arch"]
+        for r in fam["runs"]:
+            tag = (r["arch"], r["backend"], r["kv"], r["dtype"])
+            toks = torch.tensor(r["tokens"])
+            assert toks.shape == (B, r["new"]), tag
+            assert 0 <= int(toks.min()) <= int(toks.max()) < vocab, tag
+            assert r["generate_prefix_equal"], ("generate vs loop", tag)
+            c = r["kernel_vs_plain"]
+            assert c["finite"], tag
+            if r["dtype"] == "float32":
+                tol = FAMILY_F32_TOL[r["family"]]
+                assert c["err"] <= tol, (tag, c)
+                assert c["first_diff"] is None or \
+                    c["top2_gap_at_first_diff"] < tol * c["max_logit"], \
+                    (tag, c)
+                if "noise_witness" in r and tol > EXACT_TOL_REL:
+                    assert r["noise_witness"]["err"] <= tol, \
+                        (tag, r["noise_witness"])
+                if "fault" in r:
+                    assert r["fault"]["err"] > tol, (tag, r["fault"])
+            elif r["family"] != "hybrid":
+                assert c["err"] <= QUANT_TOL_REL[8], (tag, c)
+            if "paged" in r:
+                assert r["paged"]["tokens_equal"], (tag, r["paged"])
+        assert any("fault" in r for r in fam["runs"]) and \
+            any("noise_witness" in r for r in fam["runs"]), fam["arch"]
+        bad = [r for r in fam["scheduler"]["oneshot"]
+               if r["parted_at"] is not None and not r["allowed"]]
+        assert not bad, (fam["arch"], "scheduler parts from one-shot", bad)
+
+
+def families_summary(res) -> dict:
+    """The families phase's figures for the printout."""
+    from repro_torch.configs import REGISTRY
+
+    def fam_row(fam):
+        def leg(backend, dtype):
+            r = next(r for r in fam["runs"]
+                     if (r["backend"], r["dtype"]) == (backend, dtype))
+            return {"prefill_ms": r["prefill_ms"],
+                    "decode_ms_per_step": r["decode_ms_per_step"],
+                    "decode_tokens_per_s": r["decode_tokens_per_s"],
+                    "plain_decode_ms_per_step":
+                        r["plain_decode_ms_per_step"],
+                    "err": r["kernel_vs_plain"]["err"],
+                    "launches": r["launches"]}
+        sm = fam["scheduler"]["main"]
+        prof = fam["profile"]
+        return {
+            "layers": fam["layers"], "phase_s": fam["phase_s"],
+            "int8_bf16": leg("kernel", "bfloat16"),
+            "int8_kv32_f32": leg("kernel", "float32"),
+            "bitplane_f32": leg("bitplane", "float32"),
+            "fault_err": next(r["fault"]["err"] for r in fam["runs"]
+                              if "fault" in r),
+            "noise_witness_err": next(r["noise_witness"]["err"]
+                                      for r in fam["runs"]
+                                      if "noise_witness" in r),
+            "f32_tol": FAMILY_F32_TOL[REGISTRY[fam["arch"]].family],
+            "scheduler": {k: sm[k] for k in (
+                "ticks", "tokens_per_s", "decode_tick_ms", "chunk_tick_ms",
+                "ttft_ms_mean", "parked", "launches")},
+            "scheduler_f32_tokens_per_s":
+                fam["scheduler"]["quantizers_off"]["tokens_per_s"],
+            "oneshot_parts": [r["parted_at"]
+                              for r in fam["scheduler"]["oneshot"]],
+            "decode_step_profile": {k: prof[k] for k in (
+                "wall_ms", "device_ms", "idle_share", "device_ms_by_part")},
+            "peak_mem_gb": fam["peak_mem_gb"]}
+    return {
+        "phase_s": res["phase_s"],
+        **{fam["arch"]: fam_row(fam) for fam in res["families"]},
+        "packed_matmul": [{k: r[k] for k in (
+            "m", "k", "n", "ms", "device_ms", "bound_ms", "plain_ms",
+            "library_device_ms")} for r in res["packed_matmul"]],
+        "attention": [{k: r[k] for k in (
+            "kv", "g", "dh", "kv_len", "device_ms", "bound_ms", "plain_ms",
+            "library_device_ms")} for r in res["attention"]],
+        "wb_tall": [{k: r[k] for k in ("m", "k", "n", "wbr", "device_ms",
+                                       "bound_ms")}
+                    for r in res["wb_tall"]]}
 
 
 # ---------------------------------------------------------------------------
@@ -3667,18 +4300,19 @@ DEPLOY_BUDGET_SHARE = 0.6
 DEPLOY_B, DEPLOY_P, DEPLOY_NEW = 4, 256, 16
 
 
-def cut_serve_config(n_layers):
-    """``repro_torch.launch.serve._config`` cut to ``n_layers`` for the
-    calls inside the context: the serve launcher serves the registered
-    depth, and the checkpoint holds ``n_layers``."""
+def cut_serve_config(n_layers, enc_layers=0):
+    """``repro_torch.launch.serve._config`` cut to ``n_layers`` (and an
+    enc-dec config's encoder to ``enc_layers``) for the calls inside the
+    context: the serve launcher serves the registered depth."""
     import contextlib
     import repro_torch.launch.serve as ls
+    cut = {"n_layers": n_layers, **({"enc_layers": enc_layers}
+                                    if enc_layers else {})}
 
     @contextlib.contextmanager
     def ctx():
         base = ls._config
-        ls._config = lambda args: dataclasses.replace(base(args),
-                                                      n_layers=n_layers)
+        ls._config = lambda args: dataclasses.replace(base(args), **cut)
         try:
             yield
         finally:
@@ -4216,16 +4850,17 @@ def deploy_summary(res) -> dict:
 # time phase
 # ---------------------------------------------------------------------------
 
-def time_packed(m, k, n, bits):
+def time_packed(m, k, n, bits, wbr=8):
     import torch
     from repro_torch.kernels import packed_matmul
     from repro_torch.kernels.ref import packed_matmul_ref
     from repro_torch.serve.deploy import ServingWeight, serving_compose
     from repro_torch.core.blocking import BlockingSpec
 
-    x, w, s = packed_case(m, k, n, bits, 8, 128, x_dtype=torch.bfloat16)
-    ws = rotating(lambda: packed_case(1, k, n, bits, 8, 128)[1:], w.nbytes)
-    spec = BlockingSpec(8, 128)
+    x, w, s = packed_case(m, k, n, bits, wbr, 128, x_dtype=torch.bfloat16)
+    ws = rotating(lambda: packed_case(1, k, n, bits, wbr, 128)[1:],
+                  w.nbytes)
+    spec = BlockingSpec(wbr, 128)
     dense = rotating(lambda: serving_compose(
         ServingWeight(w, s, (k, n), spec, bits), torch.bfloat16), 2 * k * n)
     it = {"i": 0}
@@ -4234,23 +4869,28 @@ def time_packed(m, k, n, bits):
         it["i"] = (it["i"] + 1) % len(seq)
         return seq[it["i"]]
 
-    ms, dev, host = cuda_times(lambda: packed_matmul(x, *nxt(ws), bits=bits))
-    plain = cuda_ms(lambda: packed_matmul_ref(x, *nxt(ws), bits), iters=5)
+    ms, dev, host = cuda_times(lambda: packed_matmul(x, *nxt(ws), bits=bits,
+                                                     wbr=wbr))
+    plain = cuda_ms(lambda: packed_matmul_ref(x, *nxt(ws), bits, wbr),
+                    iters=5)
     lib, lib_dev, lib_host = cuda_times(lambda: torch.matmul(x, nxt(dense)))
     nbytes = w.nbytes + s.nbytes + x.nbytes + m * n * 4
     flops = 2.0 * m * k * n
     bound = max(nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS) * 1e3
     by = "bytes" if nbytes / HBM_BYTES_PER_S >= flops / BF16_FLOPS \
         else "operations"
-    return dict(m=m, k=k, n=n, bits=bits, ms=ms, device_ms=dev, host_ms=host,
+    return dict(m=m, k=k, n=n, bits=bits, wbr=wbr, ms=ms, device_ms=dev,
+                host_ms=host,
                 plain_ms=plain, library_ms=lib, library_device_ms=lib_dev,
                 library_host_ms=lib_host, bound_ms=bound, bound_by=by,
                 bytes=nbytes, flops=flops)
 
 
-def time_attention(bits, kv_len_val, t=P + 64, paged=0, kvh=32, dh=96):
+def time_attention(bits, kv_len_val, t=P + 64, paged=0, kvh=32, dh=96,
+                   g=1):
     """One layer's decode read at B=4, ``kvh`` KV heads of width ``dh``
-    (phi3's 32 x 96 unless named), G=1, every slot filled to
+    (phi3's 32 x 96 unless named), ``g`` query heads a KV head (1 unless
+    named; SDPA then runs with ``enable_gqa``), every slot filled to
     ``kv_len_val`` of a ``t``-position cache: the contiguous cache's
     identity view (page ``fit_block(min(128, t), t, 1)``), or ``paged``
     positions a page behind a shuffled table.  KV cold (rotated past the
@@ -4271,7 +4911,7 @@ def time_attention(bits, kv_len_val, t=P + 64, paged=0, kvh=32, dh=96):
     def make():
         q, pool, table = attention_pool(bits, kvh, t, page,
                                         paged=bool(paged), seed=next(seeds),
-                                        dh=dh)
+                                        dh=dh, g=g)
         kq, vq, ks, vs = pool
         order = table.reshape(-1).long()       # slot-major pages
         kd = dequantize_kv(kq[order].reshape(B, t, kvh, -1),
@@ -4297,19 +4937,21 @@ def time_attention(bits, kv_len_val, t=P + 64, paged=0, kvh=32, dh=96):
         return paged_attention_ref(q, *pool, table, kv_len)
 
     mask = (torch.arange(t, device=DEV) < kv_len_val)[None, None, None]
-    qb = sets[0][0][0].reshape(B, kvh, 1, dh).to(torch.bfloat16)
+    qb = sets[0][0][0].reshape(B, kvh * g, 1, dh).to(torch.bfloat16)
+    gqa = {"enable_gqa": True} if g > 1 else {}
     ms, dev, host = cuda_times(kern)
     plain_ms = cuda_ms(plain, iters=5 if t > 2048 else 20)
     lib, lib_dev, lib_host = cuda_times(
-        lambda: F.scaled_dot_product_attention(qb, *nxt()[1], attn_mask=mask))
+        lambda: F.scaled_dot_product_attention(qb, *nxt()[1], attn_mask=mask,
+                                               **gqa))
     nbytes = B * kv_len_val * kvh * (2 * dh * bits / 8 + 8) \
-        + 2 * B * kvh * dh * 4 + B * 4
-    flops = 4.0 * B * kvh * kv_len_val * dh
+        + 2 * B * kvh * g * dh * 4 + B * 4
+    flops = 4.0 * B * kvh * g * kv_len_val * dh
     bound = max(nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS) * 1e3
     by = "bytes" if nbytes / HBM_BYTES_PER_S >= flops / BF16_FLOPS \
         else "operations"
-    plan = attention_plan(B, kvh, 1, dh, page, t // page, bits)
-    return dict(bits=bits, b=B, kv=kvh, dh=dh, t=t, page=page,
+    plan = attention_plan(B, kvh, g, dh, page, t // page, bits)
+    return dict(bits=bits, b=B, kv=kvh, g=g, dh=dh, t=t, page=page,
                 leg="paged" if paged else "contiguous",
                 kv_len=kv_len_val, splits=plan.splits, chunk=plan.chunk,
                 ms=ms, device_ms=dev, host_ms=host,
@@ -4544,6 +5186,8 @@ def main() -> int:
                                   card=smi)}))
     print(json.dumps({"encdec": dict(encdec_summary(detail["encdec_phase"]),
                                      card=smi)}))
+    print(json.dumps({"families": dict(
+        families_summary(detail["families_phase"]), card=smi)}))
     print(json.dumps({"cnn": dict(cnn_summary(detail["cnn_phase"]),
                                   card=smi)}))
     print(json.dumps({"deploy": dict(deploy_summary(detail["deploy_phase"]),
@@ -4744,6 +5388,32 @@ def run(detail) -> list:
     log(f"enc-dec phase ran in {detail['encdec_phase']['phase_s']:.1f} s")
     save_detail(detail)
     check_encdec(detail["encdec_phase"])
+
+    detail["families_phase"] = fp = families_phase()
+    log(f"families phase ran in {fp['phase_s']:.1f} s")
+    save_detail(detail)
+    check_families(fp)
+    for k in kernels:
+        k["families_launches"] = {
+            fam["arch"]: {
+                **{f"one_shot_{r['backend']}_{r['dtype']}":
+                   r["launches"][k["name"]] for r in fam["runs"]},
+                "scheduler": fam["scheduler"]["main"]["launches"][
+                    k["name"]]}
+            for fam in fp["families"]}
+        errs = [c["err"] for fam in fp["families"] for r in fam["runs"]
+                for c in r["matmul_calls"] if c["kernel"] == k["name"]]
+        errs += [c["err"] for fam in fp["families"]
+                 for d in ("main", "quantizers_off")
+                 for c in fam["scheduler"][d]["matmul_calls"]
+                 if c["kernel"] == k["name"]]
+        if k["name"] == "paged_attention":
+            errs += [r["attention"]["err"] for fam in fp["families"]
+                     for r in fam["runs"] if "attention" in r]
+            errs += [fam["scheduler"]["captured_tick"]["err"]
+                     for fam in fp["families"]
+                     if "captured_tick" in fam["scheduler"]]
+        k["max_abs_err"] = max([k["max_abs_err"]] + errs)
 
     detail["cnn_phase"] = cnn = cnn_phase()
     log(f"CNN phase ran in {cnn['phase_s']:.1f} s")

@@ -97,7 +97,12 @@ def _plan(regime: str, m: int, kend: int, n: int, unit: int, wbr: int
 
     K slices start at multiples of lcm(unit, wbr) (stream) or
     lcm(BLOCK_K, unit, wbr) (tensor), so no WB row, nibble pair or byte
-    row is cut, and no slice is empty.  Stream plans launch at least
+    row is cut, and no slice is empty.  A stream slice whose WB row would
+    not fit the x stage (wbr > X_STAGE // STREAM_ROWS, e.g. a whole-layer
+    block) starts on a unit instead and cuts the block: both decoders
+    look up a row's scale and live planes from its absolute row, and a
+    unit (nibble pair, byte row) never spans two WB rows of an aligned
+    slice.  Stream plans launch at least
     2 * N_SMS blocks (the bytes need many loads in flight), as few more as
     the alignment allows (a block past the resident wave waits for a whole
     block time, so those blocks get a short last slice), and fit the x
@@ -105,8 +110,10 @@ def _plan(regime: str, m: int, kend: int, n: int, unit: int, wbr: int
     partial tiles through L2)."""
     if regime == "stream":
         rows = STREAM_ROWS
-        align = math.lcm(unit, wbr)
         cap = X_STAGE // rows
+        align = math.lcm(unit, wbr)
+        if align > cap:
+            align = unit
     else:
         rows = 32 if m <= 32 else 128
         align = math.lcm(BLOCK_K, unit, wbr)

@@ -33,7 +33,12 @@ come from ``numpy.random.default_rng(seed)``.  An encoder-decoder
 architecture (``seamless-m4t-large-v2``) also gives each request frames
 (1, ``--prompt-len``, d_model), 0.1 x standard normal from the same
 generator: every request shares one encoder length, as the reference's
-launcher gives them, while ``--prompt-lens`` still varies the tokens.
+launcher gives them, while ``--prompt-lens`` still varies the tokens.  A
+vlm architecture (``qwen2-vl-2b``) gives each request its stub vision
+prefix, ``vision_embeds`` (1, vision_tokens, d_model), 0.1 x standard
+normal from a ``torch.Generator`` seeded with ``--seed``.  The ssm
+architecture (``rwkv6-1.6b``) has no KV cache: ``--page-size`` and
+``--kv-bits`` are ignored for it with a warning.
 Not ported yet: ``--lint`` (the graph lint).
 
 ``main(argv, params=None, record_ticks=False)`` returns what it served
@@ -205,7 +210,9 @@ def _prompts(cfg, args) -> List[Dict[str, np.ndarray]]:
     ``numpy.random.default_rng(seed)``: (1, P_i) int32 tokens, with
     ``--shared-prefix N`` the sharers' first N tokens request 0's; for an
     encoder-decoder config also (1, ``--prompt-len``, d_model) f32
-    frames, drawn after every prompt's tokens."""
+    frames, drawn after every prompt's tokens; for a vlm config
+    (1, vision_tokens, d_model) f32 ``vision_embeds`` from a CPU
+    ``torch.Generator`` seeded with ``--seed``."""
     widths = _ints(args.prompt_lens) or [args.prompt_len]
     rng = np.random.default_rng(args.seed)
     toks = [rng.integers(0, cfg.vocab, (1, widths[i % len(widths)]))
@@ -223,6 +230,12 @@ def _prompts(cfg, args) -> List[Dict[str, np.ndarray]]:
         for x in inputs:
             x["frames"] = (rng.standard_normal(
                 (1, args.prompt_len, cfg.d_model)) * 0.1).astype(np.float32)
+    if cfg.family == "vlm":
+        gen = torch.Generator().manual_seed(args.seed)
+        for x in inputs:
+            x["vision_embeds"] = (torch.randn(
+                (1, cfg.vision_tokens, cfg.d_model), generator=gen) *
+                0.1).numpy()
     return inputs
 
 

@@ -1,11 +1,17 @@
-"""Model API over the decoder-only LM (dense and MoE families) and the
-encoder-decoder family (port of those parts of ``repro.models.api``):
+"""Model API over the decoder-only LM (dense, MoE, vlm, ssm and hybrid
+families) and the encoder-decoder family (port of ``repro.models.api``):
 init and the abstract template of a checkpoint restore, the training
 loss (dense family only), prefill, decode, and
 per-slot insertion into a live decode state.  The MoE family differs
 only in its forward; an encoder-decoder state also holds the encoder
 output, one ``(S_enc, d_model)`` row a slot (``enc_out``), written by a
-prompt's first chunk and read by its later chunks and decode steps.
+prompt's first chunk and read by its later chunks and decode steps.  A
+vlm prompt carries ``vision_embeds`` (B, vision_tokens, d_model), which
+ride its first chunk and fill the first ``vision_tokens`` cache
+positions; the ssm and hybrid caches hold recurrent rows, which a new
+request's first chunk zeroes.  The reference's abstract input specs per
+shape cell (``jax.ShapeDtypeStruct`` for its dry run) have no
+counterpart: the port has no dry run.
 
 The decode state is updated in place: methods that take a state write its
 cache tensors and return a state dict holding the same tensors.
@@ -34,6 +40,17 @@ def _write_rows(big: torch.Tensor, small: torch.Tensor, slot: int,
     big[tuple(index)] = small.to(big.dtype)
 
 
+def _write_tree(big, small, slot: int) -> None:
+    """Write every leaf of a standalone prefill's cache tree ``small`` into
+    the live cache ``big`` at batch row ``slot`` (dim 1 of the stacked
+    leaves; time axes from position 0)."""
+    if isinstance(big, dict):
+        for name, leaf in big.items():
+            _write_tree(leaf, small[name], slot)
+        return
+    _write_rows(big, small, slot, batch_dim=1)
+
+
 def _write_enc_out(state, enc_out: torch.Tensor, slot: int) -> None:
     """Write a prompt's encoder output into ``state["enc_out"]`` at row
     ``slot``; cross-attention has no per-row length mask, so every row
@@ -54,15 +71,27 @@ def cache_is_paged(cache) -> bool:
     return False
 
 
-def _row_cache_view(cache, slot: int):
-    """Single-slot view of a decode cache: a paged cache keeps the whole
-    page pool but narrows the block table to ``slot``'s row; contiguous
-    leaves (stack, B, ...) are row-sliced on the batch dim.  All views, so
-    writes through them land in ``cache``.  (The dense and MoE families
-    have no recurrent rows to zero for a fresh request.)"""
-    if "table" in cache:
-        return dict(cache, table=cache["table"][:, slot:slot + 1])
-    return {k: v[:, slot:slot + 1] for k, v in cache.items()}
+def _row_cache_view(cache, slot: int, fresh: bool = False):
+    """Single-slot view of a decode cache: paged sub-dicts keep the whole
+    page pool but narrow the block table to ``slot``'s row; contiguous KV
+    and recurrent leaves (stack, B, ...) are row-sliced on the batch dim.
+    All views, so writes through them land in ``cache``.
+
+    ``fresh`` zeroes the slot's *recurrent* rows in place: a view that
+    starts a new request (its first prompt chunk) must read the zero
+    state a standalone prefill starts from, not the rwkv / mamba state of
+    the slot's previous occupant.  KV rows are left as they are: stale
+    positions stay masked by the fill level."""
+    if isinstance(cache, dict):
+        if "table" in cache:
+            return dict(cache, table=cache["table"][:, slot:slot + 1])
+        if "k" in cache and "v" in cache:
+            return {k: v[:, slot:slot + 1] for k, v in cache.items()}
+        return {k: _row_cache_view(v, slot, fresh) for k, v in cache.items()}
+    row = cache[:, slot:slot + 1]
+    if fresh:
+        row.zero_()
+    return row
 
 
 def _row_cache_unview(big, row, slot: int):
@@ -116,21 +145,26 @@ class ModelAPI:
         ``extra_slots`` reserves positions for the decode steps that
         follow.  Returns (last-token logits, {"cache": ...}); an
         encoder-decoder batch also carries ``frames`` (B, S_enc, d_model),
-        and the state its ``enc_out``."""
+        and the state its ``enc_out``; a vlm batch carries
+        ``vision_embeds``, whose prefix the cache holds in front of the
+        tokens."""
         tokens = batch["tokens"]
         b, s = tokens.shape
-        if self.cfg.is_encdec:
-            cache = encdec.encdec_init_cache(self.cfg, b, s + extra_slots,
+        cfg = self.cfg
+        if cfg.is_encdec:
+            cache = encdec.encdec_init_cache(cfg, b, s + extra_slots,
                                              tokens.device)
             logits, cache, enc_out = encdec.encdec_forward(
-                params, self.cfg, batch["frames"], tokens, cache, 0,
+                params, cfg, batch["frames"], tokens, cache, 0,
                 backend=backend, attn_backend=attn_backend)
             return logits[:, -1], {"cache": cache, "enc_out": enc_out}
-        cache = transformer.init_cache(self.cfg, b, s + extra_slots,
-                                       tokens.device)
+        extra = (cfg.vision_tokens if cfg.family == "vlm" else 0) + \
+            extra_slots
+        cache = transformer.init_cache(cfg, b, s + extra, tokens.device)
         logits, cache = transformer.forward(
-            params, self.cfg, tokens, positions=batch.get("positions"),
-            cache=cache, index=0, backend=backend, attn_backend=attn_backend)
+            params, cfg, tokens, vision_embeds=batch.get("vision_embeds"),
+            positions=batch.get("positions"), cache=cache, index=0,
+            backend=backend, attn_backend=attn_backend)
         return logits[:, -1], {"cache": cache}
 
     def decode_step(self, params, tokens, state, index, *,
@@ -203,8 +237,12 @@ class ModelAPI:
 
         An encoder-decoder prompt's ``frames`` go with its first chunk
         only (``start == 0``): that chunk runs the encoder and writes the
-        slot's ``enc_out`` row, and later chunks read that row."""
-        row_cache = _row_cache_view(state["cache"], slot)
+        slot's ``enc_out`` row, and later chunks read that row.  A vlm
+        prompt's ``vision_embeds`` ride its first chunk likewise; its
+        later chunks start at their cache position, the vision prefix
+        included.  A chunk at ``start == 0`` zeroes the slot's recurrent
+        rows first."""
+        row_cache = _row_cache_view(state["cache"], slot, fresh=start == 0)
         if self.cfg.is_encdec:
             be = dict(backend=backend, attn_backend=attn_backend)
             if "frames" in batch:
@@ -217,10 +255,14 @@ class ModelAPI:
                     params, self.cfg, batch["tokens"], row_cache, start,
                     state["enc_out"][slot:slot + 1], **be)
             return logits, state
-        positions = transformer.decode_positions(
-            start, 1, batch["tokens"].shape[1], batch["tokens"].device)
+        positions = None
+        if batch.get("vision_embeds") is None:
+            positions = transformer.model_positions(
+                self.cfg, start, 1, batch["tokens"].shape[1],
+                batch["tokens"].device)
         logits, row_cache = transformer.forward(
-            params, self.cfg, batch["tokens"], positions=positions,
+            params, self.cfg, batch["tokens"],
+            vision_embeds=batch.get("vision_embeds"), positions=positions,
             cache=row_cache, index=start, backend=backend,
             attn_backend=attn_backend)
         return logits, dict(state, cache=_row_cache_unview(
@@ -245,8 +287,7 @@ class ModelAPI:
         logits, sub = self.prefill(params, batch, extra_slots=0, **be)
         if "enc_out" in state:
             _write_enc_out(state, sub["enc_out"], slot)
-        for name, big in state["cache"].items():
-            _write_rows(big, sub["cache"][name], slot, batch_dim=1)
+        _write_tree(state["cache"], sub["cache"], slot)
         return logits, state
 
 

@@ -1,5 +1,5 @@
-"""Grouped-query attention with RoPE, sliding windows, softcaps and a
-KV-cache decode path (port of ``repro.models.attention``).
+"""Grouped-query attention with RoPE / M-RoPE, sliding windows, softcaps
+and a KV-cache decode path (port of ``repro.models.attention``).
 
 The KV cache is updated IN PLACE: where the reference rebuilds the cache
 functionally (``dynamic_update_slice`` / ``.at[].set`` and a new dict per
@@ -19,9 +19,9 @@ from ..core.quantize import pack_int4, unpack_int4
 from ..kernels.paged_attention import paged_attention
 from ..kernels.ref import paged_attention_ref
 from ..kernels.tiling import fit_block
-from .common import qmatmul
+from .common import make_weight, qmatmul
 from .common import softcap as _softcap
-from .rope import apply_rope, rope_angles
+from .rope import apply_rope, mrope_angles, rope_angles
 
 NEG_INF = -2.0e38
 INT32_MIN = -2 ** 31
@@ -36,6 +36,27 @@ ATTN_OPTS = {"min_elems": 4096 * 2048, "q_block": 512, "kv_block": 1024}
 # plain PyTorch version.  Non-gather backends serve one-token causal decode
 # only; every other shape takes the gather read side.
 PAGED_ATTN_BACKENDS = ("gather", "fused", "ref")
+
+
+def init_attn(d_model: int, n_heads: int, n_kv: int, d_head: int, qc, *,
+              generator: torch.Generator, device, qkv_bias: bool = False,
+              d_model_in: Optional[int] = None) -> Dict:
+    """One unstacked attention parameter set; ``d_model_in`` is the input
+    width where it differs from the output's (zamba2's shared block reads
+    ``concat(h, emb0)``, 2 * d_model wide)."""
+    din = d_model_in or d_model
+    mk = dict(generator=generator, device=device)
+    p = {
+        "wq": make_weight((din, n_heads * d_head), qc, **mk),
+        "wk": make_weight((din, n_kv * d_head), qc, **mk),
+        "wv": make_weight((din, n_kv * d_head), qc, **mk),
+        "wo": make_weight((n_heads * d_head, d_model), qc, **mk),
+    }
+    if qkv_bias:
+        for name, width in (("bq", n_heads), ("bk", n_kv), ("bv", n_kv)):
+            p[name] = torch.zeros((width * d_head,), dtype=torch.float32,
+                                  device=device)
+    return p
 
 
 def fill_levels(idx, b: int, device) -> torch.Tensor:
@@ -291,7 +312,7 @@ def attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def attn_forward(p: Dict, x: torch.Tensor, positions: torch.Tensor, *,
                  n_heads: int, n_kv: int, d_head: int, rope_theta: float,
                  causal: bool = True, window: int = 0,
-                 attn_softcap: float = 0.0,
+                 attn_softcap: float = 0.0, mrope: bool = False,
                  x_kv: Optional[torch.Tensor] = None,
                  kv_positions: Optional[torch.Tensor] = None,
                  cache: Optional[Dict] = None,
@@ -305,7 +326,9 @@ def attn_forward(p: Dict, x: torch.Tensor, positions: torch.Tensor, *,
     makes it cross-attention: K and V are projected from ``x_kv`` (at
     ``kv_positions``, which only cross-attention reads), nothing is
     roped, no mask applies, and the caller passes no cache (the reference
-    recomputes cross K/V every call)."""
+    recomputes cross K/V every call).  ``mrope``: ``positions`` are
+    (B, S, 3) M-RoPE ids; their temporal stream feeds the masks and the
+    fill levels."""
     b = x.shape[0]
     xk_src = x if x_kv is None else x_kv
     q = qmatmul(x, p["wq"], backend)
@@ -319,7 +342,11 @@ def attn_forward(p: Dict, x: torch.Tensor, positions: torch.Tensor, *,
     k = k.reshape(*k.shape[:-1], n_kv, d_head)
     v = v.reshape(*v.shape[:-1], n_kv, d_head)
     if x_kv is None:                       # rope only for self-attention
-        ang = rope_angles(positions, d_head, rope_theta)
+        if mrope:
+            ang = mrope_angles(positions, d_head, rope_theta)
+            positions = positions[..., 0]
+        else:
+            ang = rope_angles(positions, d_head, rope_theta)
         q = apply_rope(q, ang)
         k = apply_rope(k, ang)
         kv_positions = positions

@@ -7,7 +7,19 @@ from typing import Dict
 import torch
 import torch.nn.functional as F
 
-from .common import qmatmul
+from .common import make_weight, qmatmul
+
+
+def init_mlp(d_model: int, d_ff: int, qc, *, generator: torch.Generator,
+             device, kind: str = "swiglu") -> Dict:
+    """One unstacked MLP parameter set (zamba2's shared block)."""
+    mk = dict(generator=generator, device=device)
+    if kind == "swiglu":
+        return {"w_gate": make_weight((d_model, d_ff), qc, **mk),
+                "w_up": make_weight((d_model, d_ff), qc, **mk),
+                "w_down": make_weight((d_ff, d_model), qc, **mk)}
+    return {"w_in": make_weight((d_model, d_ff), qc, **mk),
+            "w_out": make_weight((d_ff, d_model), qc, **mk)}
 
 
 def mlp_forward(p: Dict, x: torch.Tensor, kind: str = "swiglu",

@@ -1,6 +1,8 @@
-"""Rotary position embeddings, half-split rotation (port of the standard
-RoPE of ``repro.models.rope``; M-RoPE is not ported yet)."""
+"""Rotary position embeddings, half-split rotation: standard RoPE and
+Qwen2-VL M-RoPE (port of ``repro.models.rope``)."""
 from __future__ import annotations
+
+from typing import Optional, Sequence
 
 import torch
 
@@ -25,3 +27,31 @@ def apply_rope(x: torch.Tensor, angles: torch.Tensor) -> torch.Tensor:
     sin = torch.sin(angles)[..., None, :]
     return torch.cat([x1f * cos - x2f * sin,
                       x2f * cos + x1f * sin], dim=-1).to(dt)
+
+
+def mrope_angles(positions3: torch.Tensor, d_head: int, theta: float,
+                 sections: Optional[Sequence[int]] = None) -> torch.Tensor:
+    """Qwen2-VL multimodal RoPE.
+
+    positions3: (B, S, 3) = (temporal, height, width) position ids.  The
+    d_head//2 frequency slots are split into ``sections`` (t, h, w); each
+    section rotates with its own position stream.  Text tokens carry equal
+    (t, h, w) ids, which makes M-RoPE degenerate to standard RoPE for them.
+    """
+    half = d_head // 2
+    if sections is None:
+        # Qwen2-VL ratio (16, 24, 24)/64 generalized to any head size
+        hw = 3 * half // 8
+        sections = (half - 2 * hw, hw, hw)
+    if sum(sections) != half:
+        raise ValueError(f"sections {tuple(sections)} must sum to {half}")
+    dev = positions3.device
+    exps = torch.arange(half, dtype=torch.float32, device=dev) / half
+    inv_freq = 1.0 / (theta ** exps)
+    sec_id = torch.repeat_interleave(
+        torch.arange(len(sections), device=dev),
+        torch.tensor(list(sections), device=dev))
+    # per-frequency-slot positions (B, S, half), as take_along_axis
+    pos = torch.gather(positions3.to(torch.float32), -1,
+                       sec_id.expand(*positions3.shape[:-1], half))
+    return pos * inv_freq

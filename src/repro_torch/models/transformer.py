@@ -1,7 +1,15 @@
-"""Decoder-only LM assembly, dense and MoE families (port of the dense,
-MoE, cache and loss parts of ``repro.models.transformer``); the
-encoder-decoder family (``models/encdec.py``) reuses its layer walk
-helpers and caches.
+"""Decoder-only LM assembly: dense / MoE / vlm / ssm / hybrid families
+(port of ``repro.models.transformer``); the encoder-decoder family
+(``models/encdec.py``) reuses its layer walk helpers and caches.
+
+The vlm family (qwen2-vl) is the dense walk with M-RoPE and a vision
+prefix projected through ``vision_proj``; ssm (rwkv6) walks RWKV-6 layers
+with a recurrent state a layer; hybrid (zamba2) walks Mamba-2 layers and
+calls ONE shared attention + MLP block every ``hybrid_attn_every`` layers
+on ``concat(h, emb0)``, with a KV cache of its own for each call.  A
+decode cache is a tree: KV sub-dicts (``{"k", "v", ...}`` leaves with a
+time axis, or their paged ``{"pages", "table"}`` form) and recurrent
+leaves (no time axis), nested for the hybrid (``{"mamba", "attn"}``).
 
 Params hold stacked (L, ...) leaves.  Where the reference scans over
 layers, the port runs a Python loop over the layers, which each forward
@@ -12,8 +20,8 @@ training the backward stacks each leaf's layer gradients once (slicing a
 layer with ``tensor[i]`` would write a zero buffer the size of the whole
 stack for every layer).  With ``cfg.remat`` each layer body is
 recomputed in the backward (``torch.utils.checkpoint``), as the
-reference's ``jax.checkpoint``.  The KV cache is written in place through
-per-layer views.
+reference's ``jax.checkpoint``.  The KV cache and the recurrent states are
+written in place through per-layer views.
 """
 from __future__ import annotations
 
@@ -24,11 +32,15 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
-from .attention import attn_forward, fill_levels
+from .attention import attn_forward, fill_levels, init_attn
 from .common import (act_quant, embed_init, make_weight, prepare_params,
                      qmatmul, rms_norm, softcap)
-from .ffn import mlp_forward
+from .ffn import init_mlp, mlp_forward
 from .moe import init_moe, moe_forward
+from .rwkv import init_rwkv6, rwkv6_forward, rwkv6_init_state
+from .ssm import init_mamba2, mamba2_forward, mamba2_init_state
+
+_FAMILIES = ("dense", "moe", "vlm", "ssm", "hybrid")
 
 
 def _cdtype(cfg: ModelConfig) -> torch.dtype:
@@ -36,23 +48,27 @@ def _cdtype(cfg: ModelConfig) -> torch.dtype:
 
 
 def _check_family(cfg: ModelConfig) -> None:
-    if not (cfg.family in ("dense", "moe") or cfg.is_encdec) or cfg.mrope:
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet; the port serves the "
-            f"dense, moe and encoder-decoder families")
+    if not (cfg.family in _FAMILIES or cfg.is_encdec):
+        raise ValueError(f"unknown family {cfg.family!r}; the port serves "
+                         f"{_FAMILIES} and the encoder-decoder family")
 
 
 def check_trainable(cfg: ModelConfig) -> None:
     """Training is ported for the dense family only: the MoE grouped
-    product has no backward and the loss no load-balancing term yet, and
-    the encoder-decoder loss (``encdec_loss``) and its frames batches are
-    not ported."""
+    product has no backward and the loss no load-balancing term yet, the
+    encoder-decoder loss (``encdec_loss``) and its frames batches are not
+    ported, and neither is training of the vlm, ssm and hybrid
+    families."""
     _check_family(cfg)
     if cfg.is_encdec:
         raise NotImplementedError(
             f"training the {cfg.family!r} family (encoder-decoder) is not "
             f"ported yet (encdec_loss and the frames batches); the port "
             f"trains the dense family")
+    if cfg.family in ("vlm", "ssm", "hybrid"):
+        raise NotImplementedError(
+            f"training the {cfg.family!r} family is not ported yet (the "
+            f"port serves it); the port trains the dense family")
     if cfg.family != "dense" or cfg.n_experts:
         raise NotImplementedError(
             f"training the {cfg.family!r} family is not ported yet (the "
@@ -67,7 +83,9 @@ def check_trainable(cfg: ModelConfig) -> None:
 def _init_block(cfg: ModelConfig, stack: int, generator: torch.Generator,
                 device) -> Dict:
     """One stacked parameter set for ``stack`` homogeneous layers: an MoE
-    config holds a ``"moe"`` subtree where a dense one holds ``"mlp"``."""
+    config holds a ``"moe"`` subtree where a dense one holds ``"mlp"``;
+    ssm layers are RWKV-6 blocks, hybrid ones Mamba-2 blocks with their
+    pre-norm ``ln``."""
     _check_family(cfg)
     qc = cfg.quant
     d, dh = cfg.d_model, cfg.head_dim
@@ -76,6 +94,14 @@ def _init_block(cfg: ModelConfig, stack: int, generator: torch.Generator,
     def zeros(*shape):
         return torch.zeros(shape, dtype=torch.float32, device=device)
 
+    if cfg.family == "ssm":
+        return init_rwkv6(d, cfg.n_heads, qc, stack=stack, d_ff=cfg.d_ff,
+                          **mk)
+    if cfg.family == "hybrid":
+        p = init_mamba2(d, cfg.ssm_state, qc, expand=cfg.ssm_expand,
+                        headdim=cfg.ssm_headdim, stack=stack, **mk)
+        p["ln"] = zeros(stack, d)
+        return p
     p: Dict[str, Any] = {"ln_attn": zeros(stack, d),
                          "ln_mlp": zeros(stack, d)}
     if cfg.use_post_norms:
@@ -125,6 +151,21 @@ def init_lm(cfg: ModelConfig, generator: torch.Generator, device) -> Dict:
         params["lm_head"] = make_weight(
             (d, cfg.vocab), cfg.quant, generator=generator, device=device,
             quantize=cfg.quant.quantize_embeddings)
+    mk = dict(generator=generator, device=device)
+    if cfg.family == "hybrid" and cfg.hybrid_attn_every:
+        # zamba2: ONE shared attention block, called every k layers on
+        # concat(hidden, original embedding) (2 * d input)
+        params["shared_attn"] = init_attn(
+            d, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.quant,
+            d_model_in=2 * d, **mk)
+        params["shared_ln"] = torch.zeros((2 * d,), dtype=torch.float32,
+                                          device=device)
+        params["shared_mlp"] = init_mlp(d, cfg.d_ff, cfg.quant,
+                                        kind=cfg.mlp_kind, **mk)
+        params["shared_ln2"] = torch.zeros((d,), dtype=torch.float32,
+                                           device=device)
+    if cfg.family == "vlm":
+        params["vision_proj"] = make_weight((d, d), cfg.quant, **mk)
     return params
 
 
@@ -167,8 +208,9 @@ def _attn_block(lp, h, positions, cfg: ModelConfig, layer: int, cache,
     out, new_cache = attn_forward(
         lp["attn"], x, positions, n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads,
         d_head=cfg.head_dim, rope_theta=cfg.rope_theta, causal=True,
-        window=window, attn_softcap=cfg.attn_softcap, cache=cache,
-        cache_index=index, backend=backend, attn_backend=attn_backend)
+        window=window, attn_softcap=cfg.attn_softcap, mrope=cfg.mrope,
+        cache=cache, cache_index=index, backend=backend,
+        attn_backend=attn_backend)
     if cfg.use_post_norms:
         out = rms_norm(out, lp["ln_attn_post"])
     return h + out, new_cache
@@ -216,25 +258,106 @@ def _walk_dense(mp, cfg, h, positions, cache, index, backend, attn_backend):
     return h, aux, cache
 
 
-def _embed_inputs(mp, cfg: ModelConfig, tokens, positions):
+def _write_state(view: Dict, new: Dict) -> None:
+    """Write a layer's new recurrent state into its cache views."""
+    for name, val in new.items():
+        view[name].copy_(val)
+
+
+def _walk_ssm(mp, cfg, h, cache, backend):
+    """Loop over the RWKV-6 layers; each layer's state views are written
+    in place."""
+    for i, lp in enumerate(_unstack(mp["layers"], cfg.n_layers)):
+        state = _layer(cache, i) if cache is not None else None
+        h, new = rwkv6_forward(lp, h, n_heads=cfg.n_heads,
+                               chunk=cfg.rwkv_chunk, state=state,
+                               backend=backend)
+        if state is not None:
+            _write_state(state, new)
+    return h, cache
+
+
+def _walk_hybrid(mp, cfg, h, emb0, positions, cache, index, backend,
+                 attn_backend):
+    """zamba2: the Mamba-2 trunk, and after every ``period`` layers ONE
+    shared attention + MLP block on ``concat(h, emb0)`` with its own KV
+    cache for that call; the ``n_layers % period`` last layers form a tail
+    with no shared call after it.  Every state is written in place."""
+    period = cfg.hybrid_attn_every
+    n = cfg.n_layers
+    n_super = n // period if period else 0
+    layers = _unstack(mp["layers"], n)
+    mstates = cache["mamba"] if cache is not None else None
+    acaches = cache["attn"] if cache is not None else None
+
+    def mamba(li, h):
+        lp = layers[li]
+        state = _layer(mstates, li) if mstates is not None else None
+        out, new = mamba2_forward(
+            {k: v for k, v in lp.items() if k != "ln"},
+            rms_norm(h, lp["ln"]), n_state=cfg.ssm_state,
+            headdim=cfg.ssm_headdim, chunk=cfg.ssm_chunk, state=state,
+            backend=backend)
+        if state is not None:
+            _write_state(state, new)
+        return h + out
+
+    for si in range(n_super):
+        for li in range(si * period, (si + 1) * period):
+            h = mamba(li, h)
+        xcat = rms_norm(torch.cat([h, emb0], dim=-1), mp["shared_ln"])
+        out, _ = attn_forward(
+            mp["shared_attn"], xcat, positions, n_heads=cfg.n_heads,
+            n_kv=cfg.n_kv_heads, d_head=cfg.head_dim,
+            rope_theta=cfg.rope_theta, causal=True,
+            cache=_layer(acaches, si) if acaches is not None else None,
+            cache_index=index, backend=backend, attn_backend=attn_backend)
+        h = h + out
+        h = h + mlp_forward(mp["shared_mlp"], rms_norm(h, mp["shared_ln2"]),
+                            cfg.mlp_kind, backend)
+    for li in range(n_super * period, n):
+        h = mamba(li, h)
+    return h, cache
+
+
+def _embed_inputs(mp, cfg: ModelConfig, tokens, vision_embeds, positions,
+                  backend):
+    """Token embeddings, a vlm prompt's projected vision prefix in front,
+    and the default positions: 0.. over the whole sequence, three equal
+    streams under M-RoPE."""
     h = mp["embed"][tokens.long()]
+    if cfg.family == "vlm" and vision_embeds is not None:
+        v = qmatmul(vision_embeds, mp["vision_proj"], backend)
+        h = torch.cat([v.to(h.dtype), h], dim=1)
     b, s, _ = h.shape
     if positions is None:
         positions = torch.arange(s, dtype=torch.int32,
                                  device=tokens.device)[None, :].expand(b, s)
+        if cfg.mrope:
+            positions = torch.stack([positions] * 3, dim=-1)
     return h.to(_cdtype(cfg)), positions
 
 
-def forward_aux(params, cfg: ModelConfig, tokens, *, positions=None,
-                cache=None, index=None, backend: str = "dense",
-                attn_backend: str = "gather"):
+def forward_aux(params, cfg: ModelConfig, tokens, *, vision_embeds=None,
+                positions=None, cache=None, index=None,
+                backend: str = "dense", attn_backend: str = "gather"):
     """Returns (logits f32 (B, S, V), the summed MoE aux loss, cache
     written in place), the reference's ``forward``."""
     _check_family(cfg)
     mp = prepare_params(params, _cdtype(cfg))
-    h, positions = _embed_inputs(mp, cfg, tokens, positions)
-    h, aux, cache = _walk_dense(mp, cfg, h, positions, cache, index,
+    h, positions = _embed_inputs(mp, cfg, tokens, vision_embeds, positions,
+                                 backend)
+    emb0 = h
+    if cfg.family == "ssm":
+        h, cache = _walk_ssm(mp, cfg, h, cache, backend)
+        aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    elif cfg.family == "hybrid":
+        h, cache = _walk_hybrid(mp, cfg, h, emb0, positions, cache, index,
                                 backend, attn_backend)
+        aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    else:
+        h, aux, cache = _walk_dense(mp, cfg, h, positions, cache, index,
+                                    backend, attn_backend)
     h = rms_norm(h, mp["final_norm"])
     head = mp["lm_head"] if "lm_head" in mp else mp["embed"].T
     logits = qmatmul(h, head, backend).to(torch.float32)
@@ -302,31 +425,76 @@ def make_kv_cache(cfg: ModelConfig, stack: int, batch: int, max_len: int,
     return {"k": z(shape, dt), "v": z(shape, dt)}
 
 
+def _walk_cache_tree(cache, kv_fn, leaf_fn):
+    """Apply ``kv_fn`` to the KV sub-dicts ({"k", "v", ...} leaves with a
+    time axis) and ``leaf_fn`` to the recurrent leaves (no time axis) of a
+    stacked decode-cache tree."""
+    if isinstance(cache, dict):
+        if "k" in cache and "v" in cache:
+            return kv_fn(cache)
+        return {k: _walk_cache_tree(v, kv_fn, leaf_fn)
+                for k, v in cache.items()}
+    return leaf_fn(cache)
+
+
+def _zeros_like_rows(leaf: torch.Tensor, n_slots: int) -> torch.Tensor:
+    return torch.zeros((leaf.shape[0], n_slots, *leaf.shape[2:]),
+                       dtype=leaf.dtype, device=leaf.device)
+
+
 def rebatch_cache_tree(cache, n_slots: int, time_len: int):
     """Zero contiguous decode cache of ``n_slots`` slots of ``time_len``
-    positions, mirroring ``cache``'s tree and dtypes."""
-    return {n: torch.zeros((l.shape[0], n_slots, time_len, *l.shape[3:]),
-                           dtype=l.dtype, device=l.device)
-            for n, l in cache.items()}
+    positions, mirroring ``cache``'s tree and dtypes; recurrent leaves
+    become ``n_slots`` zero rows."""
+    return _walk_cache_tree(
+        cache,
+        lambda node: {n: torch.zeros((l.shape[0], n_slots, time_len,
+                                      *l.shape[3:]), dtype=l.dtype,
+                                     device=l.device)
+                      for n, l in node.items()},
+        lambda l: _zeros_like_rows(l, n_slots))
 
 
 def paginate_cache_tree(cache, n_slots: int, n_pages: int, page_size: int,
                         nb: int):
-    """Zero *paged* decode cache mirroring contiguous ``cache``: pool
-    leaves (stack, n_pages, page_size, ...) in the same storage dtypes and
-    a (stack, n_slots, nb) block table that starts all-trash (page 0)."""
-    k = cache["k"]
-    return {
-        "pages": {n: torch.zeros((l.shape[0], n_pages, page_size,
-                                  *l.shape[3:]), dtype=l.dtype,
-                                 device=l.device)
-                  for n, l in cache.items()},
-        "table": torch.zeros((k.shape[0], n_slots, nb), dtype=torch.int32,
-                             device=k.device)}
+    """Zero *paged* decode cache mirroring contiguous ``cache``: every KV
+    sub-dict becomes pool leaves (stack, n_pages, page_size, ...) in the
+    same storage dtypes and a (stack, n_slots, nb) block table that starts
+    all-trash (page 0); recurrent leaves are re-batched rows, as in
+    :func:`rebatch_cache_tree`."""
+    def kv(node):
+        k = node["k"]
+        return {
+            "pages": {n: torch.zeros((l.shape[0], n_pages, page_size,
+                                      *l.shape[3:]), dtype=l.dtype,
+                                     device=l.device)
+                      for n, l in node.items()},
+            "table": torch.zeros((k.shape[0], n_slots, nb),
+                                 dtype=torch.int32, device=k.device)}
+    return _walk_cache_tree(cache, kv, lambda l: _zeros_like_rows(l, n_slots))
+
+
+def _stacked(state: Dict, n: int) -> Dict:
+    return {k: torch.zeros((n, *a.shape), dtype=a.dtype, device=a.device)
+            for k, a in state.items()}
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, device) -> Dict:
+    """A zero decode cache: KV for the dense / MoE / vlm families, the
+    stacked RWKV-6 states for ssm, ``{"mamba", "attn"}`` for the hybrid
+    (the shared block's KV stack holds one layer a shared call)."""
     _check_family(cfg)
+    dt = _cdtype(cfg)
+    if cfg.family == "ssm":
+        return _stacked(rwkv6_init_state(batch, cfg.d_model, cfg.n_heads,
+                                         dt, device), cfg.n_layers)
+    if cfg.family == "hybrid":
+        mst = mamba2_init_state(batch, cfg.d_model, cfg.ssm_state, dt,
+                                device, cfg.ssm_expand, cfg.ssm_headdim)
+        n_super = cfg.n_layers // cfg.hybrid_attn_every \
+            if cfg.hybrid_attn_every else 0
+        return {"mamba": _stacked(mst, cfg.n_layers),
+                "attn": make_kv_cache(cfg, n_super, batch, max_len, device)}
     return make_kv_cache(cfg, cfg.n_layers, batch, max_len, device)
 
 
@@ -338,11 +506,20 @@ def decode_positions(index, batch: int, seq: int = 1,
     return base + torch.arange(seq, dtype=torch.int32, device=device)
 
 
+def model_positions(cfg: ModelConfig, index, batch: int, seq: int = 1,
+                    device=None) -> torch.Tensor:
+    """:func:`decode_positions`, as three equal streams (B, S, 3) under
+    M-RoPE."""
+    pos = decode_positions(index, batch, seq, device)
+    return torch.stack([pos] * 3, dim=-1) if cfg.mrope else pos
+
+
 def decode_step(params, cfg: ModelConfig, tokens, cache, index, *,
                 backend: str = "dense", attn_backend: str = "gather"):
     """One-token step.  tokens: (B, 1); index: the shared fill level (int
     or 0-d) or a per-slot (B,) vector."""
-    positions = decode_positions(index, tokens.shape[0], 1, tokens.device)
+    positions = model_positions(cfg, index, tokens.shape[0], 1,
+                                tokens.device)
     logits, cache = forward(params, cfg, tokens, positions=positions,
                             cache=cache, index=index, backend=backend,
                             attn_backend=attn_backend)
@@ -358,7 +535,7 @@ def verify_step(params, cfg: ModelConfig, tokens, cache, index, *,
     full (B, W, V) logits and the cache with all W positions (re)written
     (attention reads through the gather path: the fused kernel serves one
     token)."""
-    positions = decode_positions(index, tokens.shape[0], tokens.shape[1],
-                                 tokens.device)
+    positions = model_positions(cfg, index, tokens.shape[0], tokens.shape[1],
+                                tokens.device)
     return forward(params, cfg, tokens, positions=positions, cache=cache,
                    index=index, backend=backend, attn_backend=attn_backend)

@@ -105,6 +105,11 @@ class ServeEngine:
             if self.kv_quant_bits not in (4, 8):
                 raise ValueError(f"kv_quant_bits must be 4, 8 or >=32, "
                                  f"got {self.kv_quant_bits}")
+            if cfg.family == "ssm":
+                warnings.warn(
+                    f"kv_quant_bits={self.kv_quant_bits} has no effect on "
+                    f"family 'ssm': recurrent state has no KV cache and "
+                    f"serves at full precision", stacklevel=2)
             cfg = dataclasses.replace(cfg, kv_cache_bits=self.kv_quant_bits)
             self.api = ModelAPI(cfg)
         if self.backend == "bitplane":
@@ -132,7 +137,7 @@ class ServeEngine:
         # accepted_drafts and emitted token counts over the batch
         self.round_log: List[Dict[str, int]] = []
         if self.speculate_planes:
-            if cfg.is_encdec:
+            if cfg.is_encdec or cfg.family in ("ssm", "hybrid", "rwkv"):
                 raise ValueError(
                     f"speculate_planes needs a purely positional KV cache "
                     f"(rejected drafts roll back by fill level); family "
@@ -229,7 +234,8 @@ class ServeEngine:
     def park_slot(self, state: Any, slot: int, pages) -> Dict[str, Any]:
         """Snapshot everything batch row ``slot`` holds to host memory:
         its pool pages (in ``pages``/block order) from every paged KV
-        sub-dict, its row of every non-paged per-slot cache leaf, and its
+        sub-dict, its row of every non-paged per-slot cache leaf (the
+        recurrent rwkv / mamba state among them), and its
         encoder output row if the family has one (``enc_out``).  The
         stored representation is copied as raw bytes (quantized payloads
         and scales, no dequantization), so :meth:`restore_slot`
@@ -305,10 +311,13 @@ class ServeEngine:
         return state
 
     def prompt_width(self, batch: Dict[str, Any]) -> int:
-        """Cache positions a prompt occupies: its tokens (the ported
-        families have no vision prefix; an encoder-decoder prompt's
-        frames fill ``enc_out``, not the cache)."""
-        return int(batch["tokens"].shape[1])
+        """Cache positions a prompt occupies: its tokens and a vlm
+        prompt's vision prefix (an encoder-decoder prompt's frames fill
+        ``enc_out``, not the cache)."""
+        p = int(batch["tokens"].shape[1])
+        if self.api.cfg.family == "vlm":
+            p += self.api.cfg.vision_tokens
+        return p
 
     # ---- one-shot API (static batch) ------------------------------------
     def generate(self, batch: Dict[str, Any], max_new: int = 16,
@@ -316,7 +325,9 @@ class ServeEngine:
                  generator: Optional[torch.Generator] = None,
                  temperature: float = 1.0, top_k: int = 0) -> torch.Tensor:
         """batch: {"tokens": (B, P)}, plus ``frames`` (B, S_enc, d_model)
-        for the encoder-decoder family.  Returns (B, max_new) int32 tokens.
+        for the encoder-decoder family or ``vision_embeds`` (B,
+        vision_tokens, d_model) for the vlm family.  Returns (B, max_new)
+        int32 tokens.
 
         ``greedy`` (or no ``generator``) takes the per-step argmax;
         otherwise tokens are drawn at ``temperature`` over the ``top_k``
@@ -337,7 +348,7 @@ class ServeEngine:
         outs: List[torch.Tensor] = []
         tok = pick(logits)            # first token sampled like the rest
         outs.append(tok[:, 0])
-        index = int(batch["tokens"].shape[1])
+        index = self.prompt_width(batch)
         for _ in range(max_new - 1):  # max_new-1 steps, like the scheduler
             logits, state = self.decode(tok, state, index)
             tok = pick(logits)
@@ -360,7 +371,8 @@ class ServeEngine:
         gamma = self.draft_gamma
         logits, state = self.prefill(
             batch, extra_slots=_roundup64(max_new + gamma + 1))
-        b, p = (int(d) for d in batch["tokens"].shape)
+        b = int(batch["tokens"].shape[0])
+        p = self.prompt_width(batch)
         first = torch.argmax(logits, -1)
         kept = None
         if keep_logits:

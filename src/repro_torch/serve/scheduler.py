@@ -1,6 +1,5 @@
 """Slot-based continuous-batching scheduler with a paged KV option (port of
-``repro.serve.scheduler`` for the dense, MoE and encoder-decoder
-families).
+``repro.serve.scheduler``).
 
 A fixed-capacity decode batch of ``n_slots`` rows; requests are admitted
 into free slots as they arrive (their prompt is prefilled INTO the live
@@ -57,8 +56,13 @@ encoder runs once, into the slot's ``enc_out`` row, parked and restored
 with its pages), every request must share the live batch's encoder
 length, and ``prefix_cache`` is turned off with a warning, as for any
 family but dense and moe: its per-slot encoder buffer is not in the
-hashed tokens.
-Left out with their families: the ssm / vlm branches.  Left out:
+hashed tokens.  A vlm request's ``vision_embeds`` ride its first chunk
+(starting at cache position 0), and its later chunks start at their
+cache position, the vision prefix included.  The recurrent families
+(ssm, hybrid) always insert a prompt whole: their state has no fill-level
+mask, so padding would pollute it, and the chunked scans are only
+approximately invariant to where a prompt is cut.  The ssm family has no
+KV cache, so ``page_size`` is ignored for it, with a warning.  Left out:
 ``compile_footprint`` (a census of jit signatures, which eager execution
 does not have).
 """
@@ -337,6 +341,10 @@ class Scheduler:
         self.n_slots = n_slots
         self.max_len = max_len
         cfg = engine.api.cfg
+        if page_size and cfg.family == "ssm":
+            warnings.warn("family 'ssm' has no KV cache to page; "
+                          "page_size ignored", stacklevel=3)
+            page_size = 0
         if cfg.n_experts:
             from ..models.moe import GROUPED_IMPL
             if GROUPED_IMPL["impl"] == "capacity":
@@ -395,7 +403,8 @@ class Scheduler:
             "prefix_lookups": 0, "prefix_hits": 0, "prefix_hit_tokens": 0,
             "prefix_pages_registered": 0}
         # with record_ticks, one record a tick: the widths of the prompts /
-        # chunks it inserted, its plain decode forwards (0/1), draft
+        # chunks it inserted (cache positions, a vision prefix included),
+        # its plain decode forwards (0/1), draft
         # forwards and verify width, the live decoding slots, the uids that
         # got their first token and those it parked; the current tick's
         # record is kept either way
@@ -457,15 +466,20 @@ class Scheduler:
         their K/V already sit in aliased shared pages, so insertion starts
         at cache position ``skip`` and attends over the shared prefix
         exactly as later chunks attend over earlier ones.  An
-        encoder-decoder prompt's frames ride the first chunk (prefix hits
-        never happen for that family, so it starts at 0)."""
+        encoder-decoder prompt's frames and a vlm prompt's vision prefix
+        ride the first chunk, which starts at cache position 0 (prefix
+        hits never happen for those families); later chunks start at
+        their cache position, the vision offset included.  The recurrent
+        families (ssm, hybrid) always insert monolithically."""
         inputs = req.inputs
         toks = _host_tokens(inputs)
         p = toks.shape[1]
         cw = self.prefill_chunk
+        cfg = self.engine.api.cfg
+        tv = cfg.vision_tokens if cfg.family == "vlm" else 0
         if skip and (cw <= 0 or p - skip <= cw):
             return [({"tokens": toks[:, skip:]}, skip, None)]
-        if cw <= 0 or p <= cw:
+        if cw <= 0 or p <= cw or cfg.family in ("ssm", "hybrid"):
             return [(inputs, 0, None)]
         chunks = []
         n_c = -(-(p - skip) // cw)
@@ -478,12 +492,17 @@ class Scheduler:
                 # pad to the chunk width, but never past the slot's cache
                 # extent: an overflowing write would clamp (contiguous) or
                 # alias in-page offsets (paged) onto real prompt K/V
-                padded = min(cw, self.total_len - lo)
+                padded = min(cw, self.total_len - (tv + lo))
                 ct = np.pad(ct, ((0, 0), (0, padded - w)))
             b = {"tokens": ct}
-            if c == 0 and skip == 0 and "frames" in inputs:
-                b["frames"] = inputs["frames"]
-            chunks.append((b, lo, (w - 1) if last else None))
+            first = c == 0 and skip == 0
+            if first:
+                for extra in ("vision_embeds", "frames"):
+                    if extra in inputs:
+                        b[extra] = inputs[extra]
+            start = 0 if first else tv + lo
+            col = ((tv if first else 0) + w - 1) if last else None
+            chunks.append((b, start, col))
         return chunks
 
     # ---- prefix cache ----------------------------------------------------
@@ -664,7 +683,9 @@ class Scheduler:
             batch, start, col = s.chunks.pop(0)
             logits, self.state = self.engine.prefill_chunk_at(
                 batch, self.state, i, start)
-            self._log["inserts"].append(int(batch["tokens"].shape[1]))
+            self._log["inserts"].append(self.engine.prompt_width(batch)
+                                        if "vision_embeds" in batch
+                                        else int(batch["tokens"].shape[1]))
             if not s.chunks:
                 self._register_prompt_pages(i)
                 self._first_token(s, logits[0, -1 if col is None else col])

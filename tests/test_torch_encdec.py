@@ -213,17 +213,18 @@ def test_encdec_forward_matches_reference(fx, which, backend):
 
 
 def test_family_gate():
-    """The enc-dec family is admitted; ssm, hybrid, vlm and M-RoPE are
-    still refused; training the enc-dec family is refused by name."""
+    """The enc-dec family is admitted, as are the ssm, hybrid and vlm
+    families and M-RoPE; a family the reference does not have is refused;
+    training the enc-dec family is refused by name."""
     from repro_torch.configs import REGISTRY
     cfg = REGISTRY[ARCH]
     assert cfg.is_encdec and cfg.family == "audio"
     ttr._check_family(cfg)
     base = REGISTRY["phi3-mini-3.8b"]
-    for bad in (dict(family="ssm"), dict(family="hybrid"),
-                dict(family="vlm"), dict(mrope=True),
-                dict(family="audio", is_encdec=True, mrope=True)):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            ttr._check_family(dataclasses.replace(base, **bad))
+    for ok in (dict(family="ssm"), dict(family="hybrid"),
+               dict(family="vlm"), dict(mrope=True)):
+        ttr._check_family(dataclasses.replace(base, **ok))
+    with pytest.raises(ValueError, match="unknown family"):
+        ttr._check_family(dataclasses.replace(base, family="nonesuch"))
     with pytest.raises(NotImplementedError, match="'audio'.*encoder-decoder"):
         ttr.check_trainable(cfg)

@@ -4,7 +4,9 @@
 * ``kernels.tiling.matmul_plan``: for the phi3 projection shapes and for
   9x8 / ragged geometry at M in {1, 4, 8, 16, 17, 20, 512}, its K slices
   partition [0, kend) exactly, start on WB-row, nibble-pair and byte-row
-  boundaries (and on 32-row tiles in the tensor regime), and decode
+  boundaries (and on 32-row tiles in the tensor regime; a stream slice
+  cuts a WB taller than the x stage on a unit boundary), fit the stream
+  regime's x stage at any WB height, and decode
   shapes launch at least two waves (264 blocks) on 132 SMs;
 * the tensor-core regime's arithmetic (each dequantized weight as two bf16
   terms hi + lo, bf16 x times both, f32 x split into two terms as well,
@@ -57,6 +59,10 @@ UNITS = {"int8": 1, "int4": 2, "bitplane": 8}
     (63, 41, 9),             # ragged N
     (3072, 100, 8),          # N not a multiple of the 128-column tile
     (30, 20, 3),             # 3x5 blocks: a byte row spans three WB rows
+    (3072, 3072, 3072),      # whole-layer blocks taller than the x stage
+    (8192, 3072, 3072),      # ... K past one block
+    (4608, 1000, 4608),      # ... a block of 4608 rows, ragged N
+    (9216, 3072, 4608),      # ... two of them
 ])
 @pytest.mark.parametrize("m", MS)
 def test_plan_partitions_k_on_aligned_boundaries(fmt, kend, n, wbr, m):
@@ -70,6 +76,9 @@ def test_plan_partitions_k_on_aligned_boundaries(fmt, kend, n, wbr, m):
         assert a1 == b0                        # contiguous, no overlap
     assert all(a < b for a, b in ranges)       # no empty slice
     align = math.lcm(unit, wbr)
+    if plan.regime == "stream" and align * STREAM_ROWS > X_STAGE:
+        # a WB row taller than the x stage: slices cut the block on units
+        align = unit
     if plan.regime == "tensor":
         align = math.lcm(align, BLOCK_K)
         assert plan.rows in (32, 128) and plan.rows >= min(m, 128)

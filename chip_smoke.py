@@ -148,10 +148,11 @@ It builds the four CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
    f32 against one-shot reruns, every one identical.
 
 7. families phase — with the enc-dec trees freed, the last three model
-   families at full width and depth, one at a time: qwen2-vl-2b (28
-   layers, M-RoPE, 256 random vision embeds a prompt, 2 KV heads at G=6),
-   rwkv6-1.6b (24 layers, no KV cache) and zamba2-1.2b (38 Mamba-2 layers,
-   one shared attention + MLP block every 6), random weights from seed
+   families at full width and about half depth (``FAMILY_DEPTH``), one at
+   a time: qwen2-vl-2b (14 of 28 layers, M-RoPE, 256 random vision
+   embeds a prompt, 2 KV heads at G=6), rwkv6-1.6b (12 of 24 layers, no
+   KV cache) and zamba2-1.2b (20 of 38 Mamba-2 layers, one shared
+   attention + MLP block every 6, a 2-layer tail), random weights from seed
    0, deployed packed int8 and as mixed-width bit planes.  One-shot B=4 x
    128 tokens, 32 new, through the kernels against the plain versions:
    quantizers off in f32 (tokens identical, logits within
@@ -211,7 +212,29 @@ It builds the four CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
    versions.  Step ms (median after the first), tokens/s, maintenance ms,
    deploy s, peak memory, bit-width and compression are reported.
 
-10. deploy phase — from a trainer's checkpoint to budget-autotuned
+10. train families phase — with the trained phi3 trees freed, BWQ-A
+   training of the five other families at full width, bf16, fake mode,
+   8-bit PACT, remat, depth cut (``TF_ARCHS``): granite-moe-3b-a800m at
+   4 layers, seamless-m4t-large-v2 at 6 + 6, qwen2-vl-2b at 4, rwkv6-1.6b
+   at 4, zamba2-1.2b at 12 (two shared calls).  3 steps of 4 x 256
+   tokens (qwen2-vl: 256 vision embeds + 256 tokens; seamless: 256
+   frames), maintenance and an alpha round at step 2, through the train
+   launcher's ``main`` (seamless, which the launcher refuses for want of
+   frames, through ``Trainer`` on ``lm_batch_for`` batches), checked as
+   in the train phase (granite's aux term finite and positive).  Each
+   trained tree deployed packed int8 and served greedily (B=4 x 64
+   tokens, 8 new) through the kernels against the plain versions,
+   launches counted (granite's plain run on the kernel run's routing;
+   zamba2 in f32, ``FAMILY_F32_TOL``; the rest bf16,
+   ``QUANT_TOL_REL[8]``).  granite also trains 2 bit-plane steps at 2
+   layers, served through ``bitplane_matmul``, and ``kernels.ops``'
+   ``bwq_dense_packed`` / ``bwq_dense_bitplane`` run on one trained
+   matrix against the plain versions.  One f32 step (2 layers; zamba2 4
+   at period 2; B=2 x 64) on the card and on the host CPU: the loss
+   within 1e-5, each gradient leaf within ``GRAD_TOL_REL``, beside the
+   card's own step on the batch's rows swapped (the witness).
+
+11. deploy phase — from a trainer's checkpoint to budget-autotuned
    bit-plane serving, full-width phi3 cut to ``DEPLOY_LAYERS`` = 2 layers
    (a 2-layer TrainState is ~3.9 GB a save), under
    ``chiprun_out/deploy_ckpt`` (free space checked first, removed at the
@@ -242,7 +265,8 @@ the card, a ``{"moe": {...}}`` line with the MoE phase's, an
 ``{"encdec": {...}}`` line with the enc-dec phase's, a
 ``{"families": {...}}`` line with the families phase's, a
 ``{"cnn": {...}}``
-line with the CNN phase's, a ``{"deploy": {...}}`` line with the deploy
+line with the CNN phase's, a ``{"train_families": {...}}`` line with the
+train families phase's, a ``{"deploy": {...}}`` line with the deploy
 phase's, a
 ``{"kernels": [...]}`` JSON line, the card's name and power
 limit, and as the last line ``{"ok": true, "device": {...}}``.  Details go
@@ -2018,7 +2042,7 @@ class RouteTrace:
             if top_k < probs.shape[-1] else torch.full_like(srt[:, 0],
                                                              math.inf)
         self.calls.append({"idx": idx.cpu(), "own": own.cpu(),
-                           "gap": gap.cpu()})
+                           "gap": gap.detach().cpu()})
         return probs, gates, idx
 
 
@@ -2811,6 +2835,11 @@ def encdec_summary(res) -> dict:
 # (hybrid: 38 Mamba-2 layers and one shared attention + MLP block called
 # every 6).  Random weights from seed 0, bf16 unless a leg says f32.
 FAMILY_ARCHS = ("qwen2-vl-2b", "rwkv6-1.6b", "zamba2-1.2b")
+# layers each family serves in the families phase: about half the
+# registered depth (28, 24, 38), to make room for the train families
+# phase (at full depth the phase took 199 s of a 871.6 s smoke);
+# zamba2 keeps its 2-layer tail past the last shared call (20 = 3 x 6 + 2)
+FAMILY_DEPTH = {"qwen2-vl-2b": 14, "rwkv6-1.6b": 12, "zamba2-1.2b": 20}
 FAMILY_BP_NEW = 8               # the bit-plane leg's new tokens
 # one fault a family, every layer's leaf at once: its K rows read one WB
 # row (8 rows) off
@@ -3141,8 +3170,8 @@ def family_scheduler(arch, tree, size=("--no-tiny",)):
 
 
 def family_phase(arch, size=("--no-tiny",)):
-    """One family at full width (``size``) and depth: random weights from
-    seed 0, deployed packed int8 and as mixed-width bit planes; one-shot
+    """One family at full width (``size``), its first ``FAMILY_DEPTH``
+    layers: random weights from seed 0, deployed packed int8 and as mixed-width bit planes; one-shot
     legs (B=4 x 128 tokens, a qwen2-vl prompt also 256 vision embeds; 32
     new) through the kernels against the plain versions: quantizers off
     in f32 (also paged, where the family has KV) with the noise witness
@@ -3158,7 +3187,9 @@ def family_phase(arch, size=("--no-tiny",)):
     out = {"arch": arch, "runs": []}
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    cfg = served_config(arch, 8, "bfloat16", size)
+    depth = min(FAMILY_DEPTH[arch],
+                served_config(arch, 8, "bfloat16", size).n_layers)
+    cfg = served_config(arch, 8, "bfloat16", size, depth)
     qat = build(cfg).init(seed=0, device=DEV)
     packed = to_serving_params(qat, 8, device=DEV)
     bp, out["bitplane_deploy"] = deploy_bitplane(qat)
@@ -3172,7 +3203,7 @@ def family_phase(arch, size=("--no-tiny",)):
     kv = 32 if cfg.family == "ssm" else 8
     log(f"{arch}: init and two deploys in {out['deploy_s']:.1f} s")
 
-    f32 = served_config(arch, 32, "float32", size)
+    f32 = served_config(arch, 32, "float32", size, depth)
     legs = ((f32, packed, 32, "kernel", NEW, cfg.family != "ssm",
              family_fault(packed, cfg), True, 8),
             (cfg, packed, kv, "kernel", NEW, False, None, False, 8),
@@ -3199,7 +3230,8 @@ def family_phase(arch, size=("--no-tiny",)):
         f"{ {k: round(v, 4) for k, v in prof['device_ms_by_part'].items()} }")
 
     t1 = time.perf_counter()
-    out["scheduler"] = family_scheduler(arch, packed, size)
+    with cut_serve_config(depth):
+        out["scheduler"] = family_scheduler(arch, packed, size)
     out["scheduler_s"] = time.perf_counter() - t1
     del packed
     torch.cuda.empty_cache()
@@ -3937,6 +3969,7 @@ def checked_trainer(base, decayed=None):
     from repro_torch.core.bitrep import QuantizedTensor, bitwidths
     from repro_torch.core.fakequant import fq_maintenance
     from repro_torch.core.state import quant_nodes
+    from repro_torch.train.step import _layers
 
     def luts(params):
         return {k: (bitwidths(q) if isinstance(q, QuantizedTensor)
@@ -3980,8 +4013,7 @@ def checked_trainer(base, decayed=None):
                         assert bool(((q.planes == 0) | (q.planes == 1))
                                     .all()), ("planes off binary", k)
                         continue
-                    for i in range(q.shape[0]):
-                        lay = q.layer(i)
+                    for i, lay in enumerate(_layers(q)):
                         assert torch.equal(fq_maintenance(lay).w, lay.w), \
                             ("w off its grid", k, i)
                 return out
@@ -3991,11 +4023,12 @@ def checked_trainer(base, decayed=None):
     return Checked
 
 
-def run_trainer(argv):
-    """``repro_torch.launch.train.main(argv)`` with the port's Trainer
-    replaced by :func:`checked_trainer`'s for the call; its printout kept.
-    Returns the trainer and the run's summary."""
-    import contextlib
+def run_trainer(argv, drive=None):
+    """``repro_torch.launch.train.main(argv)`` (or ``drive()``, which
+    builds and runs its own ``repro_torch.train.Trainer`` as ``argv``
+    says) with the port's Trainer replaced by :func:`checked_trainer`'s
+    for the call; its printout kept.  Returns the trainer and the run's
+    summary."""
     import io
     import torch
     import repro_torch.train as rt
@@ -4007,7 +4040,7 @@ def run_trainer(argv):
     t0 = time.perf_counter()
     try:
         with contextlib.redirect_stdout(buf):
-            trainer = train_main(argv)
+            trainer = train_main(argv) if drive is None else drive()
     finally:
         rt.Trainer = base
     run_s = time.perf_counter() - t0
@@ -4026,7 +4059,7 @@ def run_trainer(argv):
         maintenance_ms=trainer.maint_ms,
         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
         stdout=buf.getvalue(), **{k: [h[k] for h in hist] for k in (
-            "loss", "ce", "reg", "grad_norm", "lr", "avg_bitwidth")},
+            "loss", "ce", "aux", "reg", "grad_norm", "lr", "avg_bitwidth")},
         compression_x=hist[-1]["compression_x"],
         alpha=float(trainer.state.alpha))
 
@@ -4072,16 +4105,35 @@ def profile_step(trainer, cfg):
                              for m, k, c in sorted(top, reverse=True)[:12]])
 
 
-def serve_trained(trainer, cfg, layout, backend):
+def trained_launches(cfg, new, matmul):
+    """Launches of a contiguous greedy drive of ``new`` tokens (a prefill
+    and ``new - 1`` decode steps) on ``cfg``'s family: one encoder pass a
+    row for an enc-dec model, one vision projection for a vlm one."""
+    if cfg.is_encdec:
+        return encdec_launches(cfg, new, new - 1, 1, matmul)
+    if cfg.family in ("vlm", "ssm", "hybrid"):
+        return family_launches(cfg, new, new - 1, 1, matmul)
+    return expected_launches(cfg.n_layers, new, new - 1, matmul,
+                             layer_matmuls(cfg))
+
+
+def serve_trained(trainer, cfg, layout, backend, b=B, p=P, new=NEW,
+                  serve_cfg=None, tol=QUANT_TOL_REL[8]):
     """Deploy the trained tree (int8, ``layout``) after freeing the
-    optimizer state, then serve it greedily (int8 KV) through the kernels
-    (``backend``, ``attn_backend="fused"``; launches counted) against the
-    plain versions; the logit error while token prefixes agree must be
-    within ``QUANT_TOL_REL``."""
+    optimizer state, then serve it greedily (``b`` prompts of ``p``
+    tokens, ``new`` new; int8 KV where the family has KV) through the
+    kernels (``backend``, ``attn_backend="fused"``; launches counted) and
+    through the plain versions, at ``serve_cfg`` (default ``cfg``); the
+    logit error while token prefixes agree must be within ``tol``.  A vlm
+    prompt carries its vision prefix, an enc-dec prompt ``S_ENC`` frames;
+    an MoE plain run takes the kernel run's routing (:class:`RouteTrace`)
+    and the choices its own router would have made otherwise are
+    recorded."""
     import torch
     from repro_torch.models.api import build
     from repro_torch.serve.deploy import to_serving_params
     from repro_torch.serve.engine import ServeEngine
+    serve_cfg = serve_cfg or cfg
     params = trainer.state.params
     trainer.state = None
     torch.cuda.empty_cache()
@@ -4092,28 +4144,40 @@ def serve_trained(trainer, cfg, layout, backend):
     deploy_s = time.perf_counter() - t0
     del params
     torch.cuda.empty_cache()
-    api = build(cfg)
-    tok = torch.randint(0, cfg.vocab, (B, P),
+    api = build(serve_cfg)
+    tok = torch.randint(0, cfg.vocab, (b, p),
                         generator=torch.Generator(device=DEV).manual_seed(4),
                         device=DEV, dtype=torch.int32)
-    ker = ServeEngine(api, dep, kv_quant_bits=8, backend=backend,
+    frames = encdec_frames(cfg.d_model, b) if cfg.is_encdec else None
+    extra = {k: v for k, v in family_inputs(cfg, tok).items()
+             if k != "tokens"}
+    kv = 32 if cfg.family == "ssm" else 8
+    ker = ServeEngine(api, dep, kv_quant_bits=kv, backend=backend,
                       attn_backend="fused", device=DEV)
-    ref = ServeEngine(api, dep, kv_quant_bits=8, backend="ref",
+    ref = ServeEngine(api, dep, kv_quant_bits=kv, backend="ref",
                       attn_backend="ref", device=DEV)
     matmul = "bitplane_matmul" if layout == "bitplane" else "packed_matmul"
-    run = counted(lambda: greedy(ker, tok, NEW),
-                  expected_launches(cfg.n_layers, NEW, NEW - 1, matmul))
-    plain = greedy(ref, tok, NEW)
+    moe = bool(cfg.n_experts)
+    with (RouteTrace() if moe else contextlib.nullcontext()) as k_routes:
+        run = counted(lambda: greedy(ker, tok, new, frames=frames,
+                                     extra=extra),
+                      trained_launches(serve_cfg, new, matmul))
+    with (RouteTrace(replay=k_routes) if moe else contextlib.nullcontext()
+          ) as p_routes:
+        plain = greedy(ref, tok, new, frames=frames, extra=extra)
     res = compare(run, plain)
     out = dict(layout=layout, backend=backend, deploy_s=deploy_s,
+               dtype=serve_cfg.dtype, tol=tol,
                launches=run["launches"], kernel_vs_plain=res,
                tokens=run["tokens"].tolist(),
                prefill_ms=run["prefill_ms"],
                decode_ms_per_step=run["decode_ms_per_step"])
+    if moe:
+        out["routes"] = route_flips(p_routes, len(p_routes.calls))
     toks = run["tokens"]
-    assert toks.shape == (B, NEW) and 0 <= int(toks.min()) and \
+    assert toks.shape == (b, new) and 0 <= int(toks.min()) and \
         int(toks.max()) < cfg.vocab, out
-    assert res["finite"] and res["err"] <= QUANT_TOL_REL[8], out
+    assert res["finite"] and res["err"] <= tol, out
     del ker, ref, dep
     torch.cuda.empty_cache()
     return out
@@ -4281,6 +4345,330 @@ def train_phase(size=("--no-tiny",)):
         f"{b['peak_mem_gb']:.1f} GB, bits {b['avg_bitwidth'][-1]:.3f}; served "
         f"through bitplane_matmul: err {bs['kernel_vs_plain']['err']:.3g}")
     return out
+
+
+# ---------------------------------------------------------------------------
+# train families phase: BWQ-A training of the MoE, enc-dec, vlm, ssm and
+# hybrid families at full width, each trained tree served through the
+# kernels
+# ---------------------------------------------------------------------------
+
+# (arch, layers) each family trains at full width: granite and seamless
+# at the serving phases' cuts (seamless 6 + 6), qwen2-vl and rwkv6 at 4,
+# zamba2 at 12 (two calls of its shared block)
+TF_ARCHS = ((MOE_ARCH, MOE_DEPTH), (ENCDEC_ARCH, ENCDEC_DEPTH),
+            ("qwen2-vl-2b", 4), ("rwkv6-1.6b", 4), ("zamba2-1.2b", 12))
+TF_STEPS, TF_EVERY = 3, 2       # steps; maintenance and alpha round every 2
+TF_P, TF_NEW = 64, 8            # serving legs: B prompts of 64 tokens, 8 new
+TF_BP_STEPS = 2                 # granite's bit-plane leg (TRAIN_DEPTH_CUT)
+TF_HOST_B, TF_HOST_SEQ = 2, 64  # the card-against-host step's batch
+TF_HOST_LOSS_TOL = 1e-5
+# M of the ops.py dense calls on a trained leaf: both matmul regimes
+TF_OPS_M = (B, 64)
+# The card-against-host step's witness is the card's own step on the
+# batch with its two rows swapped: the same loss and gradients, other
+# summation orders (two microbatches, the train phase's witness, would
+# change the MoE aux term, a product of batch means).  A
+# float64 host step, tried first (H100), read 2.2e-4 to
+# 4.2e-2 of a leaf's largest gradient against f32 (it rounds the
+# fake-quantized weights to other levels at ties, so it bounds nothing)
+# and took 84 s of the phase's 176; the card against the host read
+# 3.1e-6 to 4.9e-5 (zamba2's a_log the largest).  Every leaf is held to
+# GRAD_TOL_REL, zamba2's too: it needs no witness-set limit.
+
+
+def tf_config(arch, depth, size=("--no-tiny",), **over):
+    """The train launcher's config of ``arch`` (``size``: full width, its
+    registered blocks, bf16, fake mode, 8-bit PACT, remat) cut to
+    ``depth`` layers (an enc-dec model's encoder too), with ``over``."""
+    from repro_torch.launch import train as tl
+    cfg = tl.config(tl.build_parser().parse_args(["--arch", arch, *size]))
+    cut = {"n_layers": min(depth, cfg.n_layers)}
+    if cfg.is_encdec:
+        cut["enc_layers"] = min(depth, cfg.enc_layers)
+    return dataclasses.replace(cfg, **cut, **over)
+
+
+def tf_argv(arch, depth, size=("--no-tiny",), extra=()):
+    return ["--arch", arch, *size, "--device", DEV, "--steps", str(TF_STEPS),
+            "--requant-every", str(TF_EVERY), "--seq", str(TRAIN_SEQ),
+            "--batch", str(TRAIN_BATCH), "--delta-alpha",
+            str(TRAIN_DELTA_ALPHA), "--layers", str(depth), *extra]
+
+
+@contextlib.contextmanager
+def vision_pipeline():
+    """``repro_torch.data.make_lm_pipeline`` swapped for the calls inside:
+    a vlm config's batches put ``vision_tokens`` vision embeddings
+    (``lm_batch_for``'s, 0.1 x normal) in front of the stream's
+    ``seq_len`` tokens; other configs get the stream's."""
+    import repro_torch.data as rd
+    from repro_torch.configs import ShapeCell
+    base = rd.make_lm_pipeline
+
+    def pipeline(cfg, seq_len, batch, seed=0, start_step=0):
+        if cfg.family != "vlm":
+            yield from base(cfg, seq_len, batch, seed, start_step)
+            return
+        cell = ShapeCell("train", seq_len + cfg.vision_tokens, batch,
+                         "train")
+        step = start_step
+        while True:
+            yield step, rd.lm_batch_for(cfg, cell, step, seed)
+            step += 1
+    rd.make_lm_pipeline = pipeline
+    try:
+        yield
+    finally:
+        rd.make_lm_pipeline = base
+
+
+def encdec_drive(cfg):
+    """What the launcher does for the other families, for an enc-dec
+    ``cfg`` it refuses: a seed-0 model trained by ``repro_torch.train.
+    Trainer`` (the smoke's checking one, as :func:`run_trainer` installs
+    it) on ``lm_batch_for`` batches of ``TRAIN_SEQ`` tokens over as many
+    frames."""
+    def drive():
+        import repro_torch.train as rt
+        from repro_torch.configs import ShapeCell
+        from repro_torch.data import lm_batch_for
+        from repro_torch.models.api import build
+        from repro_torch.optim import adamw, cosine_schedule
+        api = build(cfg)
+        trainer = rt.Trainer(
+            api.loss, adamw(weight_decay=0.0),
+            cosine_schedule(2e-3, TF_STEPS), api.init(seed=0, device=DEV),
+            rt.TrainerConfig(total_steps=TF_STEPS, log_every=1,
+                             requant_interval=TF_EVERY,
+                             alpha_round_steps=TF_EVERY,
+                             delta_alpha=TRAIN_DELTA_ALPHA))
+        cell = ShapeCell("train", TRAIN_SEQ, TRAIN_BATCH, "train")
+        step = {"i": -1}
+
+        def data():
+            while True:
+                step["i"] += 1
+                yield step["i"], lm_batch_for(cfg, cell, step["i"])
+        trainer.run(data(), steps=TF_STEPS)
+        return trainer
+    return drive
+
+
+def ops_leaf_case(q):
+    """``kernels.ops`` on one trained bit-plane matrix ``q`` (a layer of
+    a ``QuantizedTensor`` stack, after maintenance): ``bwq_dense_packed``
+    and ``bwq_dense_bitplane`` (the kernels) against the plain versions on
+    the same layouts, at each M of ``TF_OPS_M``, f32 x; errors relative to
+    the plain result's largest magnitude."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import bitplane_matmul_ref, packed_matmul_ref
+    if q.planes.shape[-2] % 8:
+        return []       # 9x8 blocks (the tiny rehearsal): K not byte-aligned
+    bp, pk = ops.to_bitplane_layout(q), ops.to_packed_layout(q, 8)
+    k = q.shape[-2]
+    out = []
+    for m in TF_OPS_M:
+        x = torch.randn((m, k), generator=torch.Generator(device=DEV)
+                        .manual_seed(m), device=DEV)
+        for name, got, want in (
+                ("bwq_dense_packed", ops.bwq_dense_packed(x, pk),
+                 packed_matmul_ref(x, pk.w_int, pk.scale, pk.bits, pk.wbr,
+                                   pk.wbc)),
+                ("bwq_dense_bitplane", ops.bwq_dense_bitplane(x, bp),
+                 bitplane_matmul_ref(x, bp.planes_packed, bp.sign_packed,
+                                     bp.mask, bp.scale, bp.wbr, bp.wbc))):
+            err = float((got - want).abs().max() / want.abs().max())
+            out.append(dict(call=name, m=m, k=k, n=q.shape[-1], err=err))
+            assert err <= PM_TOL_REL, out[-1]
+    return out
+
+
+def family_card_vs_host(arch, size=("--no-tiny",)):
+    """One f32 train step without activation quantization (fake mode,
+    ``TRAIN_DEPTH_CUT`` layers; zamba2 4 at period 2, two shared calls;
+    remat on as registered, alpha ``TRAIN_DELTA_ALPHA``) of ``arch`` on the
+    card and on the host CPU, from the same tree and a ``TF_HOST_B`` x
+    ``TF_HOST_SEQ`` batch (a vlm batch's vision prefix in front, an
+    enc-dec batch's as many frames): the loss within ``TF_HOST_LOSS_TOL``
+    relative, each gradient leaf within ``GRAD_TOL_REL`` of its largest
+    magnitude; the witness, recorded beside, is the card's step with the
+    batch's rows swapped (see the note above ``tf_config``).  An MoE host run
+    takes the card's routing (:class:`RouteTrace`); a choice its own router
+    would have made otherwise must sit at a near-tie (``ROUTE_TIE_GAP``);
+    the witness routes on its own."""
+    import torch
+    from repro_torch.configs import ShapeCell
+    from repro_torch.data import lm_batch_for
+    from repro_torch.models.api import build
+    from repro_torch.train.step import quant_reg_loss
+    probe = tf_config(arch, 1, size)
+    over = dict(dtype="float32", quant=dataclasses.replace(
+        probe.quant, act_bits=32))
+    layers = TRAIN_DEPTH_CUT
+    if probe.family == "hybrid":
+        layers, over["hybrid_attn_every"] = 4, 2
+    cfg = tf_config(arch, layers, size, **over)
+    alpha = torch.tensor(TRAIN_DELTA_ALPHA, dtype=torch.float32)
+
+    def total_of(api):
+        def total(p, b):
+            reg = quant_reg_loss(p, alpha)
+            loss, m = api.loss(p, b)
+            return loss + reg, (m, reg)
+        return total
+
+    seq = TF_HOST_SEQ + (cfg.vision_tokens if cfg.family == "vlm" else 0)
+    batch = lm_batch_for(cfg, ShapeCell("host", seq, TF_HOST_B, "train"),
+                         seed=2)
+    api = build(cfg)
+    params = api.init(seed=1, device=DEV)
+    moe = bool(cfg.n_experts)
+    with (RouteTrace() if moe else contextlib.nullcontext()) as routes:
+        card = step_grads(total_of(api), params, batch, DEV)
+
+    def forced():
+        return RouteTrace(replay=routes) if moe else \
+            contextlib.nullcontext()
+    with forced() as host_routes:
+        host = step_grads(total_of(api), params, batch, "cpu")
+    wit = step_grads(total_of(api), params,
+                     {k: v.flip(0) for k, v in batch.items()}, DEV)
+    del params
+    torch.cuda.empty_cache()
+    err = grad_errs(card["grads"], host["grads"])
+    witness = grad_errs(card["grads"], wit["grads"])
+    loss_err = abs(card["loss"] - host["loss"]) / abs(host["loss"])
+    out = dict(arch=arch, layers=cfg.n_layers, batch=TF_HOST_B, seq=seq,
+               loss_card=card["loss"], loss_host=host["loss"],
+               loss_witness=wit["loss"], loss_err=loss_err,
+               grad_err_max=max(err.values()),
+               grad_witness_max=max(witness.values()),
+               worst=max(err, key=err.get),
+               card_s=card["s"], host_s=host["s"], witness_s=wit["s"],
+               leaves=[dict(leaf=k, err=v, witness=witness[k])
+                       for k, v in err.items()])
+    if moe:
+        out["routes"] = route_flips(host_routes, len(host_routes.calls))
+        gap = out["routes"]["max_gap"]
+        assert gap is None or gap < ROUTE_TIE_GAP, out["routes"]
+    assert card["reg"] > 0 and loss_err <= TF_HOST_LOSS_TOL, out
+    assert out["grad_err_max"] <= GRAD_TOL_REL, (out["worst"],
+                                                 out["grad_err_max"])
+    return out
+
+
+def train_family(arch, depth, size=("--no-tiny",)):
+    """One family: ``TF_STEPS`` fake-mode steps of ``TRAIN_BATCH`` x
+    ``TRAIN_SEQ`` tokens at full width and ``depth`` layers (a qwen2-vl
+    batch also ``vision_tokens`` vision embeddings, a seamless batch as
+    many frames as tokens), through the launcher (seamless, which the
+    launcher refuses, through ``Trainer`` on ``lm_batch_for`` batches),
+    checked by :func:`checked_trainer`; the trained tree deployed packed
+    int8 and served (B x ``TF_P``, ``TF_NEW`` new) through the kernels
+    against the plain versions; granite also 2 bit-plane steps at
+    ``TRAIN_DEPTH_CUT`` layers served through ``bitplane_matmul``, with
+    ``kernels.ops`` on one of its trained matrices; the card-against-host
+    step."""
+    import torch
+    t0 = time.perf_counter()
+    cfg = tf_config(arch, depth, size)
+    argv = tf_argv(arch, cfg.n_layers, size)
+    with vision_pipeline():
+        trainer, run = run_trainer(
+            argv, encdec_drive(cfg) if cfg.is_encdec else None)
+    out = {"arch": arch, "family": cfg.family, "layers": cfg.n_layers,
+           "enc_layers": cfg.enc_layers, "train": run,
+           "vision_tokens": cfg.vision_tokens if cfg.family == "vlm" else 0}
+    assert run["reg"][0] == 0.0 and run["reg"][-1] > 0, run["reg"]
+    assert len(trainer.maint_ms) == 1, trainer.maint_ms
+    if cfg.n_experts:
+        assert all(math.isfinite(a) and a > 0 for a in run["aux"]), run["aux"]
+    log(f"train {arch} ({cfg.n_layers} layers): step "
+        f"{run['step_ms_median_after_first']:.1f} ms (median after the "
+        f"first; first {run['step_ms'][0]:.0f}), maintenance "
+        f"{[round(m) for m in run['maintenance_ms']]} ms, peak "
+        f"{run['peak_mem_gb']:.1f} GB, loss {run['loss'][0]:.3f} -> "
+        f"{run['loss'][-1]:.3f}, aux {run['aux'][-1]:.3f}")
+    # zamba2 serves in f32: the serving phase holds its bf16 legs to no
+    # limit (Mamba-2 layers carry bf16 rounding to logits of a fault's
+    # size); its quantizer-free limit is FAMILY_F32_TOL (no PACT leaves)
+    serve_cfg, tol = cfg, QUANT_TOL_REL[8]
+    if cfg.family == "hybrid":
+        serve_cfg = dataclasses.replace(cfg, dtype="float32")
+        tol = FAMILY_F32_TOL["hybrid"]
+    out["serve"] = sv = serve_trained(trainer, cfg, "packed", "kernel",
+                                      p=TF_P, new=TF_NEW,
+                                      serve_cfg=serve_cfg, tol=tol)
+    del trainer
+    torch.cuda.empty_cache()
+    log(f"  served trained tree ({sv['dtype']}): err "
+        f"{sv['kernel_vs_plain']['err']:.3g} (limit {tol}), tokens "
+        f"{sv['kernel_vs_plain']['token_agreement']:.3f}, launches "
+        f"{ {k: v for k, v in sv['launches'].items() if v} }")
+    if cfg.n_experts:
+        bp_argv = tf_argv(arch, TRAIN_DEPTH_CUT, size,
+                          ["--quant-mode", "bitplane"])
+        bp_argv[bp_argv.index("--steps") + 1] = str(TF_BP_STEPS)
+        trainer, out["bitplane"] = run_trainer(bp_argv)
+        assert len(trainer.maint_ms) == 1, trainer.maint_ms
+        q = trainer.state.params["layers"]["attn"]["wq"].layer(0)
+        out["ops"] = ops_leaf_case(q)
+        assert out["ops"] or size == ("--tiny",), "no ops.py leaf case"
+        bcfg = tf_config(arch, TRAIN_DEPTH_CUT, size, quant=dataclasses
+                         .replace(cfg.quant, mode="bitplane"))
+        out["bitplane_serve"] = bs = serve_trained(
+            trainer, bcfg, "bitplane", "bitplane", p=TF_P, new=TF_NEW)
+        del trainer
+        torch.cuda.empty_cache()
+        log(f"  bit-plane {TRAIN_DEPTH_CUT} layers: step "
+            f"{out['bitplane']['step_ms_median_after_first']:.1f} ms, "
+            f"served through bitplane_matmul: err "
+            f"{bs['kernel_vs_plain']['err']:.3g}; ops.py calls err max "
+            f"{max([c['err'] for c in out['ops']], default=None)}")
+    out["card_vs_host"] = cvh = family_card_vs_host(arch, size)
+    log(f"  card vs host ({cvh['layers']} layers): loss err "
+        f"{cvh['loss_err']:.3g}, grad err {cvh['grad_err_max']:.3g} "
+        f"(witness {cvh['grad_witness_max']:.3g}), host "
+        f"{cvh['host_s']:.1f} s")
+    out["phase_s"] = time.perf_counter() - t0
+    return out
+
+
+def train_families_phase(size=("--no-tiny",)):
+    """:func:`train_family` for each of ``TF_ARCHS``, one at a time (each
+    freed before the next)."""
+    t0 = time.perf_counter()
+    out = {"families": [train_family(a, d, size) for a, d in TF_ARCHS]}
+    out["phase_s"] = time.perf_counter() - t0
+    return out
+
+
+def train_families_summary(res) -> dict:
+    """The train families phase's figures for the printout."""
+    def fam(r):
+        t = r["train"]
+        row = {"layers": r["layers"],
+               "step_ms_median_after_first": t["step_ms_median_after_first"],
+               "first_step_ms": t["step_ms"][0],
+               "maintenance_ms": t["maintenance_ms"],
+               "peak_mem_gb": t["peak_mem_gb"], "loss": t["loss"],
+               "serve_err": r["serve"]["kernel_vs_plain"]["err"],
+               "serve_launches": r["serve"]["launches"],
+               "card_vs_host_loss_err": r["card_vs_host"]["loss_err"],
+               "card_vs_host_grad_err": r["card_vs_host"]["grad_err_max"],
+               "card_vs_host_witness":
+                   r["card_vs_host"]["grad_witness_max"],
+               "phase_s": r["phase_s"]}
+        if "bitplane_serve" in r:
+            row["bitplane_serve_err"] = \
+                r["bitplane_serve"]["kernel_vs_plain"]["err"]
+            row["ops_err_max"] = max([c["err"] for c in r["ops"]],
+                                     default=None)
+        return row
+    return {"phase_s": res["phase_s"],
+            **{r["arch"]: fam(r) for r in res["families"]}}
 
 
 # ---------------------------------------------------------------------------
@@ -5190,6 +5578,8 @@ def main() -> int:
         families_summary(detail["families_phase"]), card=smi)}))
     print(json.dumps({"cnn": dict(cnn_summary(detail["cnn_phase"]),
                                   card=smi)}))
+    print(json.dumps({"train_families": dict(
+        train_families_summary(detail["train_families_phase"]), card=smi)}))
     print(json.dumps({"deploy": dict(deploy_summary(detail["deploy_phase"]),
                                      card=smi)}))
     print(json.dumps({"kernels": kernels}))
@@ -5435,6 +5825,15 @@ def run(detail) -> list:
     detail["train_phase_s"] = time.perf_counter() - t0
     log(f"train phase ran in {detail['train_phase_s']:.1f} s")
     save_detail(detail)
+
+    detail["train_families_phase"] = tf = train_families_phase()
+    log(f"train families phase ran in {tf['phase_s']:.1f} s")
+    save_detail(detail)
+    for k in kernels:
+        k["train_families_launches"] = {
+            r["arch"]: {leg: r[leg]["launches"][k["name"]]
+                        for leg in ("serve", "bitplane_serve") if leg in r}
+            for r in tf["families"]}
 
     detail["deploy_phase"] = dp = deploy_phase()
     log(f"deploy phase ran in {dp['phase_s']:.1f} s")

@@ -1,7 +1,7 @@
 """Architecture registry: ``--arch <id>`` -> ModelConfig, the reference's
 ten architectures (dense, MoE, vlm, ssm, hybrid and the encoder-decoder
 audio family)."""
-from .base import ModelConfig, QuantConfig
+from .base import LM_SHAPES, ModelConfig, QuantConfig, ShapeCell
 from .deepseek_7b import CONFIG as deepseek_7b
 from .gemma2_27b import CONFIG as gemma2_27b
 from .granite_moe_3b_a800m import CONFIG as granite_moe_3b_a800m
@@ -26,4 +26,5 @@ def get_config(name: str) -> ModelConfig:
     return REGISTRY[name]
 
 
-__all__ = ["ModelConfig", "QuantConfig", "REGISTRY", "get_config"]
+__all__ = ["LM_SHAPES", "ModelConfig", "QuantConfig", "REGISTRY",
+           "ShapeCell", "get_config"]

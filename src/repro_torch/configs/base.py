@@ -1,5 +1,6 @@
 """Architecture config schema (port of ``repro.configs.base`` and of
-``QuantConfig`` from ``repro.models.common``).
+``QuantConfig`` from ``repro.models.common``), and the reference's LM
+shape cells (``ShapeCell``, ``LM_SHAPES``).
 
 Plain frozen dataclasses with the reference's field names and defaults, so
 a config can be compared with its reference field by field.
@@ -7,6 +8,7 @@ a config can be compared with its reference field by field.
 from __future__ import annotations
 
 import dataclasses
+from typing import Tuple
 
 from ..core.blocking import BlockingSpec
 
@@ -109,3 +111,19 @@ class ModelConfig:
         )
         base.update(over)
         return dataclasses.replace(self, **base)
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeCell:
+    name: str                      # train_4k | prefill_32k | decode_32k | long_500k
+    seq_len: int
+    global_batch: int
+    kind: str                      # train | prefill | decode
+
+
+LM_SHAPES: Tuple[ShapeCell, ...] = (
+    ShapeCell("train_4k", 4096, 256, "train"),
+    ShapeCell("prefill_32k", 32768, 32, "prefill"),
+    ShapeCell("decode_32k", 32768, 128, "decode"),
+    ShapeCell("long_500k", 524288, 1, "decode"),
+)

@@ -11,7 +11,8 @@ experiments.
 The successor table and the class templates come from
 ``numpy.random.default_rng`` (seeded ``seed`` and ``seed + 1``), as the
 reference's do, and equal them bit for bit.  The per-batch draws (the
-walk's start tokens and successor choices; the image labels and noise)
+walk's start tokens and successor choices; the image labels and noise;
+a vlm batch's vision embeddings and an encoder-decoder batch's frames)
 are drawn by ``jax.random`` in the reference, which torch cannot
 reproduce: here they come from a ``torch.Generator`` seeded from (seed,
 step), so the port's batches follow the same law but are not the
@@ -102,13 +103,29 @@ class SyntheticCIFAR:
 
 
 def lm_batch_for(cfg, cell, step: int = 0, seed: int = 0):
-    """Concrete batch for a cell's ``seq_len`` and ``global_batch`` (the
-    dense family only: the VLM and encoder-decoder inputs are not ported
-    yet)."""
-    if cfg.family == "vlm" or cfg.is_encdec:
-        raise NotImplementedError(f"family {cfg.family!r} is not ported yet")
-    return SyntheticLM(cfg.vocab, cell.seq_len, cell.global_batch,
-                       seed).batch_at(step)
+    """Concrete batch for a cell's ``seq_len`` and ``global_batch``, the
+    shapes of ``ModelAPI.train_batch_spec``: the bigram stream's tokens
+    and labels; a vlm batch's cut to ``seq_len - vision_tokens`` beside
+    f32 ``vision_embeds`` (B, vision_tokens, d_model); an encoder-decoder
+    batch's beside f32 ``frames`` (B, seq_len, d_model).  Both are 0.1 x
+    standard normal drawn by the generator of (seed + 7, step) and (seed
+    + 9, step): the reference's law, not its ``jax.random`` draws."""
+    b = SyntheticLM(cfg.vocab, cell.seq_len, cell.global_batch,
+                    seed).batch_at(step)
+    if cfg.family == "vlm":
+        st = cell.seq_len - cfg.vision_tokens
+        gen = batch_generator(seed + 7, step)
+        b = {"tokens": b["tokens"][:, :st], "labels": b["labels"][:, :st],
+             "vision_embeds": torch.randn(
+                 (cell.global_batch, cfg.vision_tokens, cfg.d_model),
+                 generator=gen) * 0.1}
+    if cfg.is_encdec:
+        gen = batch_generator(seed + 9, step)
+        b = {"tokens": b["tokens"], "labels": b["labels"],
+             "frames": torch.randn(
+                 (cell.global_batch, cell.seq_len, cfg.d_model),
+                 generator=gen) * 0.1}
+    return b
 
 
 def make_lm_pipeline(cfg, seq_len: int, batch: int, seed: int = 0,

@@ -19,8 +19,16 @@ its serve launcher serves.  ``--ckpt-dir D`` saves a checkpoint every
 ``max(steps // 4, 1)`` steps into D (the reference's format, read by
 ``python -m repro_torch.launch.serve --ckpt D``) and resumes from the
 latest one there, the data pipeline starting at the resumed step.  Not
-ported yet: ``--mesh`` (distribution).  The MoE architectures are refused
-(``NotImplementedError``): their training is not ported.
+ported yet: ``--mesh`` (distribution).
+
+Every decoder-only family trains: dense, MoE (cross entropy plus ``0.01
+x`` the load-balancing term), and vlm, ssm and hybrid.  A vlm model
+trains text-only on the bigram stream, as the reference's launcher
+trains it.  The encoder-decoder family is refused before the model is
+built (``NotImplementedError``): the stream yields no ``frames``, so the
+reference's launcher fails at its first step (``KeyError: 'frames'``);
+train it through :class:`~repro_torch.train.Trainer` on
+``data.lm_batch_for`` batches, which carry frames.
 
 ``main(argv)`` returns the :class:`~repro_torch.train.Trainer` it ran;
 ``make_trainer(args)`` builds the launcher's trainer without running it
@@ -83,6 +91,14 @@ def make_trainer(args):
     from ..train import Trainer, TrainerConfig
     cfg = config(args)
     check_trainable(cfg)
+    if cfg.is_encdec:
+        raise NotImplementedError(
+            f"the launcher does not train the {cfg.family!r} family "
+            f"(encoder-decoder, {cfg.name}): its bigram stream carries no "
+            f"frames, so the loss has no encoder input (the reference's "
+            f"launcher fails at its first step with KeyError: 'frames'); "
+            f"train it through Trainer on repro_torch.data.lm_batch_for "
+            f"batches")
     api = build(cfg)
     params = api.init(seed=0, device=args.device)
     return Trainer(

@@ -1,7 +1,7 @@
 """Model API over the decoder-only LM (dense, MoE, vlm, ssm and hybrid
 families) and the encoder-decoder family (port of ``repro.models.api``):
 init and the abstract template of a checkpoint restore, the training
-loss (dense family only), prefill, decode, and
+loss of every family, prefill, decode, and
 per-slot insertion into a live decode state.  The MoE family differs
 only in its forward; an encoder-decoder state also holds the encoder
 output, one ``(S_enc, d_model)`` row a slot (``enc_out``), written by a
@@ -10,8 +10,8 @@ vlm prompt carries ``vision_embeds`` (B, vision_tokens, d_model), which
 ride its first chunk and fill the first ``vision_tokens`` cache
 positions; the ssm and hybrid caches hold recurrent rows, which a new
 request's first chunk zeroes.  The reference's abstract input specs per
-shape cell (``jax.ShapeDtypeStruct`` for its dry run) have no
-counterpart: the port has no dry run.
+shape cell (``jax.ShapeDtypeStruct``) are tensors on the ``meta`` device
+here: shapes and dtypes, nothing allocated.
 
 The decode state is updated in place: methods that take a state write its
 cache tensors and return a state dict holding the same tensors.
@@ -19,11 +19,11 @@ cache tensors and return a state dict holding the same tensors.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Optional
+from typing import Any, Dict, Optional
 
 import torch
 
-from ..configs.base import ModelConfig
+from ..configs.base import ModelConfig, ShapeCell
 from ..core.device import resolve_device
 from . import encdec, transformer
 
@@ -132,10 +132,13 @@ class ModelAPI:
 
     # ---- losses / steps ------------------------------------------------
     def loss(self, params, batch) -> tuple:
-        """Next-token cross entropy and its metrics; the full-sequence
-        forward runs with autograd live.  Raises ``NotImplementedError``
-        for the MoE and encoder-decoder families (their training is not
-        ported)."""
+        """The training loss and its metrics (``ce``, ``aux``); the
+        full-sequence forward runs with autograd live.  The
+        encoder-decoder family's is ``encdec_loss`` (its batch carries
+        ``frames``), every other family's ``transformer.loss_fn`` (cross
+        entropy plus ``0.01 x`` the MoE aux term)."""
+        if self.cfg.is_encdec:
+            return encdec.encdec_loss(params, self.cfg, batch)
         return transformer.loss_fn(params, self.cfg, batch)
 
     def prefill(self, params, batch, extra_slots: int = 0, *,
@@ -289,6 +292,49 @@ class ModelAPI:
             _write_enc_out(state, sub["enc_out"], slot)
         _write_tree(state["cache"], sub["cache"], slot)
         return logits, state
+
+    # ---- abstract input specs per shape cell ----------------------------
+    def train_batch_spec(self, cell: ShapeCell) -> Dict[str, torch.Tensor]:
+        """A training batch's tensors for ``cell`` on the ``meta`` device:
+        tokens and labels; an encoder-decoder batch's bf16 ``frames``
+        (one frame a position); a vlm batch's text cut to ``seq_len -
+        vision_tokens``, its bf16 ``vision_embeds`` and (B, S, 3) M-RoPE
+        ``positions``."""
+        cfg = self.cfg
+        b, s = cell.global_batch, cell.seq_len
+        if cfg.is_encdec:
+            return {"frames": _meta((b, s, cfg.d_model), torch.bfloat16),
+                    "tokens": _meta((b, s), torch.int32),
+                    "labels": _meta((b, s), torch.int32)}
+        if cfg.family == "vlm":
+            tv = cfg.vision_tokens
+            return {"tokens": _meta((b, s - tv), torch.int32),
+                    "labels": _meta((b, s - tv), torch.int32),
+                    "vision_embeds": _meta((b, tv, cfg.d_model),
+                                           torch.bfloat16),
+                    "positions": _meta((b, s, 3), torch.int32)}
+        return {"tokens": _meta((b, s), torch.int32),
+                "labels": _meta((b, s), torch.int32)}
+
+    def decode_state_spec(self, cell: ShapeCell) -> Dict[str, Any]:
+        """The decode state of ``cell`` (``global_batch`` rows of
+        ``seq_len`` positions) on the ``meta`` device: the cache tree and
+        an encoder-decoder state's ``enc_out``."""
+        cfg = self.cfg
+        b, s = cell.global_batch, cell.seq_len
+        meta = torch.device("meta")
+        if cfg.is_encdec:
+            return {"cache": encdec.encdec_init_cache(cfg, b, s, meta),
+                    "enc_out": _meta((b, s, cfg.d_model),
+                                     transformer._cdtype(cfg))}
+        return {"cache": transformer.init_cache(cfg, b, s, meta)}
+
+    def decode_token_spec(self, cell: ShapeCell) -> torch.Tensor:
+        return _meta((cell.global_batch, 1), torch.int32)
+
+
+def _meta(shape, dtype) -> torch.Tensor:
+    return torch.empty(shape, dtype=dtype, device="meta")
 
 
 def build(cfg: ModelConfig) -> ModelAPI:

@@ -26,12 +26,13 @@ import contextlib
 from typing import Any, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import QuantConfig
 from ..core.bitrep import QuantizedTensor, compose, from_float
 from ..core.fakequant import FakeQuantTensor, fq_compose, fq_from_float
 from ..core.pact import pact_sym_quant
-from ..core.state import tree_map
+from ..core.state import tensor_leaves, tree_map
 from ..kernels.bitplane_matmul import bitplane_matmul
 from ..kernels.packed_matmul import packed_matmul
 from ..kernels.ref import bitplane_matmul_ref, packed_matmul_ref
@@ -170,6 +171,36 @@ def prepare_params(params: Any, dtype=None) -> Any:
             return x.to(dtype)
         return x
     return tree_map(leaf, params)
+
+
+def builds_graph(*trees) -> bool:
+    """Whether a call on ``trees`` (tensors, and param trees of them)
+    records a graph: grad mode is on and some tensor asks for a
+    gradient.  A walk asks once, of its activation and its stacked layer
+    params, not once a layer."""
+    return torch.is_grad_enabled() and any(
+        t.requires_grad for tree in trees for _, t in tensor_leaves(tree))
+
+
+def remat_call(on: bool, fn, *args):
+    """``fn(*args)`` of one layer body, recomputed in the backward
+    (``torch.utils.checkpoint``) when ``on`` (the walk's ``cfg.remat`` and
+    :func:`builds_graph`): the reference's ``jax.checkpoint`` of a layer
+    body."""
+    if on:
+        return checkpoint(fn, *args, use_reentrant=False,
+                          preserve_rng_state=False)
+    return fn(*args)
+
+
+def chunk_call(fn, *args):
+    """``fn(*args)`` of one chunk of a sequence scan (tensor arguments),
+    recomputed in the backward (``torch.utils.checkpoint``) when the call
+    builds a graph; plain otherwise."""
+    if torch.is_grad_enabled() and any(a.requires_grad for a in args):
+        return checkpoint(fn, *args, use_reentrant=False,
+                          preserve_rng_state=False)
+    return fn(*args)
 
 
 def act_quant(x: torch.Tensor, beta: Optional[torch.Tensor],

@@ -8,7 +8,10 @@ loop; the decoder's KV cache is written in place through per-layer views.
 
 Cross-attention K/V are projected from ``enc_out`` at every decoder call
 (prefill, chunk and decode step), as in the reference, which keeps no
-cross-KV cache.  Training (``encdec_loss``) is not ported.
+cross-KV cache.  Training runs through :func:`encdec_loss` (an unmasked
+mean cross entropy, aux 0, as the reference's); under ``cfg.remat`` a
+forward that builds a graph recomputes each encoder and decoder layer in
+the backward, as the reference's ``jax.checkpoint`` of both bodies.
 """
 from __future__ import annotations
 
@@ -19,8 +22,8 @@ import torch.nn.functional as F
 
 from ..configs.base import ModelConfig
 from .attention import attn_forward
-from .common import embed_init, make_weight, prepare_params, qmatmul, \
-    rms_norm
+from .common import (builds_graph, embed_init, make_weight, prepare_params,
+                     qmatmul, remat_call, rms_norm)
 from .ffn import mlp_forward
 from .transformer import (_cdtype, _layer, _unstack, decode_positions,
                           make_kv_cache)
@@ -115,7 +118,8 @@ def encode(mp, cfg: ModelConfig, frames: torch.Tensor,
     h = frames.to(_cdtype(cfg))
     b, s, _ = h.shape
     pos = _arange_positions(b, s, h.device)
-    for lp in _unstack(mp["enc_layers"], cfg.enc_layers):
+
+    def body(lp, h):
         out, _ = attn_forward(lp["attn"], rms_norm(h, lp["ln_attn"]), pos,
                               n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads,
                               d_head=cfg.head_dim, rope_theta=cfg.rope_theta,
@@ -123,8 +127,12 @@ def encode(mp, cfg: ModelConfig, frames: torch.Tensor,
         h = h + out
         if cfg.conformer_encoder:
             h = h + _conformer_conv(lp, rms_norm(h, lp["ln_conv"]), backend)
-        h = h + mlp_forward(lp["mlp"], rms_norm(h, lp["ln_mlp"]), "gelu",
-                            backend)
+        return h + mlp_forward(lp["mlp"], rms_norm(h, lp["ln_mlp"]), "gelu",
+                               backend)
+
+    remat = cfg.remat and builds_graph(h, mp["enc_layers"])
+    for lp in _unstack(mp["enc_layers"], cfg.enc_layers):
+        h = remat_call(remat, body, lp, h)
     return rms_norm(h, mp["enc_norm"])
 
 
@@ -142,8 +150,8 @@ def decode(mp, cfg: ModelConfig, tokens, enc_out, cache=None, index=None,
     heads = dict(n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads,
                  d_head=cfg.head_dim, rope_theta=cfg.rope_theta,
                  backend=backend)
-    for i, lp in enumerate(_unstack(mp["dec_layers"], cfg.n_layers)):
-        layer_cache = _layer(cache, i) if cache is not None else None
+
+    def body(lp, h, enc_out, layer_cache):
         out, _ = attn_forward(lp["self_attn"], rms_norm(h, lp["ln_self"]),
                               pos, causal=True, cache=layer_cache,
                               cache_index=index, attn_backend=attn_backend,
@@ -153,8 +161,13 @@ def decode(mp, cfg: ModelConfig, tokens, enc_out, cache=None, index=None,
                               pos, x_kv=enc_out, kv_positions=enc_pos,
                               **heads)
         h = h + out
-        h = h + mlp_forward(lp["mlp"], rms_norm(h, lp["ln_mlp"]), "gelu",
-                            backend)
+        return h + mlp_forward(lp["mlp"], rms_norm(h, lp["ln_mlp"]), "gelu",
+                               backend)
+
+    remat = cfg.remat and builds_graph(h, enc_out, mp["dec_layers"])
+    for i, lp in enumerate(_unstack(mp["dec_layers"], cfg.n_layers)):
+        layer_cache = _layer(cache, i) if cache is not None else None
+        h = remat_call(remat, body, lp, h, enc_out, layer_cache)
     h = rms_norm(h, mp["final_norm"])
     logits = qmatmul(h, mp["embed"].T, backend).to(torch.float32)
     return logits, cache
@@ -169,6 +182,20 @@ def encdec_forward(params, cfg: ModelConfig, frames, tokens, cache=None,
     logits, cache = decode(mp, cfg, tokens, enc_out, cache, index, backend,
                            attn_backend)
     return logits, cache, enc_out
+
+
+def encdec_loss(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor]):
+    """Training loss: the decoder's next-token cross entropy over
+    ``batch["frames"]`` (B, S_enc, d_model) and ``tokens`` / ``labels``,
+    an unmasked mean; the family has no auxiliary term (aux 0)."""
+    logits, _, _ = encdec_forward(params, cfg, batch["frames"],
+                                  batch["tokens"])
+    labels = batch["labels"].long()
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, labels[..., None])[..., 0]
+    ce = torch.mean(lse - ll)
+    return ce, dict(ce=ce, aux=torch.zeros((), dtype=torch.float32,
+                                           device=ce.device))
 
 
 def encdec_init_cache(cfg: ModelConfig, batch: int, max_len: int,

@@ -24,8 +24,12 @@ where torch promises less than JAX: top-k is a stable descending sort
 stable, and the combine adds each token's k expert outputs in ascending
 expert id, in the activation dtype, without atomics.
 
-Not ported: the sharded path (``_moe_forward_sharded``) and the grouped
-product's custom VJP (MoE training).
+Training differentiates both dispatches: the ragged product through
+its own backward (:class:`_GroupedMatmul`, the reference's custom VJP),
+the capacity loop through autograd; the router's gradient flows through
+the gathered top-k probabilities and the aux term's ``frac_probs``
+(``frac_tokens`` is a count).  Not ported: the sharded path
+(``_moe_forward_sharded``).
 """
 from __future__ import annotations
 
@@ -49,36 +53,87 @@ def _sizes(group_sizes: Union[torch.Tensor, Sequence[int]]) -> List[int]:
     return [int(s) for s in group_sizes]
 
 
-def grouped_matmul(x: torch.Tensor, w: torch.Tensor,
-                   group_sizes) -> torch.Tensor:
-    """y[M, N] = per-group x[M, K] @ w[g, K, N], tokens sorted by group
-    (``jax.lax.ragged_dot``, forward only).  Rows past the sum of the
-    group sizes are zero.  ``group_sizes`` is a (G,) tensor (read on the
-    host) or a sequence of ints.
-
-    One batched product: each group's rows are placed in a zero-padded
-    (G, C, K) block, C the largest group's size, and multiplied by its
-    expert in one ``torch.bmm``.  C is at least 2: BLAS multiplies a
-    single row through a matrix-vector path whose sums run in another
-    order, and a row's result must not depend on how many rows share its
-    expert.  The padding is not bounded: memory and operations grow with
-    G x C, not with the M real rows, so skewed routing costs up to G / k
-    times the work of the rows (G / k = 5 for granite's top-8 over 40
-    experts, 16 for llama4-scout's top-1 over 16)."""
-    m, k = x.shape
-    n = w.shape[-1]
-    sizes = _sizes(group_sizes)
+def _pad_slots(sizes: List[int], device) -> Tuple[torch.Tensor, int]:
+    """Where each of the ``sum(sizes)`` sorted rows lands in a zero-padded
+    (G, C) block of groups, and C: the largest group's size, at least 2.
+    BLAS multiplies a single row through a matrix-vector path whose sums
+    run in another order, and a row's result must not depend on how many
+    rows share its expert."""
     g, total = len(sizes), sum(sizes)
     c = max(max(sizes, default=0), 2)
     starts = np.cumsum([0] + sizes[:-1])
     slot = torch.as_tensor(np.repeat(np.arange(g) * c - starts, sizes)
-                           + np.arange(total), device=x.device)
-    xp = x.new_zeros((g * c, k))
-    xp[slot] = x[:total]
-    y = torch.bmm(xp.view(g, c, k), w).view(g * c, n)[slot]
-    if total < m:
-        y = torch.cat([y, x.new_zeros((m - total, n))])
+                           + np.arange(total), device=device)
+    return slot, c
+
+
+def _padded(x: torch.Tensor, sizes: List[int]) -> torch.Tensor:
+    """The first ``sum(sizes)`` rows of ``x`` in (G, C, cols) zero-padded
+    group blocks (:func:`_pad_slots`)."""
+    slot, c = _pad_slots(sizes, x.device)
+    xp = x.new_zeros((len(sizes) * c, x.shape[1]))
+    xp[slot] = x[:len(slot)]
+    return xp.view(len(sizes), c, x.shape[1])
+
+
+def _grouped_forward(x: torch.Tensor, w: torch.Tensor,
+                     sizes: List[int]) -> torch.Tensor:
+    """The ragged product of :func:`grouped_matmul` without autograd."""
+    m, n = x.shape[0], w.shape[-1]
+    slot, _ = _pad_slots(sizes, x.device)
+    y = torch.bmm(_padded(x, sizes), w).view(-1, n)[slot]
+    if len(slot) < m:
+        y = torch.cat([y, x.new_zeros((m - len(slot), n))])
     return y
+
+
+class _GroupedMatmul(torch.autograd.Function):
+    """The grouped product with the reference's custom VJP: both
+    directions stay ragged.  ``dx`` is the grouped product of ``dy`` with
+    each expert's ``w^T``; ``dw[g] = x_g^T dy_g`` over group g's own rows
+    (one batched product over the same zero-padded (G, C) blocks as the
+    forward).  No (G, M, K) or (T, E, K) tensor is built.  An expert with
+    no rows gets ``dw`` exactly 0 and rows past the groups' sum get ``dx``
+    exactly 0; ``dx`` and ``dw`` take the dtypes of ``x`` and ``w``."""
+
+    @staticmethod
+    def forward(ctx, x, w, sizes):
+        ctx.save_for_backward(x, w)
+        ctx.sizes = sizes
+        return _grouped_forward(x, w, sizes)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w = ctx.saved_tensors
+        sizes = ctx.sizes
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dx = _grouped_forward(dy, w.transpose(1, 2), sizes).to(x.dtype)
+        if ctx.needs_input_grad[1]:
+            dw = torch.bmm(_padded(x, sizes).transpose(1, 2),
+                           _padded(dy.to(x.dtype), sizes))
+            empty = torch.as_tensor([s == 0 for s in sizes],
+                                    device=dw.device)
+            dw = dw.masked_fill(empty[:, None, None], 0).to(w.dtype)
+        return dx, dw, None
+
+
+def grouped_matmul(x: torch.Tensor, w: torch.Tensor,
+                   group_sizes) -> torch.Tensor:
+    """y[M, N] = per-group x[M, K] @ w[g, K, N], tokens sorted by group
+    (``jax.lax.ragged_dot``, with the reference's ragged backward:
+    :class:`_GroupedMatmul`).  Rows past the sum of the group sizes are
+    zero.  ``group_sizes`` is a (G,) tensor (read on the host) or a
+    sequence of ints.
+
+    One batched product: each group's rows are placed in a zero-padded
+    (G, C, K) block, C the largest group's size (at least 2,
+    :func:`_pad_slots`), and multiplied by its expert in one
+    ``torch.bmm``.  The padding is not bounded: memory and operations
+    grow with G x C, not with the M real rows, so skewed routing costs up
+    to G / k times the work of the rows (G / k = 5 for granite's top-8
+    over 40 experts, 16 for llama4-scout's top-1 over 16)."""
+    return _GroupedMatmul.apply(x, w, _sizes(group_sizes))
 
 
 def _expert(w, e: int):

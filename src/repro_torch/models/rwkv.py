@@ -18,7 +18,7 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from .common import make_weight, qmatmul, rms_norm
+from .common import chunk_call, make_weight, qmatmul, rms_norm
 
 
 def init_rwkv6(d_model: int, n_heads: int, qc, *,
@@ -87,15 +87,16 @@ def _wkv_chunked(r, k, v, logw, u, s0, chunk: int):
     A[q,s] = sum_k r_qk k_sk exp(dprev_q,k - dcum_s,k) in factored matmul
     form with a per-channel midpoint offset, so neither factor overflows
     f32 (per-step logw clamped >= -4 upstream; with chunk <= 32 the worst
-    exponent is ~17*4 < 88)."""
+    exponent is ~17*4 < 88).  With a graph to build, each chunk is
+    recomputed in the backward (:func:`chunk_call`), so the backward holds
+    one chunk's intermediates at a time, as the reference's
+    ``jax.checkpoint(chunk_step)``."""
     L = r.shape[1]
     tri = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
                                 device=r.device), diagonal=-1)
     eu = torch.exp(u)
-    s = s0
-    outs = []
-    for c0 in range(0, L, chunk):
-        r_c, k_c, v_c, lw_c = (a[:, c0:c0 + chunk] for a in (r, k, v, logw))
+
+    def chunk_step(s, r_c, k_c, v_c, lw_c):
         dcum = torch.cumsum(lw_c, dim=1)                 # (b,Q,H,K)
         dprev = dcum - lw_c
         mid = dcum[:, chunk // 2: chunk // 2 + 1]
@@ -109,7 +110,14 @@ def _wkv_chunked(r, k, v, logw, u, s0, chunk: int):
         s_chunk = torch.einsum("bshk,bshv->bhkv",
                                k_c * torch.exp(dcum[:, -1:] - dcum), v_c)
         s = s * torch.exp(dcum[:, -1])[..., None] + s_chunk
-        outs.append(o_intra + o_inter)
+        return o_intra + o_inter, s
+
+    s = s0
+    outs = []
+    for c0 in range(0, L, chunk):
+        o, s = chunk_call(chunk_step, s, *(a[:, c0:c0 + chunk]
+                                           for a in (r, k, v, logw)))
+        outs.append(o)
     return torch.cat(outs, dim=1), s
 
 

@@ -16,7 +16,7 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from .common import make_weight, qmatmul, rms_norm
+from .common import chunk_call, make_weight, qmatmul, rms_norm
 
 
 def init_mamba2(d_model: int, n_state: int, qc, *,
@@ -76,21 +76,23 @@ def _ssd_chunked(xh, dt, da, B, C, h0, chunk: int):
     da: (b, L, H)      log decay per step (negative)
     B, C: (b, L, N)    input/output projections (single group)
     h0: (b, H, N, P)   initial state
-    Returns (y (b, L, H, P), h_final).
+    Returns (y (b, L, H, P), h_final).  With a graph to build, each chunk
+    is recomputed in the backward (:func:`chunk_call`), as the reference's
+    ``jax.checkpoint(chunk_step)``.
     """
     L = xh.shape[1]
     tri = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
                                 device=xh.device))
-    h = h0
-    ys = []
-    for c0 in range(0, L, chunk):
-        xh_c, dt_c, da_c, b_c, c_c = (a[:, c0:c0 + chunk]
-                                      for a in (xh, dt, da, B, C))
+
+    def chunk_step(h, xh_c, dt_c, da_c, b_c, c_c):
         lcum = torch.cumsum(da_c, dim=1)                   # (b,Q,H)
         xdt = xh_c * dt_c[..., None]                       # (b,Q,H,P)
         rel = lcum[:, :, None, :] - lcum[:, None, :, :]    # (b,Q,Q,H)
-        att = torch.where(tri[None, :, :, None], torch.exp(rel),
-                          torch.zeros_like(rel))
+        # masked before the exp: above the diagonal rel is a sum of
+        # positive decays, whose exp overflows in a long chunk, and the
+        # backward of a where after the exp would then read 0 * inf
+        att = torch.exp(torch.where(tri[None, :, :, None], rel,
+                                    torch.full_like(rel, -torch.inf)))
         cb = torch.einsum("bqn,bsn->bqs", c_c, b_c)        # (b,Q,Q)
         y_intra = torch.einsum("bqs,bqsh,bshp->bqhp", cb, att, xdt)
         y_inter = torch.einsum("bqn,bhnp->bqhp", c_c, h) \
@@ -98,7 +100,14 @@ def _ssd_chunked(xh, dt, da, B, C, h0, chunk: int):
         dec_out = torch.exp(lcum[:, -1:, :] - lcum)        # (b,Q,H)
         s_chunk = torch.einsum("bsn,bsh,bshp->bhnp", b_c, dec_out, xdt)
         h = h * torch.exp(lcum[:, -1, :])[:, :, None, None] + s_chunk
-        ys.append(y_intra + y_inter)
+        return y_intra + y_inter, h
+
+    h = h0
+    ys = []
+    for c0 in range(0, L, chunk):
+        y, h = chunk_call(chunk_step, h, *(a[:, c0:c0 + chunk]
+                                           for a in (xh, dt, da, B, C)))
+        ys.append(y)
     return torch.cat(ys, dim=1), h
 
 

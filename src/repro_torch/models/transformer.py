@@ -20,8 +20,10 @@ training the backward stacks each leaf's layer gradients once (slicing a
 layer with ``tensor[i]`` would write a zero buffer the size of the whole
 stack for every layer).  With ``cfg.remat`` each layer body is
 recomputed in the backward (``torch.utils.checkpoint``), as the
-reference's ``jax.checkpoint``.  The KV cache and the recurrent states are
-written in place through per-layer views.
+reference's ``jax.checkpoint`` (``common.remat_call``; the ssm layers and
+the hybrid's Mamba-2 layers too).  The KV cache and the recurrent states
+are written in place through per-layer views; a training forward has no
+cache, so no such write touches a tensor autograd saved.
 """
 from __future__ import annotations
 
@@ -29,12 +31,11 @@ import dataclasses
 from typing import Any, Dict, List
 
 import torch
-from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
 from .attention import attn_forward, fill_levels, init_attn
-from .common import (act_quant, embed_init, make_weight, prepare_params,
-                     qmatmul, rms_norm, softcap)
+from .common import (act_quant, builds_graph, embed_init, make_weight,
+                     prepare_params, qmatmul, remat_call, rms_norm, softcap)
 from .ffn import init_mlp, mlp_forward
 from .moe import init_moe, moe_forward
 from .rwkv import init_rwkv6, rwkv6_forward, rwkv6_init_state
@@ -54,26 +55,13 @@ def _check_family(cfg: ModelConfig) -> None:
 
 
 def check_trainable(cfg: ModelConfig) -> None:
-    """Training is ported for the dense family only: the MoE grouped
-    product has no backward and the loss no load-balancing term yet, the
-    encoder-decoder loss (``encdec_loss``) and its frames batches are not
-    ported, and neither is training of the vlm, ssm and hybrid
-    families."""
+    """Every family the port serves also trains, as in the reference: the
+    dense, MoE (the grouped product's ragged backward and ``0.01 x`` the
+    load-balancing term), vlm, ssm and hybrid families through
+    :func:`loss_fn`, the encoder-decoder family through
+    ``encdec.encdec_loss``.  Raises only for a family the port does not
+    know."""
     _check_family(cfg)
-    if cfg.is_encdec:
-        raise NotImplementedError(
-            f"training the {cfg.family!r} family (encoder-decoder) is not "
-            f"ported yet (encdec_loss and the frames batches); the port "
-            f"trains the dense family")
-    if cfg.family in ("vlm", "ssm", "hybrid"):
-        raise NotImplementedError(
-            f"training the {cfg.family!r} family is not ported yet (the "
-            f"port serves it); the port trains the dense family")
-    if cfg.family != "dense" or cfg.n_experts:
-        raise NotImplementedError(
-            f"training the {cfg.family!r} family is not ported yet (the "
-            f"grouped matmul's VJP and the 0.01 x aux loss term); the "
-            f"port trains the dense family")
 
 
 # ---------------------------------------------------------------------------
@@ -244,15 +232,12 @@ def _walk_dense(mp, cfg, h, positions, cache, index, backend, attn_backend):
     forward that builds a graph recomputes each layer in the backward
     when ``cfg.remat``.  Returns (h, aux, cache); aux is 0 for a dense
     model."""
-    remat = cfg.remat and h.requires_grad
+    remat = cfg.remat and builds_graph(h, mp["layers"])
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
     for i, lp in enumerate(_unstack(mp["layers"], cfg.n_layers)):
         layer_cache = _layer(cache, i) if cache is not None else None
-        args = (lp, h, positions, cfg, i, layer_cache, index, backend,
-                attn_backend)
-        h, aux_l = checkpoint(_layer_body, *args, use_reentrant=False,
-                              preserve_rng_state=False) if remat \
-            else _layer_body(*args)
+        h, aux_l = remat_call(remat, _layer_body, lp, h, positions, cfg, i,
+                              layer_cache, index, backend, attn_backend)
         if aux_l is not None:
             aux = aux + aux_l
     return h, aux, cache
@@ -266,12 +251,17 @@ def _write_state(view: Dict, new: Dict) -> None:
 
 def _walk_ssm(mp, cfg, h, cache, backend):
     """Loop over the RWKV-6 layers; each layer's state views are written
-    in place."""
+    in place.  A forward that builds a graph recomputes each layer in the
+    backward when ``cfg.remat``."""
+    def body(lp, h, state):
+        return rwkv6_forward(lp, h, n_heads=cfg.n_heads,
+                             chunk=cfg.rwkv_chunk, state=state,
+                             backend=backend)
+
+    remat = cfg.remat and builds_graph(h, mp["layers"])
     for i, lp in enumerate(_unstack(mp["layers"], cfg.n_layers)):
         state = _layer(cache, i) if cache is not None else None
-        h, new = rwkv6_forward(lp, h, n_heads=cfg.n_heads,
-                               chunk=cfg.rwkv_chunk, state=state,
-                               backend=backend)
+        h, new = remat_call(remat, body, lp, h, state)
         if state is not None:
             _write_state(state, new)
     return h, cache
@@ -282,25 +272,32 @@ def _walk_hybrid(mp, cfg, h, emb0, positions, cache, index, backend,
     """zamba2: the Mamba-2 trunk, and after every ``period`` layers ONE
     shared attention + MLP block on ``concat(h, emb0)`` with its own KV
     cache for that call; the ``n_layers % period`` last layers form a tail
-    with no shared call after it.  Every state is written in place."""
+    with no shared call after it.  Every state is written in place.  A
+    forward that builds a graph recomputes each Mamba-2 layer in the
+    backward when ``cfg.remat`` (the reference remats those bodies, not
+    the shared block's calls)."""
     period = cfg.hybrid_attn_every
     n = cfg.n_layers
     n_super = n // period if period else 0
     layers = _unstack(mp["layers"], n)
+    remat = cfg.remat and builds_graph(h, mp["layers"])
     mstates = cache["mamba"] if cache is not None else None
     acaches = cache["attn"] if cache is not None else None
 
-    def mamba(li, h):
-        lp = layers[li]
-        state = _layer(mstates, li) if mstates is not None else None
+    def body(lp, h, state):
         out, new = mamba2_forward(
             {k: v for k, v in lp.items() if k != "ln"},
             rms_norm(h, lp["ln"]), n_state=cfg.ssm_state,
             headdim=cfg.ssm_headdim, chunk=cfg.ssm_chunk, state=state,
             backend=backend)
+        return h + out, new
+
+    def mamba(li, h):
+        state = _layer(mstates, li) if mstates is not None else None
+        h, new = remat_call(remat, body, layers[li], h, state)
         if state is not None:
             _write_state(state, new)
-        return h + out
+        return h
 
     for si in range(n_super):
         for li in range(si * period, (si + 1) * period):
@@ -372,13 +369,18 @@ def forward(params, cfg: ModelConfig, tokens, **kw):
 
 
 def loss_fn(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor]):
-    """Next-token cross entropy.  batch: tokens, labels, [mask].  The
-    dense family has no auxiliary loss; MoE training (the reference adds
-    0.01 x the load-balancing term) is refused."""
+    """Next-token cross entropy plus ``0.01 x`` the summed MoE
+    load-balancing term (0 for the families without experts).  batch:
+    tokens, labels, [mask], [positions], and a vlm batch's
+    [vision_embeds], whose prefix positions carry no label: the logits
+    are cut to the last ``labels.shape[1]`` positions."""
     check_trainable(cfg)
-    logits, _ = forward(params, cfg, batch["tokens"],
-                        positions=batch.get("positions"))
+    logits, aux, _ = forward_aux(params, cfg, batch["tokens"],
+                                 vision_embeds=batch.get("vision_embeds"),
+                                 positions=batch.get("positions"))
     labels = batch["labels"].long()
+    if cfg.family == "vlm" and batch.get("vision_embeds") is not None:
+        logits = logits[:, -labels.shape[1]:]
     lse = torch.logsumexp(logits, dim=-1)
     ll = torch.gather(logits, -1, labels[..., None])[..., 0]
     nll = lse - ll
@@ -389,7 +391,6 @@ def loss_fn(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor]):
     else:
         denom = float(nll.numel())
     ce = torch.sum(nll) / denom
-    aux = torch.zeros((), dtype=torch.float32, device=ce.device)
     return ce + 0.01 * aux, dict(ce=ce, aux=aux)
 
 

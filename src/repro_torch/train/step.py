@@ -190,7 +190,10 @@ def _maintain_leaf(q):
 
 
 def _layers(q):
-    """``q`` one layer at a time (views) for a stacked leaf, else whole."""
+    """``q`` one layer at a time (views) for a stacked leaf, else whole.
+    An MoE expert stack (L, E, K, N) gives (E, K, N) pieces: every rule
+    acts within one (K, N) matrix, so a piece's result is its slice of
+    the whole-leaf one."""
     if len(q.shape) > 2:
         return [q.layer(i) for i in range(q.shape[0])]
     return [q]

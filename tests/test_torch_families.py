@@ -16,8 +16,8 @@ as whole models, on the CPU in f32.
   ``atol``), and prefill + decode equals the port's own full forward
   (the reference's tests/test_consistency.py rows); the chunked SSD scan
   equals the per-token recurrence;
-* the family gate admits the three families, and training them is
-  refused by name.
+* the family gate admits the three families, and so does the training
+  gate.
 """
 import dataclasses
 
@@ -403,10 +403,13 @@ def test_prefill_and_decode_match_the_reference(arch, over):
 
 @pytest.mark.parametrize("arch", ARCHS)
 def test_family_is_served_and_training_is_refused(arch):
+    """The family is served and, since training was ported, trained: the
+    training gate refuses only a family the reference does not have."""
     cfg = TREG[arch]
     ttr._check_family(cfg)
-    with pytest.raises(NotImplementedError, match=repr(cfg.family)):
-        ttr.check_trainable(cfg)
+    ttr.check_trainable(cfg)
+    with pytest.raises(ValueError, match="unknown family"):
+        ttr.check_trainable(dataclasses.replace(cfg, family="nonesuch"))
     with pytest.raises(ValueError, match="unknown family"):
         ttr._check_family(dataclasses.replace(cfg, family="nonesuch"))
 

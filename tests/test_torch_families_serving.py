@@ -418,14 +418,18 @@ def test_prefix_cache_is_disabled_with_a_warning(arch):
 
 @pytest.mark.parametrize("arch", ARCHS)
 def test_training_is_refused(arch):
-    from repro_torch.launch.train import main as train_main
+    """Training was ported: the loss takes a QAT tree of the family (aux
+    0, no experts) and the train launcher builds its trainer
+    (tests/test_torch_train_families.py runs it)."""
+    from repro_torch.launch import train as tl
     fx = _fx(arch)
     tok = torch.zeros((1, 4), dtype=torch.int32)
-    family = repr(fx["tapi"].cfg.family)
-    with pytest.raises(NotImplementedError, match=family):
-        fx["tapi"].loss(_trees(fx, 8)[1], {"tokens": tok, "labels": tok})
-    with pytest.raises(NotImplementedError, match=family):
-        train_main(["--arch", arch, "--device", "cpu", "--steps", "1"])
+    tqat = params_from_numpy(tree_to_numpy(fx["qat"]), device="cpu")
+    loss, m = fx["tapi"].loss(tqat, {"tokens": tok, "labels": tok})
+    assert torch.isfinite(loss) and float(m["aux"]) == 0.0
+    trainer = tl.make_trainer(tl.build_parser().parse_args(
+        ["--arch", arch, "--device", "cpu", "--steps", "1"]))
+    assert trainer.state.step == 0
 
 
 @pytest.mark.parametrize("arch", ARCHS)

@@ -394,10 +394,15 @@ def test_launcher_serves_moe_on_cpu(tmp_path, capsys):
 
 
 def test_training_is_refused(granite):
-    from repro_torch.launch.train import main
+    """Training was ported: the loss takes the MoE QAT tree (its aux the
+    load-balancing term, > 0) and the train launcher builds its trainer
+    (tests/test_torch_train_moe.py runs it)."""
+    from repro_torch.launch import train as tl
     tok = torch.zeros((1, 4), dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="'moe'"):
-        granite["tapi"].loss(granite["tqat"], {"tokens": tok,
-                                               "labels": tok})
-    with pytest.raises(NotImplementedError, match="'moe'"):
-        main(["--arch", GRANITE, "--device", "cpu", "--steps", "1"])
+    loss, m = granite["tapi"].loss(granite["tqat"], {"tokens": tok,
+                                                     "labels": tok})
+    assert torch.isfinite(loss) and float(m["aux"]) > 0
+    assert float(loss) == pytest.approx(float(m["ce"] + 0.01 * m["aux"]))
+    trainer = tl.make_trainer(tl.build_parser().parse_args(
+        ["--arch", GRANITE, "--device", "cpu", "--steps", "1"]))
+    assert trainer.state.step == 0

@@ -99,7 +99,27 @@ It builds the four CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
    tree (k=6, γ=3, quantizers off) gives the non-speculative drive's
    tokens.
 
-5. MoE phase — with the phi3 trees freed, the MoE family at full width:
+5. lint phase — the serving-graph lint (``repro_torch.analysis.
+   lint_engine``) on full-width phi3 over the trees the earlier phases
+   built, nothing new deployed: packed int8 and int4 under ``kernel`` /
+   ``fused`` with int8 and int4 KV, contiguous and paged (16-token
+   pages, 256-token chunks), the bit-plane tree under ``bitplane`` and
+   the int8 tree through the plain versions (``ref`` / ``ref``).  Each
+   must pass with the rules the reference's lint reports on the same
+   configuration (``LINT_RULES``), and each recorded call's kernel ops
+   (the wrappers' boundary) must equal the launches its wrappers counted
+   over that call.  Four planted faults must fail: one leaf dequantized
+   in Python inside prefill, a decode forced to ``gather`` under
+   ``fused``, a decode that clones its state, and the packed tree under
+   ``bitplane`` through the lint launcher (exit 1).  The lint launcher
+   (``repro_torch.launch.lint.main``) on the int8 tree exits 0 with
+   ``"ok": true``.  The scheduler phase's 24-request drive runs with
+   ``--lint`` (its lint's launches zeroed before the drive's,
+   :class:`LintGuard`), and each later serving phase lints its int8
+   engine (granite, seamless, qwen2-vl, rwkv6, zamba2) at its depth.
+   Each lint's seconds and the phase's are logged and recorded.
+
+6. MoE phase — with the phi3 trees freed, the MoE family at full width:
    granite-moe-3b-a800m (its first 4 of 32 layers, ``MOE_DEPTH``, 40
    experts top-8, random weights
    from seed 0, bf16) deployed packed int8 and int4 and as mixed-width bit
@@ -126,7 +146,7 @@ It builds the four CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
    shared expert, G=5 at d_head 128, a 202048-wide tied head), quantizers
    off and on.
 
-6. enc-dec phase — with the MoE trees freed, seamless-m4t-large-v2 at
+7. enc-dec phase — with the MoE trees freed, seamless-m4t-large-v2 at
    full width, cut to its first 6 encoder and 6 decoder layers
    (``ENCDEC_DEPTH``; 24 + 24 registered; d_model 1024,
    vocab 256206, random weights from seed 0), deployed packed int8 and
@@ -147,7 +167,7 @@ It builds the four CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
    request (prefix cache warned off, parking), then quantizers off in
    f32 against one-shot reruns, every one identical.
 
-7. families phase — with the enc-dec trees freed, the last three model
+8. families phase — with the enc-dec trees freed, the last three model
    families at full width and about half depth (``FAMILY_DEPTH``), one at
    a time: qwen2-vl-2b (14 of 28 layers, M-RoPE, 256 random vision
    embeds a prompt, 2 KV heads at G=6), rwkv6-1.6b (12 of 24 layers, no
@@ -171,7 +191,7 @@ It builds the four CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
    against one-shot reruns.  ``packed_matmul`` is timed at the families'
    new shapes, ``paged_attention`` at the two new heads.
 
-8. CNN phase — the paper's own pipeline through the CIFAR launcher's
+9. CNN phase — the paper's own pipeline through the CIFAR launcher's
    ``main`` (``python -m repro_torch.launch.cifar``), in process:
    ResNet-20 and VGG-16-BN at full width on 32x32x3 images, bit-plane
    mode at the paper's 9x8 blocks (and BSQ, one block a layer), trained
@@ -194,7 +214,7 @@ It builds the four CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
    BWQ-H simulator's speedup and energy against ISAAC (a ReRAM model's
    outputs, not measurements).
 
-9. train phase — with every serving tree freed, BWQ-A training through
+10. train phase — with every serving tree freed, BWQ-A training through
    the train launcher's ``main`` (``python -m repro_torch.launch.train``),
    in process: full-width phi3 (32 layers, bf16 compute, f32 master
    weights, 8x128 blocks, 8-bit PACT, remat) in fake mode, 8 steps of
@@ -212,7 +232,7 @@ It builds the four CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
    versions.  Step ms (median after the first), tokens/s, maintenance ms,
    deploy s, peak memory, bit-width and compression are reported.
 
-10. train families phase — with the trained phi3 trees freed, BWQ-A
+11. train families phase — with the trained phi3 trees freed, BWQ-A
    training of the five other families at full width, bf16, fake mode,
    8-bit PACT, remat, depth cut (``TF_ARCHS``): granite-moe-3b-a800m at
    4 layers, seamless-m4t-large-v2 at 6 + 6, qwen2-vl-2b at 4, rwkv6-1.6b
@@ -234,7 +254,7 @@ It builds the four CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
    within 1e-5, each gradient leaf within ``GRAD_TOL_REL``, beside the
    card's own step on the batch's rows swapped (the witness).
 
-11. deploy phase — from a trainer's checkpoint to budget-autotuned
+12. deploy phase — from a trainer's checkpoint to budget-autotuned
    bit-plane serving, full-width phi3 cut to ``DEPLOY_LAYERS`` = 2 layers
    (a 2-layer TrainState is ~3.9 GB a save), under
    ``chiprun_out/deploy_ckpt`` (free space checked first, removed at the
@@ -267,8 +287,9 @@ the card, a ``{"moe": {...}}`` line with the MoE phase's, an
 ``{"cnn": {...}}``
 line with the CNN phase's, a ``{"train_families": {...}}`` line with the
 train families phase's, a ``{"deploy": {...}}`` line with the deploy
-phase's, a
-``{"kernels": [...]}`` JSON line, the card's name and power
+phase's, a ``{"lint": {...}}`` line with
+each linted engine's seconds and rules, the faults' and the launcher's,
+a ``{"kernels": [...]}`` JSON line, the card's name and power
 limit, and as the last line ``{"ok": true, "device": {...}}``.  Details go
 to ``chiprun_out/chip_smoke_detail.json``.  Any failure exits non-zero; so
 does a machine without CUDA, or a directory without the repository.
@@ -1575,7 +1596,9 @@ def launch(argv, params=None):
     printout kept, with the launch counters zeroed just before and read
     just after, each tick timed (:class:`TickTimer`) and the first
     weight-matmul call at each shape held against the plain version
-    (:class:`MatmulCapture`) after the counts are read."""
+    (:class:`MatmulCapture`) after the counts are read.  A drive given
+    ``--lint`` lints first, its launches zeroed after (:class:`LintGuard`):
+    the lint's record is ``out["lint"]``."""
     import contextlib
     import io
     import torch
@@ -1585,9 +1608,11 @@ def launch(argv, params=None):
     tk.reset_launch_counts()
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(buf), TickTimer() as timer, \
-            MatmulCapture() as mm:
+            MatmulCapture() as mm, LintGuard() as lint:
         out = serve_main(argv, params=params, record_ticks=True)
     torch.cuda.synchronize()
+    if lint.record is not None:
+        out["lint"] = lint.record
     out["launches"] = tk.launch_counts()
     out["main_s"] = time.perf_counter() - t0
     out["tick_ms"], out["run_s"] = timer.ms, timer.run_s
@@ -1896,8 +1921,12 @@ def scheduler_phase(bp, size=("--no-tiny",)):
     import torch
     out = {}
     with TickCapture() as cap:
-        main = launch(sched_argv(size, ["--kv-bits", "8"]))
+        main = launch(sched_argv(size, ["--kv-bits", "8", "--lint"]))
     rec = out["main"] = drive_record(main, "packed_matmul")
+    # the launcher's --lint ran before serving: ok, the reference's rules
+    rec["lint"] = main["lint"]
+    assert rec["lint"]["ok"] and \
+        rec["lint"]["rules"] == sorted(LINT_RULES["paged"]), rec["lint"]
     rep = rec["cache_report"]
     assert rep["preemptions"] >= 1 and \
         rep["resumes"] == rep["preemptions"], rep
@@ -1955,6 +1984,292 @@ def scheduler_phase(bp, size=("--no-tiny",)):
         f"acceptance {out['speculative']['acceptance']:.3f}; tokens equal "
         f"the non-speculative drive's")
     return out
+
+
+# ---------------------------------------------------------------------------
+# lint phase
+# ---------------------------------------------------------------------------
+
+# the lint launcher's default sizes: a 16-token prompt, 4 slots, 16 new
+LINT_SIZES = dict(prompt_len=16, n_slots=4, max_new=16)
+# The rules the reference's lint reports on the same configurations
+# (``repro.analysis.lint_engine`` on the tiny configs; the port's CPU
+# tests, tests/test_torch_lint*.py, hold the two equal finding for
+# finding): a chunked paged engine's chunk reads its pool through the
+# sanctioned gather; the ragged MoE product's dequantized expert stacks
+# are a warning and leave no ``clean``.
+_LINT_CLEAN = {"info:census", "info:clean", "info:donation-ok",
+               "info:kv-clean"}
+_LINT_CHUNK = {"info:PX-smoke", "info:sanctioned-kv-dequant",
+               "info:sanctioned-kv-gather"}
+LINT_RULES = {
+    "contiguous": _LINT_CLEAN,
+    "paged": _LINT_CLEAN | _LINT_CHUNK,
+    "ref": {"info:PX-smoke", "info:census", "info:donation-ok",
+            "info:sanctioned-dequant", "info:sanctioned-kv-dequant",
+            "info:sanctioned-kv-gather"},
+    "moe": (_LINT_CLEAN - {"info:clean"}) | _LINT_CHUNK
+    | {"warning:sanctioned-moe-dequant"},
+    "ssm": {"info:census", "info:clean", "info:donation-ok"},
+    "hybrid": _LINT_CLEAN | {"info:PX-smoke"},
+}
+# phi3's int8 / int8-KV kernel decode ms/step (time phase, contiguous,
+# bf16) in the smoke's run before the kernel boundary existed (PERF.md
+# §5); printed beside this run's
+BASELINE_DECODE_MS = 83.53
+
+
+def lint_record(label, rep, s, launches):
+    """A lint report's record: its rules, findings and seconds, and each
+    recorded call's kernel-boundary ops, which must equal the launches
+    its wrappers counted over that call; the calls' ops summed must
+    equal the counters over the whole lint (``launches``)."""
+    ops = {}
+    for c in rep.calls:
+        got = {k: v for k, v in c["launches"].items() if v}
+        if c["kernel_ops"] != got:
+            raise AssertionError(f"lint {label}: {c['fn']} recorded kernel "
+                                 f"ops {c['kernel_ops']}, launches {got}")
+        for k, v in got.items():
+            ops[k] = ops.get(k, 0) + v
+    total = {k: v for k, v in launches.items() if v}
+    if ops != total:
+        raise AssertionError(f"lint {label}: recorded ops {ops} over the "
+                             f"calls, launches {total} over the lint")
+    rules = sorted({f"{f.severity}:{f.rule}" for f in rep.findings})
+    log(f"lint {label}: {s:.2f} s, {rep.summary()}, launches {total}")
+    return {"label": label, "ok": rep.ok, "s": s, "rules": rules,
+            "findings": [f.format() for f in rep.findings],
+            "calls": rep.calls, "launches": total,
+            "context": rep.context}
+
+
+def timed_lint(label, fn):
+    """``fn()`` (a lint giving a report) with the launch counters zeroed
+    just before and just after, so no lint launch leaks into a drive's
+    counts; returns (report, record)."""
+    import torch
+    from repro_torch import kernels as tk
+    tk.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rep = fn()
+    torch.cuda.synchronize()
+    s = time.perf_counter() - t0
+    launches = tk.launch_counts()
+    tk.reset_launch_counts()
+    return rep, lint_record(label, rep, s, launches)
+
+
+def lint_case(label, cfg, tree, expect, backend="kernel", attn="fused",
+              kv=8, page=PAGE, chunk=SCHED_CHUNK):
+    """``lint_engine`` on an engine over ``tree`` (an existing deployed
+    tree: nothing new is built): it must pass and report exactly the
+    reference's rules for the configuration (``LINT_RULES[expect]``)."""
+    import warnings
+    from repro_torch.analysis import lint_engine
+    from repro_torch.models.api import build
+    from repro_torch.serve.engine import ServeEngine
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")     # the ssm family's KV-bits note
+        eng = ServeEngine(build(cfg), tree, kv_quant_bits=kv,
+                          backend=backend, attn_backend=attn,
+                          page_size=page, prefill_chunk=chunk, device=DEV)
+    rep, rec = timed_lint(label, lambda: lint_engine(eng, **LINT_SIZES))
+    want = sorted(LINT_RULES[expect])
+    if not rep.ok or rec["rules"] != want:
+        raise AssertionError(f"lint {label}: {rec['rules']} != {want}:\n"
+                             + rep.format())
+    return rec
+
+
+def planted_lint_faults(cfg, tree, size=("--no-tiny",)):
+    """The graph lint's planted faults on the card, each of which must
+    fail: a prefill that dequantizes one deployed leaf (``mlp.w_down``)
+    in Python under ``kernel`` (``dequant-materialization`` and
+    ``payload-convert``); a decode forced to ``gather`` under ``fused``
+    (``kv-full-width-gather`` and ``kv-dequant-materialization``); a
+    decode that clones its state (``missing-donation``); the packed tree
+    under ``bitplane`` through the lint launcher (exit 1,
+    ``bitplane-dense-fallback``)."""
+    import torch
+    from repro_torch.analysis import check_decode_donation, lint_traced_fn
+    from repro_torch.analysis.report import LintReport
+    from repro_torch.core.state import tree_map
+    from repro_torch.models.api import build
+    from repro_torch.models.common import qdense
+    from repro_torch.serve.engine import ServeEngine
+    out = {}
+    eng = ServeEngine(build(cfg), tree, kv_quant_bits=8, backend="kernel",
+                      attn_backend="fused", page_size=PAGE,
+                      prefill_chunk=SCHED_CHUNK, device=DEV)
+    api, params = eng.api, eng.params
+    leaf = ("layers", "mlp", "w_down")
+    path = "".join(f"[{k!r}]" for k in leaf)
+
+    def dequant_prefill(p, b):
+        mlp = dict(p["layers"]["mlp"],
+                   w_down=qdense(p["layers"]["mlp"]["w_down"],
+                                 torch.bfloat16))
+        p = dict(p, layers=dict(p["layers"], mlp=mlp))
+        return api.prefill(p, b, extra_slots=64, backend="kernel",
+                           attn_backend="fused")
+
+    def report(run):
+        rep = LintReport()
+        rep.extend(run(rep.calls))
+        return rep
+
+    batch = {"tokens": torch.zeros((1, LINT_SIZES["prompt_len"]),
+                                   dtype=torch.int32, device=DEV)}
+    rep, out["dequant"] = timed_lint(
+        "fault: one leaf dequantized in prefill", lambda: report(
+            lambda calls: lint_traced_fn(
+                dequant_prefill, (params, batch), fn_name="prefill",
+                backend="kernel", calls=calls)))
+    errs = {(f.rule, f.path) for f in rep.errors}
+    assert errs == {("dequant-materialization", f"prefill:{path}"),
+                    ("payload-convert", f"prefill:{path}")}, errs
+
+    n = LINT_SIZES["n_slots"]
+    state = eng.init_decode_state(batch, n, 128, page_size=PAGE)
+    tokens = torch.zeros((n, 1), dtype=torch.int32, device=DEV)
+    index = torch.zeros((n,), dtype=torch.int32, device=DEV)
+    rep, out["gather"] = timed_lint(
+        "fault: gather decode under fused", lambda: report(
+            lambda calls: lint_traced_fn(
+                lambda p, t, s, i: api.decode_step(
+                    p, t, s, i, backend="kernel", attn_backend="gather"),
+                (params, tokens, state, index), fn_name="decode",
+                backend="kernel", attn_backend="fused", calls=calls)))
+    assert {"kv-full-width-gather", "kv-dequant-materialization"} <= {
+        f.rule for f in rep.errors}, rep.format()
+
+    def cloning_decode(t, s, i):
+        s = tree_map(lambda x: x.clone() if isinstance(x, torch.Tensor)
+                     else x, s)
+        return ServeEngine.decode(eng, t, s, i)
+    eng.decode = cloning_decode
+    rep, out["clone"] = timed_lint(
+        "fault: decode clones its state", lambda: report(
+            lambda calls: check_decode_donation(eng, tokens, state, index,
+                                                calls=calls)))
+    assert [f.rule for f in rep.errors] == ["missing-donation"], \
+        rep.format()
+    del eng, state
+
+    argv = ["--arch", ARCH, *size, "--device", DEV, "--backend", "bitplane",
+            "--json"]
+    res, out["bitplane_fallback"] = lint_launch(argv, tree, "fault: packed "
+                                                "tree under bitplane")
+    assert res["rc"] == 1 and not res["json"]["ok"], res["rc"]
+    assert {f["rule"] for f in res["json"]["findings"]
+            if f["severity"] == "error"} == {"bitplane-dense-fallback"}
+    return out
+
+
+def lint_launch(argv, params, label):
+    """``repro_torch.launch.lint.main(argv, params=...)`` in this process
+    (the launcher on an existing tree), its printout parsed, the
+    counters zeroed around it: (exit code and JSON, record)."""
+    import contextlib
+    import io
+    import warnings
+    import torch
+    from repro_torch import kernels as tk
+    from repro_torch.launch.lint import main as lint_main
+    buf = io.StringIO()
+    tk.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf), warnings.catch_warnings():
+        warnings.simplefilter("ignore")     # the engine's fallback note
+        rc = lint_main(argv, params=params)
+    torch.cuda.synchronize()
+    s = time.perf_counter() - t0
+    tk.reset_launch_counts()
+    got = json.loads(buf.getvalue())
+    rules = sorted({f"{f['severity']}:{f['rule']}" for f in got["findings"]})
+    log(f"lint {label}: {s:.2f} s, exit {rc}, ok {got['ok']}")
+    return {"rc": rc, "json": got}, {"label": label, "rc": rc,
+                                     "ok": got["ok"], "s": s, "rules": rules}
+
+
+def lint_phase(deployed, bp, size=("--no-tiny",)):
+    """The serving-graph lint on full-width phi3 (``size``), over the trees
+    the earlier phases built: the int8 and int4 packed trees under
+    ``kernel`` / ``fused`` with int8 and int4 KV, contiguous and paged
+    (16-token pages, 256-token chunks), the bit-plane tree under
+    ``bitplane``, the int8 tree through the plain versions (``ref`` /
+    ``ref``); each must pass with the reference's rules, and each
+    recorded call's kernel ops equal its launches.  Then the planted
+    faults (:func:`planted_lint_faults`) and the lint launcher on the int8
+    tree (``--no-tiny --kv-bits 8 --attn-backend fused --page-size 16
+    --prefill-chunk 256 --json``: exit 0, ``"ok": true``)."""
+    t0 = time.perf_counter()
+    cfg = served_config(ARCH, 8, "bfloat16", size)
+    out = {"cases": []}
+    for bits in (8, 4):
+        for kv in (8, 4):
+            for page, chunk in ((0, 0), (PAGE, SCHED_CHUNK)):
+                leg = "paged" if page else "contiguous"
+                out["cases"].append(lint_case(
+                    f"phi3 int{bits} kv{kv} {leg}", cfg, deployed[bits], leg,
+                    kv=kv, page=page, chunk=chunk))
+    out["cases"].append(lint_case("phi3 bit-plane", cfg, bp, "paged",
+                                  backend="bitplane"))
+    out["cases"].append(lint_case("phi3 ref/ref", cfg, deployed[8], "ref",
+                                  backend="ref", attn="ref"))
+    out["faults"] = planted_lint_faults(cfg, deployed[8], size)
+    argv = ["--arch", ARCH, "--backend", "kernel", *size, "--kv-bits", "8",
+            "--attn-backend", "fused", "--page-size", str(PAGE),
+            "--prefill-chunk", str(SCHED_CHUNK), "--json", "--device", DEV]
+    res, out["launcher"] = lint_launch(argv, deployed[8], "launcher, int8")
+    assert res["rc"] == 0 and res["json"]["ok"] is True, res
+    assert out["launcher"]["rules"] == sorted(LINT_RULES["paged"]), \
+        out["launcher"]
+    out["phase_s"] = time.perf_counter() - t0
+    return out
+
+
+class LintGuard:
+    """Observer around ``repro_torch.analysis.lint_engine`` for a launcher
+    drive given ``--lint``: the lint runs with the drive's observers
+    (:class:`MatmulCapture`, :class:`TickCapture`) swapped out for the
+    wrappers they wrap, its record kept (:func:`lint_record`: its seconds,
+    its calls' kernel ops against the launch counters), and the counters
+    zeroed after it, so the drive that follows counts, captures and
+    times only its own calls."""
+
+    NAMES = (("common", "packed_matmul"), ("common", "bitplane_matmul"),
+             ("attention", "paged_attention"))
+
+    def __init__(self):
+        from repro_torch import analysis
+        self.mod, self.orig = analysis, analysis.lint_engine
+        self.record = None
+
+    def __enter__(self):
+        self.mod.lint_engine = self.lint
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.lint_engine = self.orig
+
+    def lint(self, engine, **kw):
+        from repro_torch import kernels
+        from repro_torch.models import attention, common
+        mods = {"common": common, "attention": attention}
+        seen = {k: getattr(mods[m], k) for m, k in self.NAMES}
+        for m, k in self.NAMES:
+            setattr(mods[m], k, getattr(kernels, k))
+        try:
+            rep, self.record = timed_lint("scheduler drive --lint",
+                                          lambda: self.orig(engine, **kw))
+        finally:
+            for m, k in self.NAMES:
+                setattr(mods[m], k, seen[k])
+        return rep
 
 
 # ---------------------------------------------------------------------------
@@ -2274,6 +2589,8 @@ def moe_phase(size=("--no-tiny",)):
         out["runs"].append(r)
         moe_log(r)
     out["phase1_s"] = time.perf_counter() - t0
+    out["lint"] = lint_case(f"{MOE_ARCH} int8 kv8 paged", cfg, packed[8],
+                            "moe")
 
     t1 = time.perf_counter()
     out["grouped"] = [grouped_case(packed[8], cfg, t)
@@ -2710,6 +3027,8 @@ def encdec_phase(size=("--no-tiny",)):
     del bp, packed[4]
     torch.cuda.empty_cache()
     out["oneshot_s"] = time.perf_counter() - t0
+    out["lint"] = lint_case(f"{ENCDEC_ARCH} int8 kv8 paged", cfg,
+                            packed[8], "paged")
 
     t1 = time.perf_counter()
     eng = ServeEngine(build(cfg), packed[8], kv_quant_bits=8,
@@ -3218,6 +3537,9 @@ def family_phase(arch, size=("--no-tiny",)):
     del bp
     torch.cuda.empty_cache()
     out["oneshot_s"] = time.perf_counter() - t0
+    out["lint"] = lint_case(f"{arch} int8 kv8 paged", cfg, packed,
+                            {"vlm": "paged", "ssm": "ssm",
+                             "hybrid": "hybrid"}[cfg.family])
 
     t1 = time.perf_counter()
     eng = ServeEngine(build(cfg), packed, kv_quant_bits=kv,
@@ -5582,6 +5904,7 @@ def main() -> int:
         train_families_summary(detail["train_families_phase"]), card=smi)}))
     print(json.dumps({"deploy": dict(deploy_summary(detail["deploy_phase"]),
                                      card=smi)}))
+    print(json.dumps({"lint": dict(lint_summary(detail), card=smi)}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
@@ -5641,6 +5964,10 @@ def run(detail) -> list:
     log(f"scheduler phase ran in {detail['scheduler_phase_s']:.1f} s")
     save_detail(detail)
 
+    detail["lint_phase"] = lint_phase(deployed, bp)
+    log(f"lint phase (phi3) ran in {detail['lint_phase']['phase_s']:.1f} s")
+    save_detail(detail)
+
     t0 = time.perf_counter()
     pm = [time_packed(m, k, n, bits) for bits in (8, 4) for m in (B, B * P)
           for k, n, _ in LAYER_SHAPES]
@@ -5681,6 +6008,14 @@ def run(detail) -> list:
             f"{p['prefill_ms']:.2f} ms, decode "
             f"{p['decode_ms_per_step']:.3f} ms/step, "
             f"{p['decode_tokens_per_s']:.1f} tok/s")
+    dec = next(p for p in paths if (p["bits"], p["kv"], p["backend"],
+                                    p["leg"]) == (8, 8, "kernel",
+                                                  "contiguous"))
+    detail["decode_vs_baseline"] = {"ms_per_step": dec["decode_ms_per_step"],
+                                    "baseline_ms": BASELINE_DECODE_MS}
+    log(f"phi3 int8 kernel decode {dec['decode_ms_per_step']:.2f} ms/step "
+        f"(the run before the kernel boundary: {BASELINE_DECODE_MS} "
+        f"ms/step)")
 
     # one kernels entry per kernel, timed at the shapes of the run its
     # launches come from: this slice's main path, the counted scheduler
@@ -5783,6 +6118,17 @@ def run(detail) -> list:
     log(f"families phase ran in {fp['phase_s']:.1f} s")
     save_detail(detail)
     check_families(fp)
+    lp = detail["lint_phase"]
+    lp["scheduler_drive"] = sched["main"]["lint"]
+    lp["families"] = [detail["moe_phase"]["lint"],
+                      detail["encdec_phase"]["lint"]] + [
+        fam["lint"] for fam in fp["families"]]
+    lp["all_s"] = lp["phase_s"] + lp["scheduler_drive"]["s"] + sum(
+        r["s"] for r in lp["families"])
+    log(f"lint: phi3 phase {lp['phase_s']:.1f} s, the scheduler drive's "
+        f"{lp['scheduler_drive']['s']:.2f} s, the families' "
+        f"{sum(r['s'] for r in lp['families']):.2f} s; all "
+        f"{lp['all_s']:.1f} s")
     for k in kernels:
         k["families_launches"] = {
             fam["arch"]: {
@@ -5871,6 +6217,28 @@ def train_summary(detail) -> dict:
             "card_vs_host": {k: tp["card_vs_host"][k] for k in (
                 "loss_err", "grad_err_max", "grad_witness_max",
                 "grad_tol")}}
+
+
+def lint_summary(detail) -> dict:
+    """The lint's figures for the printout: each linted engine's seconds
+    and rules, the faults' and launchers' seconds and exit codes, and the
+    phase's seconds."""
+    lp = detail["lint_phase"]
+
+    def short(r):
+        return {"s": round(r["s"], 3), "ok": r["ok"], "rules": r["rules"]}
+    return {"phase_s": lp["phase_s"], "all_s": lp.get("all_s"),
+            "engines": {r["label"]: short(r) for r in
+                        lp["cases"] + lp.get("families", [])
+                        + ([lp["scheduler_drive"]]
+                           if "scheduler_drive" in lp else [])},
+            "faults": {k: {"s": round(r["s"], 3), "ok": r["ok"],
+                           "rules": [x for x in r["rules"]
+                                     if x.startswith("error")]}
+                       for k, r in lp["faults"].items()},
+            "launcher": {"s": round(lp["launcher"]["s"], 3),
+                         "rc": lp["launcher"]["rc"]},
+            "decode_vs_baseline": detail.get("decode_vs_baseline")}
 
 
 def save_detail(detail):

@@ -19,6 +19,7 @@ from typing import Dict, Tuple
 
 import torch
 
+from .boundary import RECORDERS
 from .build import load, stream_ptr
 from .ref import bitplane_matmul_ref
 from .tiling import matmul_plan, splitk_scratch
@@ -76,6 +77,10 @@ def bitplane_matmul(x: torch.Tensor, planes: torch.Tensor,
     (divided by ``2^n - 1``).  ``x``: (M, K_x <= K) f32 or bf16 (other
     float types are cast to f32).  Payload tensors may be layer views of
     stacked (L, ...) leaves; they are read in place."""
+    if RECORDERS:
+        return RECORDERS[-1].kernel_call(
+            "bitplane_matmul", bitplane_matmul,
+            (x, planes, sign, mask, scale), dict(wbr=wbr, wbc=wbc))
     m, k_x = x.shape
     n_bits, rows8, n = planes.shape
     gr, gc = mask.shape[-2:]

@@ -18,6 +18,7 @@ from typing import Dict, Tuple
 
 import torch
 
+from .boundary import RECORDERS
 from .build import load, stream_ptr
 from .ref import packed_matmul_ref
 from .tiling import matmul_plan, splitk_scratch
@@ -70,6 +71,10 @@ def packed_matmul(x: torch.Tensor, w_int: torch.Tensor, scale: torch.Tensor,
     the low nibble.  ``scale``: (K/wbr, N/wbc) f32.  ``x``: (M, K_x <= K)
     f32 or bf16 (other float types are cast to f32).  ``w_int`` may be a
     layer view of a stacked (L, ...) leaf; it is read in place."""
+    if RECORDERS:
+        return RECORDERS[-1].kernel_call(
+            "packed_matmul", packed_matmul, (x, w_int, scale),
+            dict(bits=bits, wbr=wbr, wbc=wbc))
     m, k_x = x.shape
     gr, gc = scale.shape
     k, n = gr * wbr, gc * wbc

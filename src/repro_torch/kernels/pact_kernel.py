@@ -19,6 +19,7 @@ import ctypes
 
 import torch
 
+from .boundary import RECORDERS
 from .build import load, stream_ptr
 from .ref import pact_quant_ref
 
@@ -40,6 +41,9 @@ def pact_quant(x: torch.Tensor, beta: torch.Tensor, *,
     """``round(clip(x, -b, b) / b * L) * (b / L)`` with ``b = max(beta,
     1e-6)`` and ``L = 2^(act_bits-1) - 1``, in x's dtype.  ``x``: (R, C)
     f32, bf16 or f16; ``beta``: one clip level ((1,) or 0-d)."""
+    if RECORDERS:
+        return RECORDERS[-1].kernel_call("pact_quant", pact_quant,
+                                         (x, beta), dict(act_bits=act_bits))
     if x.ndim != 2 or beta.numel() != 1:
         raise ValueError(f"x must be (R, C) and beta one value, got "
                          f"{tuple(x.shape)} and {tuple(beta.shape)}")

@@ -21,6 +21,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from .boundary import RECORDERS
 from .build import load, stream_ptr
 from .ref import paged_attention_ref
 from .tiling import attention_groups, attention_plan, attention_scratch
@@ -88,6 +89,11 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
     window:    > 0 restricts attention to the last ``window`` positions.
 
     Returns (B, KV, G, dh) f32; 0 for a slot with no valid position."""
+    if RECORDERS:
+        return RECORDERS[-1].kernel_call(
+            "paged_attention", paged_attention,
+            (q, k_pages, v_pages, k_scale, v_scale, table, kv_len),
+            dict(window=window, softcap=softcap))
     b, kv, g, dh = q.shape
     bits = _POOL_BITS.get(k_pages.dtype)
     if bits is None or v_pages.dtype != k_pages.dtype:

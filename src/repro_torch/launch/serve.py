@@ -38,14 +38,16 @@ vlm architecture (``qwen2-vl-2b``) gives each request its stub vision
 prefix, ``vision_embeds`` (1, vision_tokens, d_model), 0.1 x standard
 normal from a ``torch.Generator`` seeded with ``--seed``.  The ssm
 architecture (``rwkv6-1.6b``) has no KV cache: ``--page-size`` and
-``--kv-bits`` are ignored for it with a warning.
-Not ported yet: ``--lint`` (the graph lint).
+``--kv-bits`` are ignored for it with a warning.  ``--lint`` runs the
+serving-graph lint (:func:`repro_torch.analysis.lint_engine`) on the
+built engine before serving — on a scratch decode state, so the served
+state is untouched — prints its report and aborts on errors.
 
 ``main(argv, params=None, record_ticks=False)`` returns what it served
 (engine, scheduler, requests, results), the tree it deployed
-(``deployed``, before any autotune), the cold start's ``stats`` and the
+(``deployed``, before any autotune), the cold start's ``stats``, the
 autotune's ``allocation`` (with its stage seconds in
-``autotune_timings``); ``params`` replaces the seeded init with a
+``autotune_timings``) and, with ``--lint``, the ``lint`` report; ``params`` replaces the seeded init with a
 caller's deployed tree, and ``record_ticks`` has the scheduler keep its
 per-tick log.
 """
@@ -148,6 +150,9 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--stats-out", default="",
                     help="write the scheduler stats JSON (cache report + "
                          "preemption / prefix-hit counters) to this file")
+    ap.add_argument("--lint", action="store_true",
+                    help="run the serving-graph lint before serving "
+                         "and abort if it reports errors")
     ap.add_argument("--validate-every", type=int, default=0,
                     help="check the scheduler contracts every N ticks and "
                          "at the end; any finding aborts (0 = off)")
@@ -306,6 +311,17 @@ def main(argv: Optional[List[str]] = None, params: Any = None,
                       draft_gamma=args.draft_gamma, device=args.device)
     served = dict(deployed=deployed, stats=stats, allocation=alloc,
                   autotune_timings=timings)
+
+    if args.lint:
+        from ..analysis import lint_engine
+        report = lint_engine(
+            eng, prompt_len=args.prompt_len,
+            n_slots=args.n_slots or args.batch, max_new=args.max_new,
+            autotune_budget_bytes=args.autotune_budget_bytes or None)
+        print(report.format(max_info=0))
+        if not report.ok:
+            raise SystemExit("serving-graph lint failed; aborting launch")
+        served["lint"] = report
 
     if args.requests:
         prios = _ints(args.priority) or [0]

@@ -21,8 +21,9 @@ The engine runs on ``device``: the CUDA card unless the caller names
 another; it raises when no card is present and the caller did not ask for
 the CPU.  At construction it contract-checks the deployed leaves
 (``validate``, on by default: a tree with an SW/BP error finding is
-refused), warns when a non-dense backend gets no leaf it can accelerate,
-moves the params to the device and casts plain float leaves to the
+refused), warns when a non-dense backend gets no leaf it can accelerate
+and names the packed leaves a ``bitplane`` engine would dequantize
+(``analysis.graph_lint.fallback_leaf_paths``), moves the params to the device and casts plain float leaves to the
 compute dtype once, so no step repeats that cast.
 
 Two call surfaces, as in the reference:
@@ -113,14 +114,14 @@ class ServeEngine:
             cfg = dataclasses.replace(cfg, kv_cache_bits=self.kv_quant_bits)
             self.api = ModelAPI(cfg)
         if self.backend == "bitplane":
-            n_packed = sum(isinstance(leaf, ServingWeight)
-                           for leaf in leaves)
-            if n_packed:
+            from ..analysis.graph_lint import fallback_leaf_paths
+            stale = fallback_leaf_paths(self.params, self.backend)
+            if stale:
                 warnings.warn(
                     f"backend='bitplane' executes only the plane-sliced "
-                    f"layout; {n_packed} packed ServingWeight leaves fall "
-                    f"back to the dense dequant matmul (deploy with "
-                    f"layout='bitplane')", stacklevel=2)
+                    f"layout; {len(stale)} packed ServingWeight leaves "
+                    f"fall back to the dense dequant matmul (deploy with "
+                    f"layout='bitplane'): {stale[:4]}", stacklevel=2)
         if self.validate:
             from ..analysis.contracts import validate_serving_tree
             bad = [f for f in validate_serving_tree(self.params)

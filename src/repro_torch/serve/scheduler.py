@@ -62,9 +62,10 @@ cache position, the vision prefix included.  The recurrent families
 (ssm, hybrid) always insert a prompt whole: their state has no fill-level
 mask, so padding would pollute it, and the chunked scans are only
 approximately invariant to where a prompt is cut.  The ssm family has no
-KV cache, so ``page_size`` is ignored for it, with a warning.  Left out:
-``compile_footprint`` (a census of jit signatures, which eager execution
-does not have).
+KV cache, so ``page_size`` is ignored for it, with a warning.
+``compile_footprint`` censuses the distinct call shapes a workload
+reaches (``analysis.footprint``): in the eager port one launch-plan entry
+a shape, where the reference counts one XLA compile.
 """
 from __future__ import annotations
 
@@ -927,6 +928,15 @@ class Scheduler:
             self._maybe_retire(i)
 
     # ---- reporting -------------------------------------------------------
+    def compile_footprint(self, prompt_widths=None) -> List[Any]:
+        """Static census of every call signature this scheduler's workload
+        reaches (``analysis.footprint``: one launch-plan entry, and one
+        graph to capture, a signature) — run it *before* serving to catch
+        a shape blowup as a lint failure.  ``prompt_widths`` defaults to
+        the submitted requests'."""
+        from ..analysis.footprint import scheduler_footprint
+        return scheduler_footprint(self, prompt_widths)
+
     def validate(self):
         """Contract-check the live scheduler state: the paged decode tree
         (PC*/PA*) plus the refcount / shared-write / parked-hygiene rules

@@ -241,3 +241,75 @@ def paged_greedy(eng, tok, max_new, page_size=4):
         outs.append(cur[:, 0])
         index = index + 1
     return torch.stack(outs, 1).numpy()
+
+
+def jax_deployed(tree):
+    """A port param tree with deployed leaves (after the port's
+    ``to_serving_params``, which is the reference's bit for bit) as the
+    reference's: tensors become JAX arrays, ``ServingWeight`` /
+    ``BitplaneServingWeight`` the reference's dataclasses with the same
+    static fields.  Lets a test deploy once, in the port, and hand both
+    packages the same tree."""
+    import jax.numpy as jnp
+    from repro.core.blocking import BlockingSpec
+    from repro_torch.serve import deploy as tdeploy
+
+    def arr(t):
+        return jnp.asarray(t.detach().cpu().numpy())
+
+    def spec(s):
+        return BlockingSpec(s.wb_rows, s.wb_cols)
+    if isinstance(tree, tdeploy.ServingWeight):
+        return ServingWeight(w_int=arr(tree.w_int), scale=arr(tree.scale),
+                             shape=tuple(tree.shape), spec=spec(tree.spec),
+                             bits=tree.bits)
+    if isinstance(tree, tdeploy.BitplaneServingWeight):
+        return BitplaneServingWeight(
+            planes=arr(tree.planes), sign=arr(tree.sign),
+            mask=arr(tree.mask), scale=arr(tree.scale),
+            shape=tuple(tree.shape), spec=spec(tree.spec), bits=tree.bits,
+            tag=tree.tag)
+    if isinstance(tree, dict):
+        return {k: jax_deployed(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(jax_deployed(v) for v in tree)
+    if isinstance(tree, torch.Tensor):
+        return arr(tree)
+    return tree
+
+
+def deployed_pairs():
+    """``get(arch, bits, layout)`` -> (reference api, port api, (reference
+    tree, port tree)) at ``tiny(dtype="float32")`` with 8-bit fake
+    quantization (``bits`` 0: the QAT trees): the reference's ``init(PRNGKey(0))`` QAT tree carried
+    across once an arch, each deploy made once by the port (bit for bit
+    the reference's) and handed to the reference as its own dataclasses
+    (:func:`jax_deployed`)."""
+    import jax
+    from repro.configs import REGISTRY as JREG
+    from repro.models.api import build as jbuild
+    from repro.models.common import QuantConfig as JQ
+    from repro_torch.bridge import params_from_numpy
+    from repro_torch.configs import REGISTRY as TREG
+    from repro_torch.configs.base import QuantConfig as TQ
+    from repro_torch.models.api import build as tbuild
+    from repro_torch.serve.deploy import to_serving_params
+    qc = dict(mode="fake", n_bits=8, act_bits=8)
+    cache = {}
+
+    def get(arch, bits, layout):
+        if arch not in cache:
+            jcfg = JREG[arch].tiny(dtype="float32").with_quant(JQ(**qc))
+            tcfg = TREG[arch].tiny(dtype="float32").with_quant(TQ(**qc))
+            japi = jbuild(jcfg)
+            qat = japi.init(jax.random.PRNGKey(0))
+            cache[arch] = (japi, tbuild(tcfg), params_from_numpy(
+                tree_to_numpy(qat), device="cpu"), {(0, ""): qat})
+        japi, tapi, tqat, deps = cache[arch]
+        if not bits:                     # the QAT trees themselves
+            return japi, tapi, (deps[0, ""], tqat)
+        if (bits, layout) not in deps:
+            tp = to_serving_params(tqat, bits, layout=layout, device="cpu")
+            deps[bits, layout] = (jax_deployed(tp), tp)
+        return japi, tapi, deps[bits, layout]
+    return get

@@ -280,6 +280,20 @@ It builds the four CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
    through ``packed_matmul``.  ``bitplane_matmul`` is timed over a
    layer at decode M on the tuned tree and the full one.
 
+13. mesh phase — serving under a device mesh: two gloo ranks on the one
+   card (``mesh_rank``, one process each; NCCL refuses two ranks on one
+   device), meshes (1, 2) and (2, 1).  phi3 cut to ``MESH_DEPTH`` = 8
+   layers, packed int8, 16-token pages, fused attention: one shot in f32
+   without quantizers (tokens identical to the single-process engine)
+   and in bf16 with 8-bit activations and int8 KV (logits within
+   ``QUANT_TOL_REL``), the scheduler drive, a bit-plane deploy on
+   (1, 2); granite-moe cut to ``MESH_MOE_DEPTH`` = 2, expert parallel on
+   (1, 2), on the single run's routing.  Each rank's launches equal the
+   single process's; every launch's (M, K, N) is its shard's (N/2
+   column-parallel, K/2 row-parallel on (1, 2)), and the first at each
+   shape is held against the plain version on the same shard.  The
+   collectives gloo takes on the card's tensors are probed and timed.
+
 Output: a ``{"train": {...}}`` line with the train phase's figures and
 the card, a ``{"moe": {...}}`` line with the MoE phase's, an
 ``{"encdec": {...}}`` line with the enc-dec phase's, a
@@ -289,7 +303,8 @@ line with the CNN phase's, a ``{"train_families": {...}}`` line with the
 train families phase's, a ``{"deploy": {...}}`` line with the deploy
 phase's, a ``{"lint": {...}}`` line with
 each linted engine's seconds and rules, the faults' and the launcher's,
-a ``{"kernels": [...]}`` JSON line, the card's name and power
+a ``{"mesh": {...}}`` line with each mesh leg's decode ms/step beside the
+single process's, a ``{"kernels": [...]}`` JSON line, the card's name and power
 limit, and as the last line ``{"ok": true, "device": {...}}``.  Details go
 to ``chiprun_out/chip_smoke_detail.json``.  Any failure exits non-zero; so
 does a machine without CUDA, or a directory without the repository.
@@ -5560,6 +5575,460 @@ def deploy_summary(res) -> dict:
 # time phase
 # ---------------------------------------------------------------------------
 
+# ---------------------------------------------------------------------------
+# mesh phase
+# ---------------------------------------------------------------------------
+
+MESH_SHAPES = ((1, 2), (2, 1))  # (data, model)
+# full-width phi3 and granite cut to these layers (of 32), for time
+MESH_DEPTH = 8
+MESH_MOE_DEPTH = 2
+# (label, act bits, dtype, KV bits): quantizers off in f32 (tokens
+# identical to the single-process engine), then the registered 8-bit PACT
+# activations in bf16 with int8 KV (logits within QUANT_TOL_REL[8])
+MESH_RUNS = (("f32", 32, "float32", 32), ("bf16_act8", 8, "bfloat16", 8))
+# the scheduler drive: 8 requests, one arriving every 2 ticks, 4 slots
+MESH_SCHED_WIDTHS = (64, 300, 128, 512, 96, 256, 200, 448)
+MESH_SCHED_BUDGETS = (16, 32, 24, 16, 32, 16, 24, 32)
+MESH_SCHED_SLOTS = 4
+# (2, 1) gathers every FSDP-split weight over the host a layer a forward
+# (~1.8 s a phi3 decode step at 8 layers on the H100), so its legs
+# are shorter: one-shot new tokens, and the scheduler drive's first
+# requests at half their budgets
+MESH_DP_NEW = 8
+MESH_DP_REQUESTS = 4
+MESH_TIMEOUT_S = 600
+# collectives probed on the ranks' tensors, and the payloads timed
+MESH_COLLECTIVES = ("all_reduce", "all_gather", "all_gather_into_tensor",
+                    "reduce_scatter_tensor", "all_to_all_single",
+                    "broadcast")
+MESH_PROBE_BYTES = (48 << 10, 6 << 20, 48 << 20)
+
+
+def mesh_phase(size=("--no-tiny",)):
+    """Serving under a device mesh: two ranks on the one card (gloo; NCCL
+    refuses two ranks on one device), each running :func:`mesh_rank`,
+    the parent's cached blocks freed first.  Returns both ranks' records
+    and the phase's seconds; a rank's failure raises."""
+    import socket
+    import tempfile
+    import torch
+    t0 = time.perf_counter()
+    if DEV == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+    work = tempfile.mkdtemp(prefix="mesh_", dir=str(ROOT / "chiprun_out"))
+    with socket.socket() as sk:
+        sk.bind(("localhost", 0))
+        port = sk.getsockname()[1]
+    procs = [subprocess.Popen(
+        [sys.executable, str(Path(__file__).resolve()), "--mesh-rank",
+         str(r), str(port), work, DEV, *size],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(2)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=max(
+                10.0, MESH_TIMEOUT_S - (time.perf_counter() - t0)))[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, text) in enumerate(zip(procs, logs)):
+        log(f"--- mesh rank {r} (exit {p.returncode})\n{text[-4000:]}")
+    if any(p.returncode != 0 for p in procs):
+        raise RuntimeError("a mesh rank failed: " + "; ".join(
+            f"rank {r} exit {p.returncode}" for r, p in enumerate(procs)))
+    ranks = [json.loads((Path(work) / f"rank{r}.json").read_text())
+             for r in range(2)]
+    return {"ranks": ranks, "phase_s": time.perf_counter() - t0,
+            "size": list(size)}
+
+
+class ShapeLog:
+    """Observer of the two matmul wrappers as the model calls them
+    (``models.common``'s names): each launch's (M, K, N), K and N the
+    weight's local shard (a ``grid`` sub-grid's), counted by kernel; the
+    first launch at each shape is also held against the plain version on
+    the same inputs and sub-grid (``errs``: |err| / max |plain|)."""
+
+    def __init__(self):
+        from repro_torch.models import common
+        self.mod = common
+        self.orig = {n: getattr(common, n)
+                     for n in ("packed_matmul", "bitplane_matmul")}
+        self.shapes, self.errs = {}, {}
+
+    def __enter__(self):
+        for name, fn in self.orig.items():
+            setattr(self.mod, name, self._wrap(name, fn))
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self.orig.items():
+            setattr(self.mod, name, fn)
+
+    def _wrap(self, name, fn):
+        from repro_torch.kernels import ref as kref
+
+        def call(x, *args, **kw):
+            grid = kw.get("grid")
+            wbr, wbc = kw.get("wbr", 8), kw.get("wbc", 128)
+            if name == "packed_matmul":
+                gr, gc = grid[2:] if grid else args[1].shape[-2:]
+                n = gc * wbc
+            else:
+                gr = grid[2] if grid else args[2].shape[-2]
+                n = args[0].shape[-1]
+            key = f"{name} {x.shape[0]}x{gr * wbr}x{n}"
+            self.shapes[key] = self.shapes.get(key, 0) + 1
+            y = fn(x, *args, **kw)
+            if key not in self.errs:
+                if name == "packed_matmul":
+                    want = kref.packed_matmul_ref(
+                        x, *args, kw.get("bits", 8), wbr, wbc, grid)
+                else:
+                    want = kref.bitplane_matmul_ref(x, *args, wbr, wbc,
+                                                    grid)
+                self.errs[key] = float((y - want).abs().max() /
+                                       want.abs().max().clamp(min=1e-30))
+            return y
+        return call
+
+
+def mesh_collectives(dev):
+    """Which collectives gloo takes on this rank's tensors, and all-reduce
+    / all-gather ms at ``MESH_PROBE_BYTES`` (host clock, synchronized)."""
+    import torch
+    import torch.distributed as dist
+    world = dist.get_world_size()
+    out = {"ops": {}, "ms": []}
+
+    def sync():
+        if dev == "cuda":
+            torch.cuda.synchronize()
+    for op in MESH_COLLECTIVES:
+        x = torch.arange(8, dtype=torch.float32, device=dev) + dist.get_rank()
+        try:
+            if op == "all_reduce":
+                dist.all_reduce(x)
+            elif op == "all_gather":
+                dist.all_gather([torch.empty_like(x) for _ in range(world)],
+                                x)
+            elif op == "all_gather_into_tensor":
+                dist.all_gather_into_tensor(
+                    torch.empty(8 * world, device=dev), x)
+            elif op == "reduce_scatter_tensor":
+                dist.reduce_scatter_tensor(
+                    torch.empty(8 // world, device=dev), x)
+            elif op == "all_to_all_single":
+                dist.all_to_all_single(torch.empty_like(x), x)
+            else:
+                dist.broadcast(x, src=0)
+            sync()
+            out["ops"][op] = "ok"
+        except Exception as e:              # noqa: BLE001 - recorded
+            out["ops"][op] = f"{type(e).__name__}: {str(e)[:160]}"
+    for nbytes in MESH_PROBE_BYTES:
+        x = torch.ones(nbytes // 4, dtype=torch.float32, device=dev)
+        row = {"bytes": nbytes}
+        for op in ("all_reduce", "all_gather", "all_gather_into_tensor"):
+            if out["ops"][op] != "ok":
+                continue
+            bufs = [torch.empty_like(x) for _ in range(world)]
+            flat = torch.empty(world * x.numel(), device=dev)
+            for i in range(4):
+                if i == 1:
+                    sync()
+                    t = time.perf_counter()
+                if op == "all_reduce":
+                    dist.all_reduce(x)
+                elif op == "all_gather":
+                    dist.all_gather(bufs, x)
+                else:
+                    dist.all_gather_into_tensor(flat, x)
+            sync()
+            row[f"{op}_ms"] = (time.perf_counter() - t) * 1e3 / 3
+        out["ms"].append(row)
+    return out
+
+
+def mesh_dims(size):
+    """The phase's sizes: the smoke's at full width; a rehearsal's at
+    tiny width (``--tiny``)."""
+    if size == ("--no-tiny",):
+        return dict(b=B, p=P, new=NEW, dp_new=MESH_DP_NEW, page=PAGE,
+                    chunk=SCHED_CHUNK, widths=MESH_SCHED_WIDTHS,
+                    budgets=MESH_SCHED_BUDGETS)
+    return dict(b=4, p=16, new=4, dp_new=3, page=4, chunk=8,
+                widths=tuple(max(2, w // 16) for w in MESH_SCHED_WIDTHS),
+                budgets=tuple(max(2, m // 8) for m in MESH_SCHED_BUDGETS))
+
+
+def mesh_prompts(vocab, dev, dims):
+    """The one-shot prompts (b x p) and the scheduler drive's requests."""
+    import torch
+    from repro_torch.serve import Request, SamplingParams
+    g = torch.Generator(device="cpu").manual_seed(3)
+    tok = torch.randint(0, vocab, (dims["b"], dims["p"]), generator=g,
+                        dtype=torch.int32).to(dev)
+    reqs = [Request(uid=i, inputs={"tokens": torch.randint(
+        0, vocab, (1, w), generator=g, dtype=torch.int32).numpy()},
+        sampling=SamplingParams(max_new_tokens=m), arrival=2 * i)
+        for i, (w, m) in enumerate(zip(dims["widths"], dims["budgets"]))]
+    return tok, reqs
+
+
+def mesh_rank(rank, port, work, dev, size):
+    """One rank of the mesh phase.  Every rank builds the same seeded
+    trees; rank 0 alone (the other waiting at a barrier) runs each leg on
+    the single-process engine, then both run it under each mesh of
+    ``MESH_SHAPES``, launches counted around the sharded drive alone and
+    every weight launch's (M, K, N) logged.  Legs: phi3 packed int8 one
+    shot (``MESH_RUNS``, 16-token pages, fused attention), the scheduler
+    drive (f32, quantizers off, paged and chunked), a bit-plane deploy's
+    one shot under (1, 2), and granite-moe's int8 one shot under (1, 2)
+    on the single-process run's routing."""
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, str(ROOT / "src"))
+    if dev == "cuda":
+        torch.cuda.set_device(0)
+        torch.backends.cuda.matmul.allow_tf32 = False
+    else:
+        mesh_host_rehearsal()
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            world_size=2, rank=rank)
+    from repro_torch import kernels as tk
+    from repro_torch.dist.sharding import use_mesh
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.api import build
+    from repro_torch.serve.deploy import to_serving_params
+    from repro_torch.serve.engine import ServeEngine, _roundup64
+    rec = {"rank": rank, "collectives": mesh_collectives(dev), "legs": []}
+    meshes = {shape: make_mesh(shape, ("data", "model"), dev)
+              for shape in MESH_SHAPES}
+    dims = mesh_dims(size)
+
+    def sync():
+        if dev == "cuda":
+            torch.cuda.synchronize()
+
+    def drive(eng, kind, tok, reqs, kv, new):
+        if kind == "oneshot":
+            out = greedy(eng, tok, new, page=dims["page"])
+            return {"tokens": out["tokens"], "logits": out["logits"],
+                    "prefill_ms": out["prefill_ms"],
+                    "decode_ms_per_step": out["decode_ms_per_step"]}
+        max_len = max(eng.prompt_width(r.inputs) +
+                      _roundup64(r.sampling.max_new_tokens) for r in reqs)
+        sched = eng.make_scheduler(reqs, n_slots=MESH_SCHED_SLOTS,
+                                   max_len=max_len, page_size=dims["page"],
+                                   prefill_chunk=dims["chunk"])
+        sync()
+        t = time.perf_counter()
+        res = sched.run(reqs)
+        sync()
+        return {"tokens": [res[i].tokens for i in range(len(reqs))],
+                "s": time.perf_counter() - t, "ticks": sched.tick}
+
+    def leg(label, cfg, tree, kind, shapes, kv, tok, reqs, route=False):
+        """``shapes``: (mesh shape, new tokens of a one-shot drive); the
+        single-process run takes the most."""
+        api = build(cfg)
+        row = {"label": label, "kind": kind, "kv": kv, "runs": {}}
+        trace_file = Path(work) / f"route_{label}.pt"
+        if rank == 0:
+            eng = ServeEngine(api, tree, kv_quant_bits=kv, backend="kernel",
+                              attn_backend="fused", device=dev)
+            tk.reset_launch_counts()
+            ctx = RouteTrace() if route else contextlib.nullcontext()
+            with ctx as tr:
+                out = drive(eng, kind, tok, reqs, kv,
+                            max(n for _, n in shapes))
+            sync()
+            out["launches"] = tk.launch_counts()
+            if route:
+                torch.save([c["idx"] for c in tr.calls], trace_file)
+            row["single"] = out
+            del eng
+        dist.barrier()
+        replay = None
+        if route:
+            replay = RouteTrace()
+            replay.calls = [{"idx": i} for i in torch.load(trace_file)]
+        for shape, new in shapes:
+            with use_mesh(meshes[shape]):
+                eng = ServeEngine(api, tree, kv_quant_bits=kv,
+                                  backend="kernel", attn_backend="fused",
+                                  device=dev)
+            sync()
+            tk.reset_launch_counts()
+            ctx = RouteTrace(replay) if route else contextlib.nullcontext()
+            with ShapeLog() as sl, ctx:
+                out = drive(eng, kind, tok, reqs, kv, new)
+            sync()
+            out["launches"] = tk.launch_counts()
+            out["shapes"], out["matmul_errs"] = sl.shapes, sl.errs
+            row["runs"][f"{shape[0]}x{shape[1]}"] = out
+            del eng
+            dist.barrier()
+        if rank == 0:
+            for key, out in row["runs"].items():
+                one = row["single"]
+                if kind == "oneshot":
+                    n = out["tokens"].shape[1]
+                    out["vs_single"] = compare(out, one)
+                    out["tokens_equal"] = bool(
+                        (out["tokens"] == one["tokens"][:, :n]).all())
+                    # a shorter drive: the single run's counts for its
+                    # own forwards and steps
+                    want = expected_launches(
+                        cfg.n_layers, dims["b"] + n - 1, n - 1,
+                        matmul="bitplane_matmul" if "bitplane" in label
+                        else "packed_matmul",
+                        per_layer=layer_matmuls(cfg))
+                    if n == one["tokens"].shape[1]:
+                        want = one["launches"]
+                else:
+                    out["tokens_equal"] = out["tokens"] == one["tokens"]
+                    want = one["launches"]
+                # what every rank's launches are held to (check_mesh)
+                out["launches_want"] = want
+        for out in [row.get("single", {})] + list(row["runs"].values()):
+            for k in ("tokens", "logits"):
+                if isinstance(out.get(k), torch.Tensor):
+                    out[k] = out[k].tolist() if k == "tokens" else None
+        rec["legs"].append(row)
+        (Path(work) / f"rank{rank}.json").write_text(json.dumps(rec))
+        if dev == "cuda":
+            torch.cuda.empty_cache()
+
+    # phi3, packed int8, one shot in each MESH_RUNS config; the scheduler
+    tp, dp = ((1, 2), dims["new"]), ((2, 1), dims["dp_new"])
+    for label, act, dtype, kv in MESH_RUNS:
+        cfg = served_config(ARCH, act, dtype, size, n_layers=MESH_DEPTH)
+        qat = build(cfg).init(seed=0, device=dev)
+        dep = to_serving_params(qat, 8, device=dev)
+        tok, reqs = mesh_prompts(cfg.vocab, dev, dims)
+        leg(f"phi3_int8_{label}", cfg, dep, "oneshot", (tp, dp), kv, tok,
+            reqs)
+        if act == 32:
+            leg("phi3_int8_scheduler_f32", cfg, dep, "scheduler", (tp,),
+                kv, tok, reqs)
+            short = [dataclasses.replace(r, sampling=dataclasses.replace(
+                r.sampling, max_new_tokens=r.sampling.max_new_tokens // 2))
+                for r in reqs[:MESH_DP_REQUESTS]]
+            leg("phi3_int8_scheduler_f32_short", cfg, dep, "scheduler",
+                (dp,), kv, tok, short)
+            bp = to_serving_params(qat, 8, layout="bitplane", device=dev)
+            leg("phi3_bitplane_f32", cfg, bp, "oneshot", (tp,), kv, tok,
+                reqs)
+            del bp
+        del qat, dep
+    # granite-moe, int8, expert parallel over 2 model ranks
+    cfg = served_config(MOE_ARCH, 32, "float32", size,
+                        n_layers=MESH_MOE_DEPTH)
+    dep = to_serving_params(build(cfg).init(seed=0, device=dev), 8,
+                            device=dev)
+    tok, reqs = mesh_prompts(cfg.vocab, dev, dims)
+    leg("granite_int8_f32", cfg, dep, "oneshot", (((1, 2), dims["new"]),),
+        32, tok, reqs, route=True)
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def mesh_host_rehearsal():
+    """A rank rehearsing on the host CPU (``DEV = "cpu"`` in the parent):
+    the card's synchronize is a no-op and each wrapper's plain version
+    counts as its kernel's launch, so the phase's checks run as on the
+    card."""
+    import torch
+    from repro_torch import kernels as tk
+    torch.cuda.synchronize = lambda *a, **k: None
+    for fn in tk.KERNELS:
+        mod = sys.modules[fn.__module__]
+        ref = getattr(mod, f"{fn.__name__}_ref")
+
+        def counted_ref(*a, _ref=ref, _fn=fn, **k):
+            _fn.launches += 1
+            return _ref(*a, **k)
+        setattr(mod, f"{fn.__name__}_ref", counted_ref)
+
+
+def check_mesh(res):
+    """Every sharded leg on every rank against the single-process engine
+    (rank 0 runs it): launches equal; quantizer-free tokens identical;
+    with 8-bit activations rank 0's logits within QUANT_TOL_REL while the
+    prefixes agree, and every rank's tokens rank 0's (each reads the same
+    gathered logits); every launch's local shard shape logged, and the
+    kernel against its plain version on the shards."""
+    r0 = res["ranks"][0]
+    for rank in res["ranks"]:
+        for row, row0 in zip(rank["legs"], r0["legs"]):
+            one = row0["single"]
+            for key, out in row["runs"].items():
+                out0 = row0["runs"][key]
+                where = f"mesh rank {rank['rank']} {row['label']} {key}"
+                if out["launches"] != out0["launches_want"]:
+                    raise AssertionError(f"{where}: launches "
+                                         f"{out['launches']} vs "
+                                         f"{out0['launches_want']}")
+                if row["label"].endswith("bf16_act8"):
+                    cmp = out0["vs_single"]
+                    if not (cmp["finite"] and
+                            cmp["err"] <= QUANT_TOL_REL[row["kv"]]):
+                        raise AssertionError(f"{where}: {cmp}")
+                    if out["tokens"] != out0["tokens"]:
+                        raise AssertionError(f"{where}: tokens differ from "
+                                             f"rank 0's")
+                else:
+                    want = one["tokens"] if row["kind"] != "oneshot" else [
+                        t[:len(out["tokens"][0])] for t in one["tokens"]]
+                    if out["tokens"] != want:
+                        raise AssertionError(
+                            f"{where}: tokens differ from the single "
+                            f"process's ({out0.get('vs_single')})")
+                if out["launches"]["packed_matmul"] + \
+                        out["launches"]["bitplane_matmul"] != \
+                        sum(out["shapes"].values()):
+                    raise AssertionError(f"{where}: logged shapes miss "
+                                         f"launches")
+                bad = {k: e for k, e in out["matmul_errs"].items()
+                       if not e <= PM_TOL_REL}
+                if bad:
+                    raise AssertionError(f"{where}: kernel vs plain on "
+                                         f"shards {bad}")
+
+
+def mesh_summary(res) -> dict:
+    """The mesh phase's figures: each leg's decode ms/step beside the
+    single-process engine's, the launches, the local shapes, the
+    collectives gloo took and their times, the phase's seconds."""
+    r0 = res["ranks"][0]
+    legs = {}
+    for row in r0["legs"]:
+        one = row["single"]
+        legs[row["label"]] = {
+            "single": {k: one[k] for k in ("decode_ms_per_step",
+                                           "prefill_ms", "s", "launches")
+                       if k in one},
+            **{key: {k: out[k] for k in (
+                "decode_ms_per_step", "prefill_ms", "s", "launches",
+                "tokens_equal", "shapes") if k in out} | {
+                "matmul_err_max": max(out["matmul_errs"].values(),
+                                      default=0.0)} | (
+                {"err": out["vs_single"]["err"]} if "vs_single" in out
+                else {}) for key, out in row["runs"].items()}}
+    return {"phase_s": res["phase_s"], "legs": legs,
+            "collectives": r0["collectives"],
+            "transport": "gloo, two ranks on one card (host-staged, not "
+                         "NVLink)"}
+
+
 def time_packed(m, k, n, bits, wbr=8):
     import torch
     from repro_torch.kernels import packed_matmul
@@ -5866,6 +6335,10 @@ def time_bitplane_path(bp, tok):
 
 def main() -> int:
     import torch
+    if len(sys.argv) > 1 and sys.argv[1] == "--mesh-rank":
+        # one rank of the mesh phase, started by mesh_phase
+        _, _, rank, port, work, dev, *size = sys.argv
+        return mesh_rank(int(rank), int(port), work, dev, tuple(size))
     if not torch.cuda.is_available():
         log("chip_smoke: no CUDA device; this script runs only on a GPU")
         return 2
@@ -5905,6 +6378,8 @@ def main() -> int:
     print(json.dumps({"deploy": dict(deploy_summary(detail["deploy_phase"]),
                                      card=smi)}))
     print(json.dumps({"lint": dict(lint_summary(detail), card=smi)}))
+    print(json.dumps({"mesh": dict(mesh_summary(detail["mesh_phase"]),
+                                   card=smi)}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
@@ -6189,6 +6664,17 @@ def run(detail) -> list:
         k["deploy_launches"] = dp["launches"][k["name"]]
         k["max_abs_err"] = max([k["max_abs_err"]] + [
             r["err"] for r in dp["matmul_calls"] if r["kernel"] == k["name"]])
+
+    detail["mesh_phase"] = mp = mesh_phase()
+    log(f"mesh phase ran in {mp['phase_s']:.1f} s")
+    save_detail(detail)
+    check_mesh(mp)
+    for k in kernels:
+        k["mesh_launches_a_rank"] = {
+            f"{row['label']} {key}": out["launches"][k["name"]]
+            for row in mp["ranks"][0]["legs"]
+            for key, out in row["runs"].items()}
+    save_detail(detail)
     return kernels
 
 

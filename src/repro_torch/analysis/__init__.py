@@ -13,14 +13,15 @@ contract, graph and compile-footprint lint, rolled into one
   executes nothing, the port executes each entry point once, under an op
   recorder, on a scratch decode state built at lint sizes; the engine's
   live state is never touched.
+* :mod:`~repro_torch.analysis.sharding_lint` — replayed spec derivation
+  with every ``fit_spec`` drop and pad surfaced, deviceless production
+  meshes included.
 * :mod:`~repro_torch.analysis.footprint` — static census of the call
   signatures the scheduler's shape decisions reach.
 
 :func:`lint_engine` is the one-call entry point (the CLI ``python -m
 repro_torch.launch.lint`` and the serve launcher's ``--lint`` wrap it);
-the passes are importable on their own.  Not ported yet: the sharding
-lint (``sharding_lint.py``), which comes with distribution (ROADMAP item
-6); a ``mesh`` raises.
+the passes are importable on their own.
 """
 from __future__ import annotations
 
@@ -37,25 +38,19 @@ from .footprint import (CompileSig, chunk_widths, footprint_findings,
 from .graph_lint import (check_decode_donation, deployed_leaves,
                          fallback_leaf_paths, lint_traced_fn)
 from .report import Finding, LintReport
+from .sharding_lint import (ShapeOnlyMesh, lint_sharding,
+                            production_mesh_shape)
 
 __all__ = [
-    "CompileSig", "Finding", "LintReport", "check_decode_donation",
-    "chunk_widths", "deployed_leaves", "example_batch",
-    "fallback_leaf_paths", "footprint_findings", "generate_signatures",
-    "lint_engine", "lint_traced_fn", "no_mesh", "scheduler_footprint",
+    "CompileSig", "Finding", "LintReport", "ShapeOnlyMesh",
+    "check_decode_donation", "chunk_widths", "deployed_leaves",
+    "example_batch", "fallback_leaf_paths", "footprint_findings",
+    "generate_signatures", "lint_engine", "lint_sharding",
+    "lint_traced_fn", "production_mesh_shape", "scheduler_footprint",
     "serve_signatures", "validate_allocation", "validate_checkpoint",
     "validate_decode_state", "validate_draft_truncation",
     "validate_scheduler", "validate_serving_tree",
 ]
-
-
-def no_mesh(mesh) -> None:
-    """Refuse a mesh: the sharding lint and mesh placement are not ported
-    (ROADMAP item 6, distribution)."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "the sharding lint under a mesh is not ported (ROADMAP item 6, "
-            "distribution); lint with mesh=None")
 
 
 def example_batch(cfg, batch_size: int, prompt_len: int,
@@ -92,10 +87,12 @@ def lint_engine(engine, prompt_len: int = 16, n_slots: int = 4,
     calls' kernel-boundary ops and launch counts.  ``prompt_widths`` widens the
     footprint census beyond the single ``prompt_len``;
     ``autotune_budget_bytes`` asserts the AT1 budget contract against the
-    engine's deployed tree.  ``mesh`` (or an engine carrying one) raises
-    ``NotImplementedError``: the sharding lint comes with distribution."""
-    no_mesh(mesh)
-    no_mesh(getattr(engine, "mesh", None))
+    engine's deployed tree.  ``mesh`` (a process mesh or a
+    :class:`ShapeOnlyMesh`), or the mesh an engine was placed on, adds the
+    sharding lint of the engine's params, the example prompt and the
+    decode state against that mesh; a placed engine's params are linted
+    at their padded global shapes, as the reference lints its placed
+    arrays, and its entry points run under its mesh on every rank."""
     cfg = engine.api.cfg
     dev = engine.device
     report = LintReport(context={
@@ -110,7 +107,8 @@ def lint_engine(engine, prompt_len: int = 16, n_slots: int = 4,
     be = {"backend": engine.backend, "attn_backend": engine.attn_backend}
 
     # -- contracts ---------------------------------------------------------
-    report.extend(validate_serving_tree(engine.params))
+    # (a placed engine's shards are checked as the whole leaves they form)
+    report.extend(validate_serving_tree(engine.whole_params()))
 
     # A bitplane engine that would silently dense-fall-back is an ERROR
     # under preflight (the engine itself only warns at construction):
@@ -133,8 +131,9 @@ def lint_engine(engine, prompt_len: int = 16, n_slots: int = 4,
     # -- graph lint --------------------------------------------------------
     batch = example_batch(cfg, 1, prompt_len, dev)
     extra = _roundup64(max_new)
+    run = engine._run
     report.extend(lint_traced_fn(
-        lambda p, b: engine.api.prefill(p, b, extra_slots=extra, **be),
+        lambda p, b: run(engine.api.prefill, p, b, extra_slots=extra, **be),
         (engine.params, batch), fn_name="prefill", calls=calls, **be))
 
     page_size = 0 if cfg.family == "ssm" else engine.page_size
@@ -154,15 +153,17 @@ def lint_engine(engine, prompt_len: int = 16, n_slots: int = 4,
         tokens = torch.zeros((n_slots, 1), dtype=torch.int32, device=dev)
         index = torch.zeros((n_slots,), dtype=torch.int32, device=dev)
         report.extend(lint_traced_fn(
-            lambda p, t, s, i: engine.api.decode_step(p, t, s, i, **be),
+            lambda p, t, s, i: run(engine.api.decode_step, p, t, s, i,
+                                   **be),
             (engine.params, tokens, state, index), fn_name="decode",
             calls=calls, **be))
         if engine.prefill_chunk > 0 and cfg.family not in ("ssm", "hybrid"):
             cb = {"tokens": torch.zeros((1, engine.prefill_chunk),
                                         dtype=torch.int32, device=dev)}
             report.extend(lint_traced_fn(
-                lambda p, b, s, slot, start: engine.api.prefill_chunk_at(
-                    p, b, s, slot, start, **be),
+                lambda p, b, s, slot, start: run(
+                    engine.api.prefill_chunk_at, p, b, s, slot, start,
+                    **be),
                 (engine.params, cb, state, 0, 0), fn_name="chunk",
                 calls=calls, **be))
         report.extend(check_decode_donation(engine, tokens, state, index,
@@ -210,4 +211,19 @@ def lint_engine(engine, prompt_len: int = 16, n_slots: int = 4,
         vision_tokens=cfg.vision_tokens if cfg.family == "vlm" else 0,
         family=cfg.family)
     report.extend(footprint_findings(sigs, budget=budget))
+
+    # -- sharding ----------------------------------------------------------
+    mesh = mesh if mesh is not None else getattr(engine, "mesh", None)
+    if mesh is not None:
+        params, shard_state = engine.params, state
+        if getattr(engine, "global_params", None) is not None:
+            # a placed engine: its global (padded) shapes and a global
+            # decode state on the meta device
+            params = engine.global_params
+            meta_batch = example_batch(cfg, 1, prompt_len, "meta")
+            shard_state = engine.global_api.init_decode_state(
+                None, meta_batch, n_slots, max_len, page_size=page_size,
+                n_pages=engine.n_pages)
+        report.extend(lint_sharding(params, mesh, batch=batch,
+                                    state=shard_state, n_slots=n_slots))
     return report

@@ -11,7 +11,7 @@ META records, per leaf, its ``jax.tree_util.keystr`` path, the sanitized
 npz key, the true shape, the dtype name and the spec entries; a leaf is
 reassembled from the shard chunks its spec assigns to each host.  The
 port writes single-shard saves (no mesh; sharded saves belong to the
-distribution work, ROADMAP item 9) and reads the reference's sharded and
+distribution work, ROADMAP item 6) and reads the reference's sharded and
 legacy (format 1, ``arrays.npz``) ones.
 
 Leaf paths are the reference's: dict keys in sorted order, list indices,
@@ -223,7 +223,8 @@ def _no_mesh(mesh, specs) -> None:
     if mesh is not None or specs is not None:
         raise NotImplementedError(
             "sharded checkpoints under a mesh are not ported (ROADMAP "
-            "item 9, distribution); save and restore with mesh=None")
+            "item 6, distribution: training under a mesh); save and "
+            "restore with mesh=None")
 
 
 def save_tree(tree: Any, path: str, extra_meta: Optional[Dict] = None,

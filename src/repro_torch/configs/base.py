@@ -85,6 +85,12 @@ class ModelConfig:
     def head_dim(self) -> int:
         return self.d_head or self.d_model // self.n_heads
 
+    @property
+    def head_shards(self) -> int:
+        """The model ranks the heads are split over: one (a
+        :class:`PlacedConfig` counts one rank's heads)."""
+        return 1
+
     def with_quant(self, qc: QuantConfig) -> "ModelConfig":
         return dataclasses.replace(self, quant=qc)
 
@@ -111,6 +117,13 @@ class ModelConfig:
         )
         base.update(over)
         return dataclasses.replace(self, **base)
+
+
+@dataclasses.dataclass(frozen=True)
+class PlacedConfig(ModelConfig):
+    """A config placed on a mesh (``serve.engine``, tensor parallelism):
+    its head counts are one of ``head_shards`` model ranks'."""
+    head_shards: int = 1
 
 
 @dataclasses.dataclass(frozen=True)

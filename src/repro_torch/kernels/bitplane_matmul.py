@@ -15,7 +15,7 @@ split-K at M <= 16, tensor-core tiles above) is
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -67,7 +67,8 @@ def _args(key) -> int:
 
 def bitplane_matmul(x: torch.Tensor, planes: torch.Tensor,
                     sign: torch.Tensor, mask: torch.Tensor,
-                    scale: torch.Tensor, *, wbr: int = 8, wbc: int = 128
+                    scale: torch.Tensor, *, wbr: int = 8, wbc: int = 128,
+                    grid: Optional[Tuple[int, int, int, int]] = None
                     ) -> torch.Tensor:
     """y[M, N] = x[M, K] @ compose(planes, sign, mask, scale), f32.
 
@@ -76,14 +77,23 @@ def bitplane_matmul(x: torch.Tensor, planes: torch.Tensor,
     per-WB effective LUT (K//wbr, GC) f32 or a per-layer (1,) scalar
     (divided by ``2^n - 1``).  ``x``: (M, K_x <= K) f32 or bf16 (other
     float types are cast to f32).  Payload tensors may be layer views of
-    stacked (L, ...) leaves; they are read in place."""
+    stacked (L, ...) leaves; they are read in place.
+
+    ``grid=(gr0, gc0, gr, gc)``: the payload is a shard whose WBs are the
+    (gr, gc) sub-grid of ``mask`` (and a per-WB ``scale``) at WB offset
+    (gr0, gc0), so K = gr * wbr; the launch reads both in place at that
+    offset (their row and plane strides the whole grid's)."""
     if RECORDERS:
         return RECORDERS[-1].kernel_call(
             "bitplane_matmul", bitplane_matmul,
-            (x, planes, sign, mask, scale), dict(wbr=wbr, wbc=wbc))
+            (x, planes, sign, mask, scale), dict(wbr=wbr, wbc=wbc, grid=grid))
     m, k_x = x.shape
     n_bits, rows8, n = planes.shape
-    gr, gc = mask.shape[-2:]
+    gr_all, gc_all = mask.shape[-2:]
+    gr0, gc0, gr, gc = grid if grid is not None else (0, 0, gr_all, gc_all)
+    if gr0 + gr > gr_all or gc0 + gc > gc_all:
+        raise ValueError(f"grid {grid} outside the mask grid "
+                         f"{tuple(mask.shape)}")
     k = gr * wbr
     per_block = scale.ndim == 2
     if not 1 <= n_bits <= 8 or mask.shape[0] != n_bits:
@@ -91,14 +101,15 @@ def bitplane_matmul(x: torch.Tensor, planes: torch.Tensor,
                          f"{tuple(planes.shape)}, mask {tuple(mask.shape)}")
     if k_x > k or rows8 * 8 < k or n > gc * wbc \
             or tuple(sign.shape) != (rows8, n) \
-            or (per_block and tuple(scale.shape) != (gr, gc)) \
+            or (per_block and tuple(scale.shape) != (gr_all, gc_all)) \
             or (not per_block and scale.numel() != 1):
         raise ValueError(f"operand geometry mismatch: x K={k_x}, mask grid "
                          f"K={k} N<={gc * wbc}, planes "
                          f"{tuple(planes.shape)}, sign {tuple(sign.shape)}, "
                          f"scale {tuple(scale.shape)}")
     if x.device.type == "cpu":
-        return bitplane_matmul_ref(x, planes, sign, mask, scale, wbr, wbc)
+        return bitplane_matmul_ref(x, planes, sign, mask, scale, wbr, wbc,
+                                   grid)
     if x.device.type != "cuda":
         raise ValueError(f"bitplane_matmul runs on cuda or cpu, not "
                          f"{x.device}")
@@ -117,11 +128,15 @@ def bitplane_matmul(x: torch.Tensor, planes: torch.Tensor,
     if x.stride(1) != 1:
         x = x.contiguous()
     out = torch.empty((m, n), dtype=torch.float32, device=dev)
+    # the kernel reads mask[b * gr * gc + g * gc + h] and scale[g * gc + h]
+    # with the whole grid's strides, from the shard's first WB
     args = _args((dev, int(x.dtype == torch.bfloat16), x.stride(0), m,
-                  min(k_x, k), n_bits, gr, gc, int(per_block), n, wbr, wbc,
-                  planes.stride(0)))
+                  min(k_x, k), n_bits, gr_all, gc_all, int(per_block), n,
+                  wbr, wbc, planes.stride(0)))
+    off = 4 * (gr0 * gc_all + gc0)
+    s_ptr = scale.data_ptr() + (off if per_block else 0)
     rc = _lib()(x.data_ptr(), planes.data_ptr(), sign.data_ptr(),
-                mask.data_ptr(), scale.data_ptr(), out.data_ptr(), args,
+                mask.data_ptr() + off, s_ptr, out.data_ptr(), args,
                 stream_ptr(dev))
     if rc:
         raise RuntimeError(f"bitplane_matmul kernel launch failed: CUDA "

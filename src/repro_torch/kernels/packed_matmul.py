@@ -14,7 +14,7 @@ matmul_plan`'s.
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -63,20 +63,29 @@ def _args(key) -> int:
 
 
 def packed_matmul(x: torch.Tensor, w_int: torch.Tensor, scale: torch.Tensor,
-                  *, bits: int = 8, wbr: int = 8, wbc: int = 128
+                  *, bits: int = 8, wbr: int = 8, wbc: int = 128,
+                  grid: Optional[Tuple[int, int, int, int]] = None
                   ) -> torch.Tensor:
     """y[M, N] = x[M, K] @ (dequant(w_int) * per-WB scale), f32.
 
     int8: ``w_int`` (K, N) int8.  int4: (ceil(K/2), N) uint8, row 2j in
     the low nibble.  ``scale``: (K/wbr, N/wbc) f32.  ``x``: (M, K_x <= K)
     f32 or bf16 (other float types are cast to f32).  ``w_int`` may be a
-    layer view of a stacked (L, ...) leaf; it is read in place."""
+    layer view of a stacked (L, ...) leaf; it is read in place.
+
+    ``grid=(gr0, gc0, gr, gc)``: ``w_int`` is a shard whose WBs are the
+    (gr, gc) sub-grid of ``scale`` at WB offset (gr0, gc0), so K = gr *
+    wbr and N = gc * wbc; the launch reads ``scale`` in place at that
+    offset (its row stride the whole grid's)."""
     if RECORDERS:
         return RECORDERS[-1].kernel_call(
             "packed_matmul", packed_matmul, (x, w_int, scale),
-            dict(bits=bits, wbr=wbr, wbc=wbc))
+            dict(bits=bits, wbr=wbr, wbc=wbc, grid=grid))
     m, k_x = x.shape
-    gr, gc = scale.shape
+    gr0, gc0, gr, gc = grid if grid is not None else (0, 0, *scale.shape)
+    if gr0 + gr > scale.shape[0] or gc0 + gc > scale.shape[1]:
+        raise ValueError(f"grid {grid} outside the scale grid "
+                         f"{tuple(scale.shape)}")
     k, n = gr * wbr, gc * wbc
     if k_x > k or w_int.shape[-1] != n:
         raise ValueError(f"operand geometry mismatch: x K={k_x}, "
@@ -84,7 +93,7 @@ def packed_matmul(x: torch.Tensor, w_int: torch.Tensor, scale: torch.Tensor,
     if bits not in (8, 4):
         raise ValueError(bits)
     if x.device.type == "cpu":
-        return packed_matmul_ref(x, w_int, scale, bits, wbr, wbc)
+        return packed_matmul_ref(x, w_int, scale, bits, wbr, wbc, grid)
     if x.device.type != "cuda":
         raise ValueError(f"packed_matmul runs on cuda or cpu, not {x.device}")
     want = torch.int8 if bits == 8 else torch.uint8
@@ -103,9 +112,13 @@ def packed_matmul(x: torch.Tensor, w_int: torch.Tensor, scale: torch.Tensor,
     if x.stride(1) != 1:
         x = x.contiguous()
     out = torch.empty((m, n), dtype=torch.float32, device=dev)
+    # the kernel reads scale[g * stride + h]: the whole grid's row stride,
+    # from the shard's first WB
+    stride = scale.shape[1]
     args = _args((dev, int(x.dtype == torch.bfloat16), x.stride(0), m,
-                  k_x, bits, n, gc, wbr, wbc))
-    rc = _lib()(x.data_ptr(), w_int.data_ptr(), scale.data_ptr(),
+                  k_x, bits, n, stride, wbr, wbc))
+    s_ptr = scale.data_ptr() + 4 * (gr0 * stride + gc0)
+    rc = _lib()(x.data_ptr(), w_int.data_ptr(), s_ptr,
                 out.data_ptr(), args, stream_ptr(dev))
     if rc:
         raise RuntimeError(f"packed_matmul kernel launch failed: CUDA error "

@@ -73,14 +73,25 @@ def _unpack_nibbles(u: torch.Tensor) -> torch.Tensor:
                                                  u.shape[-1] * 2)
 
 
+def _sub_grid(t: torch.Tensor, grid) -> torch.Tensor:
+    """The (gr, gc) sub-grid of a (..., GR, GC) WB grid at WB offset
+    (gr0, gc0), ``grid=(gr0, gc0, gr, gc)`` (the whole grid for None)."""
+    if grid is None:
+        return t
+    gr0, gc0, gr, gc = grid
+    return t[..., gr0:gr0 + gr, gc0:gc0 + gc]
+
+
 def packed_matmul_ref(x: torch.Tensor, w_int: torch.Tensor,
                       scale: torch.Tensor, bits: int = 8, wbr: int = 8,
-                      wbc: int = 128) -> torch.Tensor:
+                      wbc: int = 128, grid=None) -> torch.Tensor:
     """y = x @ (dequant(w_int) * per-block scale), f32 (M, N).
 
-    Shares the kernel's geometry contract: K/N come from the scale grid;
-    an int4 odd block-padded K carries one zero pad row in the last byte
-    (trimmed here), and x may have fewer than K columns (zero-filled)."""
+    Shares the kernel's geometry contract: K/N come from the scale grid
+    (its ``grid`` sub-grid for a shard); an int4 odd block-padded K
+    carries one zero pad row in the last byte (trimmed here), and x may
+    have fewer than K columns (zero-filled)."""
+    scale = _sub_grid(scale, grid)
     if bits == 8:
         w = w_int.to(torch.float32)
     elif bits == 4:
@@ -99,7 +110,7 @@ def packed_matmul_ref(x: torch.Tensor, w_int: torch.Tensor,
 def bitplane_matmul_ref(x: torch.Tensor, planes: torch.Tensor,
                         sign: torch.Tensor, mask: torch.Tensor,
                         scale: torch.Tensor, wbr: int = 8,
-                        wbc: int = 128) -> torch.Tensor:
+                        wbc: int = 128, grid=None) -> torch.Tensor:
     """y = x @ W, W = (1 - 2*sign) * sum_b 2^b * plane_b * mask_b * scale,
     f32 (M, N) with N = ``planes.shape[-1]``.
 
@@ -109,7 +120,11 @@ def bitplane_matmul_ref(x: torch.Tensor, planes: torch.Tensor,
     with fewer than K columns is zero-filled, and ``planes`` may have
     fewer columns than the mask grid covers (ragged N).  The magnitudes
     are composed in integers, which equals the reference's float sum for
-    a mask of 0s and 1s (the layout's contract)."""
+    a mask of 0s and 1s (the layout's contract).  A shard's ``grid``
+    selects its sub-grid of ``mask`` and a per-WB ``scale``."""
+    mask = _sub_grid(mask, grid)
+    if scale.ndim == 2:
+        scale = _sub_grid(scale, grid)
     n = planes.shape[0]
     kp, ncol = mask.shape[-2] * wbr, planes.shape[-1]
     live = expand_mask(mask != 0, wbr, wbc)[..., :ncol]  # (n, Kp, N)

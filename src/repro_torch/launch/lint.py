@@ -15,11 +15,11 @@ cpu`` lints on the host, where each kernel wrapper runs its plain
 version behind the same boundary).  Where the reference's lint executes
 nothing, this one executes each entry point once on a scratch decode
 state.  ``--no-tiny`` keeps the registered config's weight-block
-geometry (8x128), as the serve launcher does.  ``--mesh`` and
-``--production-mesh`` (the sharding lint) raise ``NotImplementedError``:
-they come with distribution (ROADMAP item 6).  ``main(argv,
-params=None)`` returns the exit code; ``params`` lints a caller's
-deployed tree instead of the seeded one.
+geometry (8x128), as the serve launcher does.  With ``--mesh`` /
+``--production-mesh`` (``--multi-pod``) the sharding lint runs against a
+deviceless mesh stand-in.  ``main(argv, params=None)`` returns the exit
+code; ``params`` lints a caller's deployed tree instead of the seeded
+one.
 """
 from __future__ import annotations
 
@@ -103,11 +103,10 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--budget", type=int, default=8,
                     help="call-signature budget (footprint pass)")
     ap.add_argument("--mesh", default="",
-                    help="lint sharding against 'AXIS=N,...' sizes (not "
-                         "ported: raises)")
+                    help="lint sharding against 'AXIS=N,...' sizes, e.g. "
+                         "'data=2,model=4' (deviceless stand-in)")
     ap.add_argument("--production-mesh", action="store_true",
-                    help="lint sharding against the 16x16 production mesh "
-                         "(not ported: raises)")
+                    help="lint sharding against the 16x16 production mesh")
     ap.add_argument("--multi-pod", action="store_true",
                     help="with --production-mesh: the 2x16x16 pod mesh")
     ap.add_argument("--json", action="store_true", dest="as_json")
@@ -126,10 +125,9 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def main(argv: Optional[List[str]] = None, params: Any = None) -> int:
-    from ..analysis import lint_engine, no_mesh, validate_checkpoint
+    from ..analysis import (ShapeOnlyMesh, lint_engine, production_mesh_shape,
+                            validate_checkpoint)
     args = build_parser().parse_args(argv)
-    if args.production_mesh or args.mesh:
-        no_mesh(args.mesh or "production")
     engine = build_engine(args.arch, args.backend, args.deploy_bits,
                           args.layout, args.kv_bits, args.page_size,
                           args.prefill_chunk, args.tiny,
@@ -137,9 +135,16 @@ def main(argv: Optional[List[str]] = None, params: Any = None) -> int:
                           speculate_planes=args.speculate_planes,
                           attn_backend=args.attn_backend,
                           device=args.device, params=params)
+    mesh = None
+    if args.production_mesh:
+        mesh = ShapeOnlyMesh(production_mesh_shape(args.multi_pod))
+    elif args.mesh:
+        mesh = ShapeOnlyMesh({
+            kv.split("=")[0].strip(): int(kv.split("=")[1])
+            for kv in args.mesh.split(",")})
     report = lint_engine(engine, prompt_len=args.prompt_len,
                          n_slots=args.n_slots, max_new=args.max_new,
-                         budget=args.budget,
+                         budget=args.budget, mesh=mesh,
                          autotune_budget_bytes=(args.autotune_budget_bytes
                                                 or None))
     if args.ckpt:

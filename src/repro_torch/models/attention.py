@@ -10,6 +10,7 @@ stored (quantized) form through :func:`paged_attn`.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import Dict, Optional, Tuple
 
@@ -19,7 +20,8 @@ from ..core.quantize import pack_int4, unpack_int4
 from ..kernels.paged_attention import paged_attention
 from ..kernels.ref import paged_attention_ref
 from ..kernels.tiling import fit_block
-from .common import make_weight, qmatmul
+from ..dist.parallel import local_cols, take_cols
+from .common import col_matmul, make_weight, row_matmul
 from .common import softcap as _softcap
 from .rope import apply_rope, mrope_angles, rope_angles
 
@@ -317,7 +319,7 @@ def attn_forward(p: Dict, x: torch.Tensor, positions: torch.Tensor, *,
                  kv_positions: Optional[torch.Tensor] = None,
                  cache: Optional[Dict] = None,
                  cache_index=None, backend: str = "dense",
-                 attn_backend: str = "gather"
+                 attn_backend: str = "gather", head_shards: int = 1
                  ) -> Tuple[torch.Tensor, Optional[Dict]]:
     """Attention sub-layer: projections + rope + core + output proj.
 
@@ -331,13 +333,17 @@ def attn_forward(p: Dict, x: torch.Tensor, positions: torch.Tensor, *,
     fill levels."""
     b = x.shape[0]
     xk_src = x if x_kv is None else x_kv
-    q = qmatmul(x, p["wq"], backend)
-    k = qmatmul(xk_src, p["wk"], backend)
-    v = qmatmul(xk_src, p["wv"], backend)
+    # ``n_heads`` / ``n_kv`` count this rank's heads of ``head_shards``
+    # (tensor parallel); the projections keep their columns and the cache
+    # holds these heads
+    q, k, v = (_local_heads(src, p[name], local_cols(n * d_head, head_shards),
+                            backend)
+               for src, name, n in ((x, "wq", n_heads), (xk_src, "wk", n_kv),
+                                    (xk_src, "wv", n_kv)))
     if "bq" in p:
-        q = q + p["bq"].to(q.dtype)
-        k = k + p["bk"].to(k.dtype)
-        v = v + p["bv"].to(v.dtype)
+        q = q + _bias(p["bq"], n_heads * d_head, head_shards).to(q.dtype)
+        k = k + _bias(p["bk"], n_kv * d_head, head_shards).to(k.dtype)
+        v = v + _bias(p["bv"], n_kv * d_head, head_shards).to(v.dtype)
     q = q.reshape(*q.shape[:-1], n_heads, d_head)
     k = k.reshape(*k.shape[:-1], n_kv, d_head)
     v = v.reshape(*v.shape[:-1], n_kv, d_head)
@@ -428,4 +434,20 @@ def attn_forward(p: Dict, x: torch.Tensor, positions: torch.Tensor, *,
                              window=window, attn_softcap=attn_softcap,
                              kv_len=kv_len)
     out = out.reshape(*x.shape[:-1], n_heads * d_head)
-    return qmatmul(out, p["wo"], backend), new_cache
+    # the output projection, row-parallel over the local heads' columns
+    cols = dataclasses.replace(local_cols(n_heads * d_head, head_shards),
+                               t=out)
+    return row_matmul(cols, p["wo"], backend), new_cache
+
+
+def _local_heads(x: torch.Tensor, w, cols, backend: str) -> torch.Tensor:
+    """This rank's heads (``cols``, a :func:`local_cols`) of a
+    column-parallel projection (gathered over ``model`` where its shard
+    holds others)."""
+    return take_cols(col_matmul(x, w, backend), cols.wants)
+
+
+def _bias(bias: torch.Tensor, width: int, shards: int) -> torch.Tensor:
+    """A projection bias, cut to this rank's heads."""
+    cols = local_cols(width, shards)
+    return bias[..., cols.lo:cols.hi]

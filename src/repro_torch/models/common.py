@@ -42,7 +42,8 @@ from ..serve.deploy import (BitplaneServingWeight, ServingWeight,
 MATMUL_BACKENDS = ("dense", "kernel", "bitplane", "ref")
 
 __all__ = ["QuantConfig", "MATMUL_BACKENDS", "make_weight", "qdense",
-           "qmatmul", "record_qmatmul_inputs", "prepare_params",
+           "qmatmul", "col_matmul", "row_matmul", "window_weight",
+           "record_qmatmul_inputs", "prepare_params",
            "act_quant", "make_beta", "rms_norm", "embed_init", "softcap"]
 
 
@@ -108,6 +109,124 @@ def _qmatmul_bitplane(x: torch.Tensor, sw: BitplaneServingWeight,
     return y[:, :n].reshape(*lead, n).to(x.dtype)
 
 
+def _shard_grid(w) -> tuple:
+    """``(gr0, gc0, gr, gc)``: the WB sub-grid a sharded deployed leaf's
+    window covers (the whole grid when only FSDP-sharded)."""
+    grid = w.mask if isinstance(w, BitplaneServingWeight) else w.scale
+    gr_all, gc_all = grid.shape[-2:]
+    sh = w.shard
+    wbr, wbc = w.spec.wb_rows, w.spec.wb_cols
+    start, stop = sh.window
+    if sh.kind == "col":
+        return 0, sh.grid0, gr_all, -(-(stop - start) // wbc)
+    if sh.kind == "row":
+        return sh.grid0, 0, (stop - start) // wbr, gc_all
+    return 0, 0, gr_all, gc_all
+
+
+def window_weight(w) -> Any:
+    """The deployed leaf a sharded leaf's window forms on its own: the
+    window's payload (its FSDP chunks gathered over ``data``) with the
+    scale / mask sub-grid it covers (views of the replicated grids); its
+    shape is the window's padded extent along the sharded dim and the true
+    size along the other.  Its dequantization is the window's alone."""
+    from ..dist.parallel import gather_payload
+    pay = gather_payload(w)
+    gr0, gc0, gr, gc = _shard_grid(w)
+    k, n = w.shape[-2:]
+    if w.shard.kind == "row":
+        k = gr * w.spec.wb_rows
+    elif w.shard.kind == "col":
+        n = gc * w.spec.wb_cols
+    shape = (*w.scale.shape[:-2], k, n)
+
+    def sub(g):
+        return g[..., gr0:gr0 + gr, gc0:gc0 + gc]
+    if isinstance(w, BitplaneServingWeight):
+        return BitplaneServingWeight(
+            planes=pay["planes"], sign=pay["sign"], mask=sub(w.mask),
+            scale=sub(w.scale) if w.scale.ndim >= 2 else w.scale,
+            shape=shape, spec=w.spec, bits=w.bits)
+    return ServingWeight(w_int=pay["w_int"], scale=sub(w.scale),
+                         shape=shape, spec=w.spec, bits=w.bits)
+
+
+def _window_product(x: torch.Tensor, w, backend: str) -> torch.Tensor:
+    """x (M, K_window) @ the rank's window of a sharded deployed leaf ->
+    (M, N_window) f32: the leaf's kernel (or its plain version) on the
+    local payload, its FSDP chunks gathered over ``data`` first, reading
+    the replicated scale / mask grids at the window's WB offset; the
+    ``dense`` backend dequantizes the window alone."""
+    sub = window_weight(w)
+    grid = _shard_grid(w)
+    wbr, wbc = w.spec.wb_rows, w.spec.wb_cols
+    if isinstance(w, BitplaneServingWeight):
+        if backend in ("kernel", "bitplane"):
+            return bitplane_matmul(x, sub.planes, sub.sign, w.mask,
+                                   w.scale, wbr=wbr, wbc=wbc, grid=grid)
+        if backend == "ref":
+            return bitplane_matmul_ref(x, sub.planes, sub.sign, w.mask,
+                                       w.scale, wbr, wbc, grid)
+        return x.to(torch.float32) @ bitplane_serving_compose(
+            sub, torch.float32)
+    if backend == "kernel":
+        return packed_matmul(x, sub.w_int, w.scale, bits=w.bits, wbr=wbr,
+                             wbc=wbc, grid=grid)
+    if backend == "ref":
+        return packed_matmul_ref(x, sub.w_int, w.scale, w.bits, wbr, wbc,
+                                 grid)
+    return x.to(torch.float32) @ serving_compose(sub, torch.float32)
+
+
+def col_matmul(x: torch.Tensor, w: Any, backend: str = "dense"):
+    """Column-parallel ``x @ W`` under a mesh: a sharded leaf multiplies
+    its N window and keeps the columns its rank owns
+    (:class:`~repro_torch.dist.parallel.Cols`); any other leaf gives the
+    whole product on every rank."""
+    from ..dist.parallel import Cols
+    sh = getattr(w, "shard", None)
+    if sh is None or sh.kind != "col":
+        y = qmatmul(x, w, backend) if sh is None else \
+            _sharded_whole(x, w, backend)
+        return Cols.whole(y)
+    lead = x.shape[:-1]
+    y = _window_product(x.reshape(-1, x.shape[-1]), w, backend)
+    start = sh.window[0]
+    lo, hi = sh.own
+    y = y[:, lo - start:hi - start].reshape(*lead, hi - lo).to(x.dtype)
+    return Cols(y, lo, hi, w.shape[-1], sh.ranges)
+
+
+def row_matmul(xc, w: Any, backend: str = "dense") -> torch.Tensor:
+    """Row-parallel ``x @ W`` under a mesh, ``xc`` the input's columns on
+    this rank (:class:`~repro_torch.dist.parallel.Cols`): a sharded leaf
+    multiplies the input's columns over its K window (gathered over
+    ``model`` when this rank does not hold them) and all-reduces the
+    partial sums over ``model``; any other leaf multiplies the whole
+    input."""
+    from ..dist.parallel import all_reduce, gather_cols, take_cols
+    sh = getattr(w, "shard", None)
+    if sh is None or sh.kind != "row":
+        x = gather_cols(xc)
+        return qmatmul(x, w, backend) if sh is None else \
+            _sharded_whole(x, w, backend)
+    x = take_cols(xc, sh.windows)
+    lead = x.shape[:-1]
+    y = _window_product(x.reshape(-1, x.shape[-1]), w, backend)
+    n = w.shape[-1]
+    y = all_reduce(y[:, :n].contiguous())
+    return y.reshape(*lead, n).to(xc.t.dtype)
+
+
+def _sharded_whole(x: torch.Tensor, w, backend: str) -> torch.Tensor:
+    """``x @ W`` for a leaf sharded only on ``data`` (FSDP): its payload
+    gathered, the whole product."""
+    lead = x.shape[:-1]
+    y = _window_product(x.reshape(-1, x.shape[-1]), w, backend)
+    n = w.shape[-1]
+    return y[:, :n].reshape(*lead, n).to(x.dtype)
+
+
 def qmatmul(x: torch.Tensor, w: Any, backend: str = "dense") -> torch.Tensor:
     """y = x @ W for any weight representation (the model-side matmul).
 
@@ -128,6 +247,15 @@ def qmatmul(x: torch.Tensor, w: Any, backend: str = "dense") -> torch.Tensor:
         x2 = torch.mean(torch.square(
             x.reshape(-1, x.shape[-1]).to(torch.float32)), dim=0)
         _ACT_RECORDERS[-1].setdefault(w.tag, []).append(x2)
+    if getattr(w, "shard", None) is not None:
+        # a shard under a mesh, reached outside the parallel paths: the
+        # whole product (column and row shards gathered / reduced)
+        from ..dist.parallel import Cols, gather_cols
+        if w.shard.kind == "col":
+            return gather_cols(col_matmul(x, w, backend))
+        if w.shard.kind == "row":
+            return row_matmul(Cols.whole(x), w, backend)
+        return _sharded_whole(x, w, backend)
     if isinstance(w, BitplaneServingWeight) and backend != "dense" \
             and w.sign.ndim == 2:
         return _qmatmul_bitplane(x, w, backend)

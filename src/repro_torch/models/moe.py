@@ -28,11 +28,12 @@ Training differentiates both dispatches: the ragged product through
 its own backward (:class:`_GroupedMatmul`, the reference's custom VJP),
 the capacity loop through autograd; the router's gradient flows through
 the gathered top-k probabilities and the aux term's ``frac_probs``
-(``frac_tokens`` is a count).  Not ported: the sharded path
-(``_moe_forward_sharded``).
+(``frac_tokens`` is a count).  Under a mesh the layer takes the
+reference's sharded path (:func:`_moe_forward_sharded`).
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Dict, List, Sequence, Tuple, Union
 
 import numpy as np
@@ -40,7 +41,9 @@ import torch
 import torch.nn.functional as F
 
 from ..core.bitrep import QuantizedTensor
-from .common import make_weight, qdense, qmatmul
+from ..dist.parallel import (Cols, active_mesh, all_reduce, even_ranges,
+                             take_cols, unshard)
+from .common import make_weight, qdense, qmatmul, window_weight
 
 # Implementation selector: 'ragged' (exact, no drops) or 'capacity'
 # (fixed per-expert capacity, tokens past it dropped).
@@ -226,7 +229,14 @@ def init_moe(d_model: int, d_ff: int, n_experts: int, top_k: int, qc,
 
 def moe_forward(p: Dict, x: torch.Tensor, top_k: int,
                 backend: str = "dense") -> Tuple[torch.Tensor, torch.Tensor]:
-    """x: (B, S, D) -> (out, aux_loss) on one device."""
+    """x: (B, S, D) -> (out, aux_loss).  Under an active mesh of more
+    than one rank this runs :func:`_moe_forward_sharded`: routing and the
+    sort stay local to each data shard, the experts run expert- or
+    tensor-parallel over ``model`` and the partial outputs are summed
+    over it."""
+    mesh = active_mesh()
+    if mesh is not None:
+        return _moe_forward_sharded(p, x, top_k, backend, mesh)
     return _moe_forward_local(p, x, top_k, backend)
 
 
@@ -291,4 +301,132 @@ def _moe_forward_local(p: Dict, x: torch.Tensor, top_k: int,
     frac_tokens = torch.mean(hit, 0)
     frac_probs = torch.mean(probs, 0)
     aux = e * torch.sum(frac_tokens * frac_probs)
+    return out, aux
+
+
+def _local_experts(w, e0: int, n: int, dtype) -> torch.Tensor:
+    """Experts ``[e0, e0 + n)`` of an (E, K, N) stack, dequantized
+    (``common.qdense``, the sanctioned MoE dequant), and no other: a
+    placed shard first moves those experts' windows here from every model
+    rank (:func:`~repro_torch.dist.parallel.unshard` with an expert range:
+    one all-to-all over ``model``, every rank calling it with its own
+    range), a whole leaf is cut to them."""
+    if getattr(w, "shard", None) is not None:
+        return qdense(unshard(w, (e0, n)), dtype)
+    if isinstance(w, QuantizedTensor):
+        return qdense(w, dtype)[e0:e0 + n]     # bit axis leads
+    if isinstance(w, torch.Tensor):
+        return w[e0:e0 + n].to(dtype)
+    cut = {f.name: getattr(w, f.name).narrow(0, e0, n)
+           for f in dataclasses.fields(w)
+           if isinstance(getattr(w, f.name), torch.Tensor)}
+    shape = (*w.shape[:-3], n, *w.shape[-2:])    # stack dims kept
+    return qdense(dataclasses.replace(w, **cut, shape=shape), dtype)
+
+
+def _ff_slice(w, dim: int, dtype, mesh):
+    """This rank's d_ff slice of an (E, K, N) stack under in-expert
+    tensor parallelism, dequantized: the columns of ``expert_gate`` /
+    ``expert_up`` (``dim`` -1) or the rows of ``expert_down`` (-2), and
+    every model rank's range of d_ff.  A placed shard dequantizes its own
+    window alone (:func:`~repro_torch.models.common.window_weight`: no
+    gather over ``model``); a whole leaf is dequantized and cut evenly."""
+    sh = getattr(w, "shard", None)
+    if sh is not None and sh.kind in ("col", "row"):
+        lo, hi = sh.own
+        win = qdense(window_weight(w), dtype)
+        return win.narrow(dim, lo - sh.window[0], hi - lo), sh.ranges
+    if sh is not None:
+        w = unshard(w)
+    dense = qdense(w, dtype)
+    f, m = dense.shape[dim], mesh.axis_size("model")
+    ranges = even_ranges(-(-f // m) * m, m, f)
+    lo, hi = ranges[mesh.coord("model")]
+    return dense.narrow(dim, lo, hi - lo), ranges
+
+
+def _moe_forward_sharded(p: Dict, x: torch.Tensor, top_k: int,
+                         backend: str, mesh
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The reference's ``shard_map`` MoE on one rank: local routing and
+    sort over this data shard's tokens, then the expert FFNs.
+
+    * Expert parallel when E divides ``model``: this rank computes its
+      E / model experts' rows of the sorted tokens; ``ragged`` keeps the
+      reference's exact no-drop dispatch, in which a zero dummy expert
+      takes the other ranks' rows (its product is zero, written as zeros
+      rather than multiplied); ``capacity`` runs the capacity loop over
+      the rank's experts.  Only the rank's experts are moved here (the
+      placed stacks hold d_ff on ``model``) and dequantized.
+    * Otherwise in-expert tensor parallelism: every expert's d_ff slice
+      of this rank (gate / up columns, down rows), the window a placed
+      rank holds, dequantized alone; the gate's and the down
+      projection's slices may differ (a 9x8 row shard is a block wider),
+      and the activation's columns then follow the down rows'
+      (:func:`~repro_torch.dist.parallel.take_cols`).
+
+    The experts are dequantized on this path, as the reference's are,
+    and the partial outputs and the aux term are summed / averaged over
+    ``model`` (the aux over the data axes too)."""
+    b, s, d = x.shape
+    e = p["router_w"].shape[-1]
+    t = b * s
+    m, r = mesh.axis_size("model"), mesh.coord("model")
+    ep = e % m == 0
+    names = ("expert_gate", "expert_up", "expert_down")
+    if ep:
+        e_loc = e // m
+        e0 = r * e_loc
+        wg, wu, wd = (_local_experts(p[n], e0, e_loc, x.dtype)
+                      for n in names)
+    else:
+        (wg, rg), (wu, ru), (wd, rd) = (
+            _ff_slice(p[n], dim, x.dtype, mesh)
+            for n, dim in zip(names, (-1, -1, -2)))
+
+    xt = x.reshape(t, d)
+    probs, gate_vals, expert_idx = _route(xt, p["router_w"], top_k)
+    flat_expert = expert_idx.reshape(-1)
+    flat_gate = gate_vals.reshape(-1)
+    order = torch.argsort(flat_expert, stable=True)
+    tok_sorted = torch.div(order, top_k, rounding_mode="floor")
+    xs = xt[tok_sorted]
+    sizes = _sizes(torch.bincount(flat_expert, minlength=e))
+    if ep:
+        gs_local = sizes[e0:e0 + e_loc]
+        start0, n_loc = sum(sizes[:e0]), sum(gs_local)
+        if GROUPED_IMPL["impl"] == "ragged":
+            rows = xs[start0:start0 + n_loc]
+            h = F.silu(grouped_matmul(rows, wg, gs_local)) \
+                * grouped_matmul(rows, wu, gs_local)
+            ys = xs.new_zeros((xs.shape[0], d))
+            ys[start0:start0 + n_loc] = grouped_matmul(h, wd, gs_local)
+        else:
+            cap = _capacity(t * top_k, e)
+            xloc = torch.roll(xs, -start0, dims=0)
+            h = F.silu(grouped_matmul_capacity(xloc, wg, gs_local, cap)) \
+                * grouped_matmul_capacity(xloc, wu, gs_local, cap)
+            ys = torch.roll(grouped_matmul_capacity(h, wd, gs_local, cap),
+                            start0, dims=0)
+    else:
+        f = p["expert_gate"].shape[-1]
+        g = Cols(_grouped(xs, wg, sizes), *rg[r], f, rg)
+        u = Cols(_grouped(xs, wu, sizes), *ru[r], f, ru)
+        h = dataclasses.replace(g, t=F.silu(g.t) * take_cols(u, rg))
+        ys = _grouped(take_cols(h, rd), wd, sizes)
+    ys = ys * flat_gate[order][:, None].to(ys.dtype)
+    out = all_reduce(_combine(ys, order, t, top_k), "model")
+    out = out.reshape(b, s, d)
+
+    if "shared_gate" in p:
+        hs = F.silu(qmatmul(x, p["shared_gate"], backend)) \
+            * qmatmul(x, p["shared_up"], backend)
+        out = out + qmatmul(hs, p["shared_down"], backend)
+
+    hit = torch.zeros((t, e), dtype=torch.float32, device=x.device)
+    hit.scatter_(1, expert_idx, 1.0)
+    aux = e * torch.sum(torch.mean(hit, 0) * torch.mean(probs, 0))
+    for axis in ("data", "model"):
+        if mesh.axis_size(axis) > 1:
+            aux = all_reduce(aux.clone(), axis) / mesh.axis_size(axis)
     return out, aux

@@ -33,6 +33,8 @@ from typing import Any, Dict, List
 import torch
 
 from ..configs.base import ModelConfig
+from ..dist.parallel import (ShardedTensor, all_gather, all_reduce,
+                             gather_payload)
 from .attention import attn_forward, fill_levels, init_attn
 from .common import (act_quant, builds_graph, embed_init, make_weight,
                      prepare_params, qmatmul, remat_call, rms_norm, softcap)
@@ -198,7 +200,7 @@ def _attn_block(lp, h, positions, cfg: ModelConfig, layer: int, cache,
         d_head=cfg.head_dim, rope_theta=cfg.rope_theta, causal=True,
         window=window, attn_softcap=cfg.attn_softcap, mrope=cfg.mrope,
         cache=cache, cache_index=index, backend=backend,
-        attn_backend=attn_backend)
+        attn_backend=attn_backend, head_shards=cfg.head_shards)
     if cfg.use_post_norms:
         out = rms_norm(out, lp["ln_attn_post"])
     return h + out, new_cache
@@ -322,7 +324,7 @@ def _embed_inputs(mp, cfg: ModelConfig, tokens, vision_embeds, positions,
     """Token embeddings, a vlm prompt's projected vision prefix in front,
     and the default positions: 0.. over the whole sequence, three equal
     streams under M-RoPE."""
-    h = mp["embed"][tokens.long()]
+    h = _embed_lookup(mp["embed"], tokens)
     if cfg.family == "vlm" and vision_embeds is not None:
         v = qmatmul(vision_embeds, mp["vision_proj"], backend)
         h = torch.cat([v.to(h.dtype), h], dim=1)
@@ -356,9 +358,42 @@ def forward_aux(params, cfg: ModelConfig, tokens, *, vision_embeds=None,
         h, aux, cache = _walk_dense(mp, cfg, h, positions, cache, index,
                                     backend, attn_backend)
     h = rms_norm(h, mp["final_norm"])
-    head = mp["lm_head"] if "lm_head" in mp else mp["embed"].T
-    logits = qmatmul(h, head, backend).to(torch.float32)
+    head = mp.get("lm_head", mp["embed"])
+    if isinstance(head, ShardedTensor):
+        logits = _vocab_logits(h, head, backend)
+    else:
+        head = mp["lm_head"] if "lm_head" in mp else mp["embed"].T
+        logits = qmatmul(h, head, backend).to(torch.float32)
     return softcap(logits, cfg.logit_softcap), aux, cache
+
+
+def _embed_lookup(embed, tokens: torch.Tensor) -> torch.Tensor:
+    """Token embeddings.  Under a mesh the table's vocab rows lie on
+    ``model``: each rank looks up the tokens its rows hold (zero for the
+    rest) and the all-reduce over ``model`` sums the one nonzero row a
+    token has."""
+    if not isinstance(embed, ShardedTensor):
+        return embed[tokens.long()]
+    table = gather_payload(embed)["t"]
+    start, stop = embed.shard.window
+    idx = tokens.long() - start
+    valid = (idx >= 0) & (idx < stop - start)
+    h = table[idx.clamp(0, stop - start - 1)] * valid[..., None].to(
+        table.dtype)
+    return all_reduce(h)
+
+
+def _vocab_logits(h: torch.Tensor, head: ShardedTensor,
+                  backend: str) -> torch.Tensor:
+    """f32 logits through a vocab-sharded LM head (the tied embedding's
+    rows, or an unquantized head's columns): each rank's vocab slice,
+    gathered over ``model`` and cut back to the true vocab, so a padding
+    row's logit never reaches the argmax."""
+    table = gather_payload(head)["t"]
+    w = table.T if head.shard.kind == "row" else table
+    local = qmatmul(h, w, backend).to(torch.float32)
+    vocab = head.shape[-2] if head.shard.kind == "row" else head.shape[-1]
+    return torch.cat(all_gather(local, "model"), dim=-1)[..., :vocab]
 
 
 def forward(params, cfg: ModelConfig, tokens, **kw):

@@ -107,6 +107,21 @@ class BitplaneServingWeight:
                                    scale=self.scale.to(device))
 
 
+@dataclasses.dataclass
+class ShardedServingWeight(ServingWeight):
+    """A rank's shard of a packed leaf under a mesh: ``w_int`` holds its
+    window, ``scale`` stays whole, ``shard`` (a ``dist.parallel.
+    LocalShard``) says where the window lies."""
+    shard: Any = None
+
+
+@dataclasses.dataclass
+class ShardedBitplaneServingWeight(BitplaneServingWeight):
+    """A rank's shard of a bit-plane leaf under a mesh: ``planes`` and
+    ``sign`` hold its window, ``mask`` and ``scale`` stay whole."""
+    shard: Any = None
+
+
 def _integer_grid(w, scale, bitwidth, spec, n_bits, bits):
     """Quantization math of the serving layouts.
 

@@ -36,32 +36,79 @@ Two call surfaces, as in the reference:
   the paged block-table cache, chunked prompt insertion, reservation
   overcommit with park/restore preemption, and prompt-page sharing.
 
-Not ported yet: mesh placement (the contracts are in
-``analysis/contracts.py``).
+**Under a mesh.**  An engine built while a process mesh is active
+(``dist.sharding.use_mesh`` of a ``launch.mesh.make_mesh`` mesh, the
+same program on every rank) places its params by
+``dist.sharding.param_pspecs`` with padded placement: each rank keeps the
+local shard of every deployed leaf (``ServingWeight.w_int``,
+``BitplaneServingWeight.planes`` / ``sign``; ``scale`` / ``mask`` stay
+whole) and of the vocab-sharded embedding, with big leaves' free dims
+split over ``data`` (FSDP); every other leaf stays whole.  Its config
+counts each rank's heads (``head_shards`` the model axis), the KV cache
+holds them, and every entry point runs under the mesh: each sharded
+leaf's product runs on its shard with the collectives of
+``dist.parallel``.  Batches split their rows over ``data`` when the
+data axis divides them (``batch_pspecs``), and so does a contiguous decode
+state (``cache_pspecs``); the logits the host reads are gathered back, so
+every rank sees the same tokens.  A paged pool is held whole on every data
+rank (a placement that differs from ``cache_pspecs``, which puts its pages
+on ``data``): prompts are inserted on every rank, a decode step writes its
+own rows' tokens, and parking takes a slot's pages from the rank that
+decodes it.  The dense and MoE families serve under a mesh; the others,
+and speculative decoding, raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 import warnings
 from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
 
-from ..models.api import ModelAPI
+from ..configs.base import PlacedConfig
+from ..dist import parallel as par
+from ..dist.sharding import (get_mesh, padded_shape, param_pspecs,
+                             spec_leaves, use_mesh)
+from ..models.api import ModelAPI, _write_tree, cache_is_paged
 from ..models.attention import PAGED_ATTN_BACKENDS
 from ..models.common import MATMUL_BACKENDS, prepare_params
 from ..models.transformer import _cdtype
 from ..core.device import resolve_device
 from .autotune.speculative import greedy_verify, make_draft_params
 from .deploy import (BitplaneServingWeight, ServingWeight, tree_leaves,
-                     tree_to)
+                     tree_map, tree_to)
 from .sampling import SamplingParams, sample_token
 
 
 def _roundup64(n: int) -> int:
     # decode headroom rounded up, so cache widths match the reference's
     return -(-n // 64) * 64
+
+
+def _first_rows(cache) -> int:
+    """The slots of a stacked cache tree: a paged sub-dict's block-table
+    rows, else a leaf's batch rows (dim 1)."""
+    if isinstance(cache, dict):
+        if "table" in cache:
+            return int(cache["table"].shape[1])
+        return _first_rows(next(iter(cache.values())))
+    return int(cache.shape[1])
+
+
+def _narrow_rows(cache, row: int):
+    """Views of row ``row`` (dim 1) of every leaf of a contiguous cache."""
+    if isinstance(cache, dict):
+        return {k: _narrow_rows(v, row) for k, v in cache.items()}
+    return cache[:, row:row + 1]
+
+
+def _zero_row(cache):
+    """A zero one-row cache shaped as a row of ``cache``."""
+    if isinstance(cache, dict):
+        return {k: _zero_row(v) for k, v in cache.items()}
+    return torch.zeros_like(cache[:, :1])
 
 
 @dataclasses.dataclass
@@ -132,12 +179,21 @@ class ServeEngine:
                     + "\n".join(f.format() for f in bad[:8]))
         self.params = prepare_params(tree_to(self.params, self.device),
                                      _cdtype(cfg))
+        self.mesh = get_mesh()
+        self.global_params = None
+        self.global_api = self.api     # the unsharded config's API
+        if self.mesh is not None and math.prod(self.mesh.shape.values()) > 1:
+            self._place_params()
         self.draft_params = None
         # one entry per speculative round of the last speculative_generate:
         # gamma (drafts, or 0 for a plain decode step), drafted,
         # accepted_drafts and emitted token counts over the batch
         self.round_log: List[Dict[str, int]] = []
         if self.speculate_planes:
+            if self.global_params is not None:
+                raise NotImplementedError(
+                    "speculative decoding under a mesh is not ported "
+                    "(ROADMAP item 6, distribution)")
             if cfg.is_encdec or cfg.family in ("ssm", "hybrid", "rwkv"):
                 raise ValueError(
                     f"speculate_planes needs a purely positional KV cache "
@@ -154,38 +210,226 @@ class ServeEngine:
     def _be(self) -> Dict[str, str]:
         return {"backend": self.backend, "attn_backend": self.attn_backend}
 
-    def _inputs(self, batch: Dict[str, Any]) -> Dict[str, torch.Tensor]:
-        return {k: torch.as_tensor(v).to(self.device)
-                for k, v in batch.items()}
+    def _inputs(self, batch: Dict[str, Any], rows=None
+                ) -> Dict[str, torch.Tensor]:
+        out = {k: torch.as_tensor(v).to(self.device)
+               for k, v in batch.items()}
+        if rows is not None and rows[0]:
+            out = {k: v[rows[1]:rows[2]] for k, v in out.items()}
+        return out
+
+    # ---- mesh placement ---------------------------------------------------
+    def _place_params(self) -> None:
+        """Padded placement under ``self.mesh``: specs fitted with padding,
+        each deployed leaf cut to this rank's shard, the vocab-sharded
+        embedding (or unquantized LM head) to its rows (columns); the
+        config's head counts become this rank's.  ``global_params`` keeps
+        the padded global shapes (``meta`` tensors) for the sharding
+        lint."""
+        cfg = self.api.cfg
+        mesh = self.mesh
+        if not isinstance(mesh, par.Mesh):
+            raise TypeError(
+                f"a ServeEngine places its params on a process mesh "
+                f"(launch.mesh.make_mesh), got {mesh!r}; lint a shape-only "
+                f"mesh through analysis.lint_engine(engine, mesh=...)")
+        if set(mesh.shape) - {"data", "model"}:
+            raise NotImplementedError(
+                f"serving under mesh axes {tuple(mesh.shape)} is not "
+                f"ported; the port serves on ('data', 'model') meshes "
+                f"(ROADMAP item 6, distribution)")
+        if cfg.family not in ("dense", "moe") or cfg.is_encdec:
+            raise NotImplementedError(
+                f"serving family {cfg.family!r} under a mesh is not ported "
+                f"(ROADMAP item 6, distribution); the dense and MoE "
+                f"families serve under a mesh")
+        m = mesh.axis_size("model")
+        if cfg.n_heads % m or cfg.n_kv_heads % m:
+            raise NotImplementedError(
+                f"{cfg.n_heads} heads / {cfg.n_kv_heads} KV heads do not "
+                f"divide the model axis ({m}); the port shards heads "
+                f"evenly")
+        with use_mesh(mesh):
+            specs = dict(spec_leaves(param_pspecs(self.params, pad=True)))
+
+        def meta(path, t):
+            return torch.empty(padded_shape(specs[path], t.shape, mesh),
+                               dtype=t.dtype, device="meta")
+        from ..dist.sharding import map_with_path
+        self.global_params = map_with_path(meta, self.params)
+
+        def walk(node, path):
+            if isinstance(node, dict):
+                return {k: walk(v, f"{path}[{k!r}]") for k, v in node.items()}
+            if isinstance(node, (ServingWeight, BitplaneServingWeight)):
+                fields = {f: specs[f"{path}.{f}"]
+                          for f in ("w_int", "planes", "sign")
+                          if hasattr(node, f)}
+                return par.deployed_shard(node, fields, mesh)
+            if isinstance(node, torch.Tensor) and node.ndim == 2 and \
+                    path in ("['embed']", "['lm_head']"):
+                kind = "row" if path == "['embed']" else "col"
+                return par.tensor_shard(node, specs[path], mesh, kind)
+            return node
+        self.params = walk(self.params, "")
+        if m > 1:
+            fields = {f.name: getattr(cfg, f.name)
+                      for f in dataclasses.fields(cfg)}
+            self.api = ModelAPI(PlacedConfig(**dict(
+                fields, n_heads=cfg.n_heads // m,
+                n_kv_heads=cfg.n_kv_heads // m, d_head=cfg.head_dim,
+                head_shards=m)))
+
+    def whole_params(self) -> Any:
+        """The deployed tree with every sharded leaf made whole again (its
+        shards gathered over the mesh: every rank calls it); the params
+        themselves without a mesh.  What the contracts check."""
+        if self.global_params is None:
+            return self.params
+        with use_mesh(self.mesh):
+            return tree_map(lambda x: par.unshard(x)
+                            if getattr(x, "shard", None) is not None
+                            and not isinstance(x, par.ShardedTensor)
+                            else x, self.params)
+
+    def _run(self, fn, *args, **kwargs):
+        """``fn`` under the engine's mesh (a plain call without one)."""
+        if self.mesh is None:
+            return fn(*args, **kwargs)
+        with use_mesh(self.mesh):
+            return fn(*args, **kwargs)
+
+    def _rows(self, n: int):
+        """(sharded, r0, r1): this rank's rows of an ``n``-row batch, split
+        over ``data`` when the axis divides ``n`` (``batch_pspecs``'s
+        rule), else every row."""
+        d = self.mesh.axis_size("data") if self.global_params is not None \
+            else 1
+        if d > 1 and n % d == 0:
+            c = n // d
+            q = self.mesh.coord("data")
+            return True, q * c, (q + 1) * c
+        return False, 0, n
+
+    def local_slots(self, n_slots: int) -> int:
+        """The contiguous decode-state rows this rank holds of
+        ``n_slots``."""
+        _, r0, r1 = self._rows(n_slots)
+        return r1 - r0
+
+    def _row_view(self, state: Any, rows) -> Any:
+        """The state as a step over this rank's rows sees it: paged block
+        tables narrowed to the rows (the pool is whole), contiguous rows
+        already local."""
+        if not rows[0]:
+            return state
+
+        def walk(cache):
+            if isinstance(cache, dict):
+                if "table" in cache:
+                    return dict(cache, table=cache["table"][
+                        :, rows[1]:rows[2]])
+                return {k: walk(v) for k, v in cache.items()}
+            return cache
+        return dict(state, cache=walk(state["cache"]))
 
     # ---- core ops ---------------------------------------------------------
     def prefill(self, batch: Dict[str, Any], extra_slots: int = 0) -> tuple:
         """Whole-prompt forward; returns (last-token logits, decode
-        state)."""
-        return self.api.prefill(self.params, self._inputs(batch),
-                                extra_slots=extra_slots, **self._be)
+        state).  Under a mesh the state holds this rank's rows."""
+        rows = self._rows(int(np.shape(batch["tokens"])[0]))
+        logits, state = self._run(self.api.prefill, self.params,
+                                  self._inputs(batch, rows),
+                                  extra_slots=extra_slots, **self._be)
+        return self._gather(logits, rows), state
+
+    def _gather(self, logits: torch.Tensor, rows) -> torch.Tensor:
+        """Every row's logits on every rank (``rows[0]``: the rows were
+        split over ``data``)."""
+        if not rows[0]:
+            return logits
+        with use_mesh(self.mesh):
+            return par.gather_rows(logits)
+
+    def _owner(self, state: Any, slot: int):
+        """(holds, local row) of a contiguous state's ``slot`` on this
+        rank."""
+        n = self._state_slots(state)
+        sharded, r0, r1 = self._rows(n)
+        if not sharded:
+            return True, slot
+        return r0 <= slot < r1, slot - r0
+
+    def _state_slots(self, state: Any) -> int:
+        """The global slot count of a decode state."""
+        return state.get("_n_slots", 0) or _first_rows(state["cache"])
 
     def prefill_at(self, batch: Dict[str, Any], state: Any,
                    slot: int) -> tuple:
-        """Insert a prompt into batch row ``slot`` of a live decode state."""
-        return self.api.prefill_at(self.params, self._inputs(batch), state,
-                                   slot, **self._be)
+        """Insert a prompt into batch row ``slot`` of a live decode state.
+        Under a mesh every rank runs the prompt; a contiguous row is
+        written by the rank holding it."""
+        inputs = self._inputs(batch)
+        if self.mesh is None or cache_is_paged(state["cache"]) or \
+                not self._rows(self._state_slots(state))[0]:
+            return self._run(self.api.prefill_at, self.params, inputs,
+                             state, slot, **self._be)
+        logits, sub = self._run(self.api.prefill, self.params, inputs,
+                                extra_slots=0, **self._be)
+        holds, local = self._owner(state, slot)
+        if holds:
+            _write_tree(state["cache"], sub["cache"], local)
+        return logits, state
 
     def prefill_chunk_at(self, batch: Dict[str, Any], state: Any, slot: int,
                          start: int) -> tuple:
         """Insert a prompt chunk at cache position ``start`` of row
-        ``slot``; returns (full (1, W, V) chunk logits, state)."""
-        return self.api.prefill_chunk_at(self.params, self._inputs(batch),
-                                         state, slot, start, **self._be)
+        ``slot``; returns (full (1, W, V) chunk logits, state).  Under a
+        mesh every rank runs the chunk (a rank that does not hold a
+        contiguous row runs it on a scratch row)."""
+        inputs = self._inputs(batch)
+        if self.mesh is None or cache_is_paged(state["cache"]) or \
+                not self._rows(self._state_slots(state))[0]:
+            return self._run(self.api.prefill_chunk_at, self.params, inputs,
+                             state, slot, start, **self._be)
+        holds, local = self._owner(state, slot)
+        if holds:
+            view = dict(state, cache=_narrow_rows(state["cache"], local))
+            logits, _ = self._run(self.api.prefill_chunk_at, self.params,
+                                  inputs, view, 0, start, **self._be)
+        else:
+            scratch = {"cache": _zero_row(state["cache"])}
+            logits, _ = self._run(self.api.prefill_chunk_at, self.params,
+                                  inputs, scratch, 0, start, **self._be)
+        return logits, state
 
     def init_decode_state(self, example: Dict[str, Any], n_slots: int,
                           max_len: int, page_size: int = 0,
                           n_pages: Optional[int] = None) -> Any:
-        """Empty (zeroed) decode state, paged when ``page_size > 0``."""
-        return self.api.init_decode_state(self.params, self._inputs(example),
-                                          n_slots, max_len,
-                                          page_size=page_size,
-                                          n_pages=n_pages)
+        """Empty (zeroed) decode state, paged when ``page_size > 0``.
+        Under a mesh it holds this rank's heads, and a contiguous state
+        this rank's rows; a paged pool is whole."""
+        rows = n_slots if page_size > 0 else self.local_slots(n_slots)
+        state = self.api.init_decode_state(self.params, self._inputs(example),
+                                           rows, max_len,
+                                           page_size=page_size,
+                                           n_pages=n_pages)
+        if rows != n_slots:
+            state["_n_slots"] = n_slots
+        return state
+
+    def tile_state(self, sub: Any, n_slots: int) -> Any:
+        """A one-row prefill state tiled to ``n_slots`` rows as separate
+        storage (the scheduler's lazy fixed-width state); under a mesh to
+        this rank's rows."""
+        from .scheduler import _tile_rows
+        local = self.local_slots(n_slots)
+        state = dict(sub, cache=_tile_rows(sub["cache"], local))
+        if "enc_out" in sub:
+            state["enc_out"] = sub["enc_out"].repeat(n_slots, 1, 1)
+        if local != n_slots:
+            state["_n_slots"] = n_slots
+        return state
 
     def set_tables(self, state: Any, tables) -> Any:
         """Copy host-side block tables ((n_slots, nb) int32) into every
@@ -205,9 +449,18 @@ class ServeEngine:
 
     def decode(self, tokens: torch.Tensor, state: Any, index) -> tuple:
         """One decode step; ``index`` is the shared fill level (int or 0-d)
-        or a per-slot (B,) vector."""
-        return self.api.decode_step(self.params, tokens.to(self.device),
-                                    state, index, **self._be)
+        or a per-slot (B,) vector.  Under a mesh a rank steps its rows and
+        the logits of every row come back."""
+        if self.mesh is None:
+            return self.api.decode_step(self.params, tokens.to(self.device),
+                                        state, index, **self._be)
+        rows = self._rows(int(tokens.shape[0]))
+        tok = tokens.to(self.device)[rows[1]:rows[2]]
+        if not isinstance(index, int) and torch.as_tensor(index).ndim == 1:
+            index = torch.as_tensor(index)[rows[1]:rows[2]]
+        logits, _ = self._run(self.api.decode_step, self.params, tok,
+                              self._row_view(state, rows), index, **self._be)
+        return self._gather(logits, rows), state
 
     def draft_decode(self, tokens: torch.Tensor, state: Any, index) -> tuple:
         """One decode step with the truncated-mask draft tree.  Its K/V
@@ -246,18 +499,31 @@ class ServeEngine:
         ids = torch.as_tensor(np.asarray(pages, np.int64))
         rec: Dict[str, Any] = {"pages": {}, "rows": {}, "enc_out": None,
                                "n_pages": len(ids)}
+        # under a mesh whose data axis splits the slots, only the rank
+        # stepping ``slot`` holds its decoded tokens: every rank takes them
+        # from that rank
+        src = self._slot_rank(state, slot)
+        holds, row = self._owner(state, slot) if src is not None \
+            else (True, slot)
+
+        def take(t):
+            if src is not None:
+                with use_mesh(self.mesh):
+                    t = par.broadcast(t.contiguous(), "data", src)
+            return t.to("cpu", copy=True)
 
         def walk(cache, path):
             if isinstance(cache, dict):
                 if "table" in cache:
                     for name, leaf in cache["pages"].items():
-                        rec["pages"][f"{path}.{name}"] = leaf[
-                            :, ids.to(leaf.device)].to("cpu", copy=True)
+                        rec["pages"][f"{path}.{name}"] = take(
+                            leaf[:, ids.to(leaf.device)])
                     return
                 for k, v in cache.items():
                     walk(v, f"{path}.{k}")
                 return
-            rec["rows"][path] = cache[:, slot].to("cpu", copy=True)
+            rec["rows"][path] = take(cache[:, row] if holds
+                                     else torch.zeros_like(cache[:, 0]))
 
         walk(state["cache"], "cache")
         if "enc_out" in state:
@@ -287,13 +553,25 @@ class ServeEngine:
                 for k, v in cache.items():
                     walk(v, f"{path}.{k}")
                 return
-            cache[:, slot] = record["rows"][path].to(cache.device)
+            if holds:
+                cache[:, row] = record["rows"][path].to(cache.device)
 
+        src = self._slot_rank(state, slot)
+        holds, row = self._owner(state, slot) if src is not None \
+            else (True, slot)
         walk(state["cache"], "cache")
         if record.get("enc_out") is not None and "enc_out" in state:
             state["enc_out"][slot] = record["enc_out"].to(
                 state["enc_out"].device)
         return state
+
+    def _slot_rank(self, state: Any, slot: int) -> Optional[int]:
+        """The data coord of the rank stepping ``slot`` when the data axis
+        splits the slots (None otherwise)."""
+        if self.mesh is None:
+            return None
+        sharded, r0, r1 = self._rows(self._state_slots(state))
+        return slot // (r1 - r0) if sharded else None
 
     def copy_pool_page(self, state: Any, src: int, dst: int) -> Any:
         """Copy pool page ``src`` onto ``dst`` in every paged KV sub-dict

@@ -609,11 +609,7 @@ class Scheduler:
             # width, then tile its rows (and encoder rows) across all slots
             extra = self.max_len - pw
             logits, sub = self.engine.prefill(inputs, extra_slots=extra)
-            self.state = dict(sub, cache=_tile_rows(sub["cache"],
-                                                    self.n_slots))
-            if "enc_out" in sub:
-                self.state["enc_out"] = sub["enc_out"].repeat(
-                    self.n_slots, 1, 1)
+            self.state = self.engine.tile_state(sub, self.n_slots)
         else:
             logits, self.state = self.engine.prefill_at(inputs, self.state,
                                                         i)

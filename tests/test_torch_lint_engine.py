@@ -11,7 +11,7 @@ path) set over the reference's own matrix (tests/test_analysis.py):
 phi3, granite-moe and seamless x {``kernel`` / packed, ``bitplane`` /
 bitplane} x {int8, int4}; and on a corrupted bit-plane mask (BP2, FAIL)
 and a packed tree under ``bitplane`` (the fallback is an error here, a
-warning in the graph pass).  A mesh raises.  The other families and
+warning in the graph pass).  A mesh lints.  The other families and
 the launchers are in tests/test_torch_lint.py.
 """
 import dataclasses
@@ -103,10 +103,16 @@ def test_fallback_is_error_in_lint_engine(trees):
 
 
 def test_mesh_raises(trees):
+    """A mesh lints (the sharding pass, held finding for finding in
+    tests/test_torch_sharding_lint.py); only an object without a mesh's
+    axis sizes raises."""
+    from repro_torch.analysis import ShapeOnlyMesh
     _, tapi, (_, tp) = trees("phi3-mini-3.8b", 8, "packed")
     eng = ServeEngine(tapi, tp, backend="kernel", device="cpu")
-    with pytest.raises(NotImplementedError, match="item 6"):
+    with pytest.raises(AttributeError):
         lint_engine(eng, mesh=object(), **LINT)
-    with pytest.raises(NotImplementedError, match="item 6"):
-        tlaunch.main(["--arch", "phi3-mini-3.8b", "--device", "cpu",
-                      "--production-mesh"])
+    rep = lint_engine(eng, mesh=ShapeOnlyMesh({"data": 2, "model": 2}),
+                      **LINT)
+    assert rep.ok and any(f.pass_name == "sharding" for f in rep.findings)
+    assert tlaunch.main(["--arch", "phi3-mini-3.8b", "--device", "cpu",
+                         "--production-mesh"]) == 0

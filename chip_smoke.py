@@ -168,11 +168,12 @@ It builds the four CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
    f32 against one-shot reruns, every one identical.
 
 8. families phase — with the enc-dec trees freed, the last three model
-   families at full width and about half depth (``FAMILY_DEPTH``), one at
-   a time: qwen2-vl-2b (14 of 28 layers, M-RoPE, 256 random vision
-   embeds a prompt, 2 KV heads at G=6), rwkv6-1.6b (12 of 24 layers, no
-   KV cache) and zamba2-1.2b (20 of 38 Mamba-2 layers, one shared
-   attention + MLP block every 6, a 2-layer tail), random weights from seed
+   families at full width and about a quarter of their depth
+   (``FAMILY_DEPTH``), one at a time: qwen2-vl-2b (6 of 28 layers,
+   M-RoPE, 256 random vision embeds a prompt, 2 KV heads at G=6),
+   rwkv6-1.6b (6 of 24 layers, no KV cache) and zamba2-1.2b (8 of 38
+   Mamba-2 layers, one shared attention + MLP block every 6, a 2-layer
+   tail), random weights from seed
    0, deployed packed int8 and as mixed-width bit planes.  One-shot B=4 x
    128 tokens, 32 new, through the kernels against the plain versions:
    quantizers off in f32 (tokens identical, logits within
@@ -202,7 +203,9 @@ It builds the four CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
    images through the kernels (``packed_matmul``, ``bitplane_matmul``:
    M = B x H x W up to 131,072, K from 16 to 4,608, N from 16 to 512)
    against the plain versions: activations unquantized (logits within
-   ``EXACT_TOL_REL``, argmax equal) and with 8-bit PACT (within
+   ``EXACT_TOL_REL``, argmax equal on every image whose plain top-two
+   gap exceeds twice that limit; the near-tied images are counted) and
+   with 8-bit PACT (within
    ``CNN_QUANT_TOL_REL``, set between a host-CPU witness and planted
    faults, one corrupted block in each layout); launches counted (21
    weight matmuls a ResNet-20 forward, 13 a VGG-16); each call's first
@@ -286,13 +289,25 @@ It builds the four CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
    layers, packed int8, 16-token pages, fused attention: one shot in f32
    without quantizers (tokens identical to the single-process engine)
    and in bf16 with 8-bit activations and int8 KV (logits within
-   ``QUANT_TOL_REL``), the scheduler drive, a bit-plane deploy on
-   (1, 2); granite-moe cut to ``MESH_MOE_DEPTH`` = 2, expert parallel on
-   (1, 2), on the single run's routing.  Each rank's launches equal the
-   single process's; every launch's (M, K, N) is its shard's (N/2
-   column-parallel, K/2 row-parallel on (1, 2)), and the first at each
-   shape is held against the plain version on the same shard.  The
-   collectives gloo takes on the card's tensors are probed and timed.
+   ``QUANT_TOL_REL``), on (2, 1) shorter (``MESH_DP_NEW`` new tokens,
+   ``MESH_DP_DEPTH`` = 2 layers); the scheduler
+   drive (on (2, 1) its first ``MESH_DP_REQUESTS`` requests at half their
+   budgets); a bit-plane deploy's one shot and its speculative drive
+   (``MESH_SPEC``, draft and verify through ``bitplane_matmul`` on the
+   shards) on (1, 2); granite-moe cut to ``MESH_MOE_DEPTH`` = 2, expert
+   parallel on (1, 2), on the single run's routing; qwen2-vl (4 layers,
+   256 vision embeds a prompt), rwkv6 (4; also on (2, 1), its recurrent
+   rows split over data), zamba2 (8: one shared-block call and the tail;
+   its f32 one shot also paged on (2, 1)) and seamless (2 + 2, ``S_ENC``
+   frames), one shot on (1, 2) in both configs (``MESH_FAMILY_DEPTH``),
+   rwkv6's and zamba2's quantizer-free logits held to
+   ``MESH_F32_TOL_REL``, which a planted fault (zamba2's shared block
+   on whole heads) must fail.  Each rank's launches equal the single
+   process's (a speculative drive's, its rounds'); every launch's
+   (M, K, N) is its shard's (N/2 column-parallel, K/2 row-parallel on
+   (1, 2)), and the first at each shape is held against the plain
+   version on the same shard.  The collectives gloo takes on the card's
+   tensors are probed and timed.
 
 Output: a ``{"train": {...}}`` line with the train phase's figures and
 the card, a ``{"moe": {...}}`` line with the MoE phase's, an
@@ -3169,11 +3184,12 @@ def encdec_summary(res) -> dict:
 # (hybrid: 38 Mamba-2 layers and one shared attention + MLP block called
 # every 6).  Random weights from seed 0, bf16 unless a leg says f32.
 FAMILY_ARCHS = ("qwen2-vl-2b", "rwkv6-1.6b", "zamba2-1.2b")
-# layers each family serves in the families phase: about half the
-# registered depth (28, 24, 38), to make room for the train families
-# phase (at full depth the phase took 199 s of a 871.6 s smoke);
-# zamba2 keeps its 2-layer tail past the last shared call (20 = 3 x 6 + 2)
-FAMILY_DEPTH = {"qwen2-vl-2b": 14, "rwkv6-1.6b": 12, "zamba2-1.2b": 20}
+# layers each family serves in the families phase: about a quarter of
+# the registered depth (28, 24, 38), to keep the smoke within its time
+# (at full depth the phase took 199 s of a 871.6 s smoke, at 14 / 12 / 20
+# layers 92.8 s of 964.0); zamba2 keeps one shared-block call and its
+# 2-layer tail past it (8 = 6 + 2)
+FAMILY_DEPTH = {"qwen2-vl-2b": 6, "rwkv6-1.6b": 6, "zamba2-1.2b": 8}
 FAMILY_BP_NEW = 8               # the bit-plane leg's new tokens
 # one fault a family, every layer's leaf at once: its K rows read one WB
 # row (8 rows) off
@@ -3781,12 +3797,20 @@ def run_cifar(argv):
 
 def logits_compare(a, b):
     """``a`` against ``b`` (B, classes): the largest |difference| relative
-    to b's largest |logit|, and the share of rows whose argmax agrees."""
+    to b's largest |logit|, and the share of rows whose argmax agrees.
+    ``near_ties`` counts the rows of ``b`` whose top-two gap is at most
+    2 x ``EXACT_TOL_REL`` x b's largest |logit|, and ``near_tie_flips``
+    those whose argmax differs: an ``a`` within ``EXACT_TOL_REL`` of ``b``
+    cannot flip any other row's argmax."""
     import torch
     a, b = a.float().cpu(), b.float().cpu()
+    same = a.argmax(-1) == b.argmax(-1)
+    top2 = b.topk(2, dim=-1).values
+    decided = (top2[:, 0] - top2[:, 1]) > 2 * EXACT_TOL_REL * b.abs().max()
     return dict(err=float((a - b).abs().max() / b.abs().max()),
-                top1_agreement=float((a.argmax(-1) == b.argmax(-1))
-                                     .float().mean()),
+                top1_agreement=float(same.float().mean()),
+                near_ties=int((~decided).sum()),
+                near_tie_flips=int((~decided & ~same).sum()),
                 finite=bool(torch.isfinite(a).all()))
 
 
@@ -4183,7 +4207,12 @@ def cnn_phase(size=()):
 
 def check_cnn(res):
     """Each model's deployed forwards: finite; unquantized, within
-    ``EXACT_TOL_REL`` of the largest logit with every argmax equal;
+    ``EXACT_TOL_REL`` of the largest logit, which decides the argmax of
+    every image whose plain top-two gap exceeds twice that limit (the
+    phase's few training steps are not bit-reproducible on the card, and
+    a barely trained VGG has near-tied images whose argmax such
+    run-to-run noise may flip; :func:`logits_compare` counts them and
+    their flips, logged);
     8-bit PACT within ``CNN_QUANT_TOL_REL``; launches counted (in
     :func:`cnn_forward_legs`); every planted fault above
     ``CNN_QUANT_TOL_REL``; the simulator's BWQ-H and BSQ ahead of ISAAC."""
@@ -4193,8 +4222,10 @@ def check_cnn(res):
             c = leg["kernel_vs_plain"]
             assert c["finite"], tag
             if leg["act_bits"] >= 32:
-                assert c["err"] <= EXACT_TOL_REL and \
-                    c["top1_agreement"] == 1.0, (tag, c)
+                assert c["err"] <= EXACT_TOL_REL, (tag, c)
+                log(f"cnn {tag}: {c['near_ties']} near-tied images "
+                    f"(top-two gap <= 2 x EXACT_TOL_REL), "
+                    f"{c['near_tie_flips']} flipped")
             else:
                 assert c["err"] <= CNN_QUANT_TOL_REL, (tag, c)
         assert {(leg["deploy"], leg["act_bits"]) for leg in m["legs"]} == {
@@ -4231,6 +4262,10 @@ def cnn_summary(res) -> dict:
                 for leg in m["legs"] if "profile" in leg},
             "err": {f"{leg['deploy']}_act{leg['act_bits']}":
                     leg["kernel_vs_plain"]["err"] for leg in m["legs"]},
+            "near_ties_act32": {leg["deploy"]: (
+                leg["kernel_vs_plain"]["near_ties"],
+                leg["kernel_vs_plain"]["near_tie_flips"])
+                for leg in m["legs"] if leg["act_bits"] >= 32},
             "host_witness_err": m["host_witness_int8_act8"]["err"],
             "fault_err": {k: v["err"] for k, v in m["faults"].items()},
             "simulator": m["sim"]})
@@ -5597,6 +5632,28 @@ MESH_SCHED_SLOTS = 4
 # requests at half their budgets
 MESH_DP_NEW = 8
 MESH_DP_REQUESTS = 4
+# and phi3's (2, 1) legs run on a tree of their own, cut to these layers
+MESH_DP_DEPTH = 2
+# The other families under a mesh (full width, depth cut for time; one
+# shot, contiguous, each MESH_RUNS config): qwen2-vl 4 of 28 layers (256
+# vision embeds a prompt), rwkv6 4 of 24, zamba2 8 of 38 (one shared-block
+# call and the 2-layer tail), seamless 2 + 2 of 24 + 24 (S_ENC frames).
+# All run on (1, 2); rwkv6 also on (2, 1), its recurrent rows split over
+# data, and zamba2's f32 one shot also paged on (2, 1) (MESH_DP_NEW).
+MESH_FAMILY_DEPTH = {"qwen2-vl-2b": 4, "rwkv6-1.6b": 4, "zamba2-1.2b": 8,
+                     "seamless-m4t-large-v2": 2}
+MESH_FAMILY_NEW = 8
+# rwkv6's and zamba2's quantizer-free sharded logits against the single
+# process's, relative to the largest (and the top-two gap below which a
+# token may part): the only new rounding is the order of the all-reduce
+# sums, which read 9.41e-6 and 1.02e-5 (rwkv6 on (1, 2) and (2, 1)) and
+# 4.09e-6 (zamba2) on the H100; a planted fault (zamba2's shared block
+# on whole heads, ``shared_block_whole_heads``) must read above it (0.144
+# on the H100, scripts/mesh_probe.py)
+MESH_F32_TOL_REL = EXACT_TOL_REL
+MESH_DP_FAMILIES = ("rwkv6-1.6b",)
+# phi3's bit-plane speculative leg, f32 without quantizers, on (1, 2)
+MESH_SPEC = SPEC[1]
 MESH_TIMEOUT_S = 600
 # collectives probed on the ranks' tensors, and the payloads timed
 MESH_COLLECTIVES = ("all_reduce", "all_gather", "all_gather_into_tensor",
@@ -5759,10 +5816,12 @@ def mesh_dims(size):
     """The phase's sizes: the smoke's at full width; a rehearsal's at
     tiny width (``--tiny``)."""
     if size == ("--no-tiny",):
-        return dict(b=B, p=P, new=NEW, dp_new=MESH_DP_NEW, page=PAGE,
-                    chunk=SCHED_CHUNK, widths=MESH_SCHED_WIDTHS,
+        return dict(b=B, p=P, new=NEW, dp_new=MESH_DP_NEW,
+                    fam_new=MESH_FAMILY_NEW, page=PAGE, chunk=SCHED_CHUNK,
+                    frames=S_ENC, widths=MESH_SCHED_WIDTHS,
                     budgets=MESH_SCHED_BUDGETS)
-    return dict(b=4, p=16, new=4, dp_new=3, page=4, chunk=8,
+    return dict(b=4, p=16, new=4, dp_new=3, fam_new=4, page=4, chunk=8,
+                frames=8,
                 widths=tuple(max(2, w // 16) for w in MESH_SCHED_WIDTHS),
                 budgets=tuple(max(2, m // 8) for m in MESH_SCHED_BUDGETS))
 
@@ -5781,16 +5840,39 @@ def mesh_prompts(vocab, dev, dims):
     return tok, reqs
 
 
+def mesh_family_inputs(cfg, tok, dev, dims, seed=4):
+    """A family's one-shot prompt batch: ``tok``, and a vlm's (B,
+    vision_tokens, d_model) vision prefix or an enc-dec prompt's (B,
+    frames, d_model) frames, 0.1 x standard normal, seeded."""
+    import torch
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    out = {"tokens": tok}
+    if cfg.family == "vlm":
+        out["vision_embeds"] = (torch.randn(
+            (tok.shape[0], cfg.vision_tokens, cfg.d_model), generator=g)
+            * 0.1).to(dev)
+    if cfg.is_encdec:
+        out["frames"] = (torch.randn((tok.shape[0], dims["frames"],
+                                      cfg.d_model), generator=g)
+                         * 0.1).to(dev)
+    return out
+
+
 def mesh_rank(rank, port, work, dev, size):
     """One rank of the mesh phase.  Every rank builds the same seeded
     trees; rank 0 alone (the other waiting at a barrier) runs each leg on
-    the single-process engine, then both run it under each mesh of
-    ``MESH_SHAPES``, launches counted around the sharded drive alone and
-    every weight launch's (M, K, N) logged.  Legs: phi3 packed int8 one
-    shot (``MESH_RUNS``, 16-token pages, fused attention), the scheduler
-    drive (f32, quantizers off, paged and chunked), a bit-plane deploy's
-    one shot under (1, 2), and granite-moe's int8 one shot under (1, 2)
-    on the single-process run's routing."""
+    the single-process engine, then both run it under each of its meshes,
+    launches counted around the sharded drive alone and every weight
+    launch's (M, K, N) logged.  Legs, on (1, 2) unless named: phi3 packed
+    int8 one shot (``MESH_RUNS``, 16-token pages, fused attention; also
+    on (2, 1), shorter and at ``MESH_DP_DEPTH``), the scheduler drive
+    (f32, quantizers off, paged and chunked; also on (2, 1), shorter and
+    at ``MESH_DP_DEPTH``), a bit-plane deploy's one shot
+    and its speculative drive (``MESH_SPEC``), granite-moe's int8 one
+    shot on the single-process run's routing, and each other family's
+    int8 one shot in each ``MESH_RUNS`` config (``MESH_FAMILY_DEPTH``;
+    rwkv6 also on (2, 1); zamba2's f32 also paged on (2, 1), and with a
+    planted fault, :func:`shared_block_whole_heads`)."""
     import torch
     import torch.distributed as dist
     sys.path.insert(0, str(ROOT / "src"))
@@ -5816,9 +5898,17 @@ def mesh_rank(rank, port, work, dev, size):
         if dev == "cuda":
             torch.cuda.synchronize()
 
-    def drive(eng, kind, tok, reqs, kv, new):
-        if kind == "oneshot":
-            out = greedy(eng, tok, new, page=dims["page"])
+    def drive(eng, kind, inputs, reqs, new):
+        if kind == "spec":
+            out = spec_drive(eng, inputs["tokens"], new)
+            return {k: out[k] for k in ("tokens", "logits", "round_log",
+                                        "ms", "rounds", "acceptance")}
+        if kind != "scheduler":
+            out = greedy(eng, inputs["tokens"], new,
+                         page=dims["page"] if kind == "oneshot" else 0,
+                         frames=inputs.get("frames"),
+                         extra={k: v for k, v in inputs.items()
+                                if k == "vision_embeds"})
             return {"tokens": out["tokens"], "logits": out["logits"],
                     "prefill_ms": out["prefill_ms"],
                     "decode_ms_per_step": out["decode_ms_per_step"]}
@@ -5834,20 +5924,31 @@ def mesh_rank(rank, port, work, dev, size):
         return {"tokens": [res[i].tokens for i in range(len(reqs))],
                 "s": time.perf_counter() - t, "ticks": sched.tick}
 
-    def leg(label, cfg, tree, kind, shapes, kv, tok, reqs, route=False):
-        """``shapes``: (mesh shape, new tokens of a one-shot drive); the
-        single-process run takes the most."""
+    def leg(label, cfg, tree, kind, shapes, kv, inputs, reqs=None,
+            route=False, backend="kernel", spec=None, new=None, fault=None):
+        """``kind``: ``oneshot`` (paged), ``family`` (contiguous), ``spec``
+        (speculative, ``spec`` its (planes, gamma)) or ``scheduler``; the
+        single-process run and each of ``shapes`` take ``new`` tokens.
+        ``fault``: a context that plants a fault around the sharded drives
+        (:func:`check_mesh` requires them to fail)."""
         api = build(cfg)
-        row = {"label": label, "kind": kind, "kv": kv, "runs": {}}
+        new = new or dims["new"]
+        kw = dict(kv_quant_bits=kv, backend=backend, attn_backend="fused",
+                  device=dev)
+        if spec:
+            kw.update(speculate_planes=spec[0], draft_gamma=spec[1])
+        row = {"label": label, "kind": kind, "kv": kv,
+               "family": cfg.family, "arch": cfg.name,
+               "layers": cfg.n_layers, "runs": {},
+               "act_bits": cfg.quant.act_bits,
+               "fault": fault.__name__ if fault else None}
         trace_file = Path(work) / f"route_{label}.pt"
         if rank == 0:
-            eng = ServeEngine(api, tree, kv_quant_bits=kv, backend="kernel",
-                              attn_backend="fused", device=dev)
+            eng = ServeEngine(api, tree, **kw)
             tk.reset_launch_counts()
             ctx = RouteTrace() if route else contextlib.nullcontext()
             with ctx as tr:
-                out = drive(eng, kind, tok, reqs, kv,
-                            max(n for _, n in shapes))
+                out = drive(eng, kind, inputs, reqs, new)
             sync()
             out["launches"] = tk.launch_counts()
             if route:
@@ -5859,73 +5960,79 @@ def mesh_rank(rank, port, work, dev, size):
         if route:
             replay = RouteTrace()
             replay.calls = [{"idx": i} for i in torch.load(trace_file)]
-        for shape, new in shapes:
+        for shape in shapes:
             with use_mesh(meshes[shape]):
-                eng = ServeEngine(api, tree, kv_quant_bits=kv,
-                                  backend="kernel", attn_backend="fused",
-                                  device=dev)
+                eng = ServeEngine(api, tree, **kw)
             sync()
             tk.reset_launch_counts()
             ctx = RouteTrace(replay) if route else contextlib.nullcontext()
-            with ShapeLog() as sl, ctx:
-                out = drive(eng, kind, tok, reqs, kv, new)
+            with ShapeLog() as sl, ctx, (fault or contextlib.nullcontext)():
+                out = drive(eng, kind, inputs, reqs, new)
             sync()
             out["launches"] = tk.launch_counts()
             out["shapes"], out["matmul_errs"] = sl.shapes, sl.errs
+            # what every rank's launches are held to (check_mesh): a
+            # speculative drive's from its own rounds (the same on every
+            # rank: each reads the same gathered logits), else the single
+            # process's
+            if kind == "spec":
+                out["launches_want"] = spec_expected(cfg.n_layers)(out)
+            elif rank == 0:
+                out["launches_want"] = row["single"]["launches"]
+            if rank == 0 and kind != "scheduler":
+                out["vs_single"] = compare(out, row["single"])
+            if rank == 0:
+                out["tokens_equal"] = (
+                    bool((out["tokens"] == row["single"]["tokens"]).all())
+                    if kind != "scheduler"
+                    else out["tokens"] == row["single"]["tokens"])
             row["runs"][f"{shape[0]}x{shape[1]}"] = out
             del eng
             dist.barrier()
-        if rank == 0:
-            for key, out in row["runs"].items():
-                one = row["single"]
-                if kind == "oneshot":
-                    n = out["tokens"].shape[1]
-                    out["vs_single"] = compare(out, one)
-                    out["tokens_equal"] = bool(
-                        (out["tokens"] == one["tokens"][:, :n]).all())
-                    # a shorter drive: the single run's counts for its
-                    # own forwards and steps
-                    want = expected_launches(
-                        cfg.n_layers, dims["b"] + n - 1, n - 1,
-                        matmul="bitplane_matmul" if "bitplane" in label
-                        else "packed_matmul",
-                        per_layer=layer_matmuls(cfg))
-                    if n == one["tokens"].shape[1]:
-                        want = one["launches"]
-                else:
-                    out["tokens_equal"] = out["tokens"] == one["tokens"]
-                    want = one["launches"]
-                # what every rank's launches are held to (check_mesh)
-                out["launches_want"] = want
         for out in [row.get("single", {})] + list(row["runs"].values()):
-            for k in ("tokens", "logits"):
-                if isinstance(out.get(k), torch.Tensor):
-                    out[k] = out[k].tolist() if k == "tokens" else None
+            out.pop("logits", None)
+            out.pop("round_log", None)
+            if isinstance(out.get("tokens"), torch.Tensor):
+                out["tokens"] = out["tokens"].tolist()
         rec["legs"].append(row)
         (Path(work) / f"rank{rank}.json").write_text(json.dumps(rec))
         if dev == "cuda":
             torch.cuda.empty_cache()
 
-    # phi3, packed int8, one shot in each MESH_RUNS config; the scheduler
-    tp, dp = ((1, 2), dims["new"]), ((2, 1), dims["dp_new"])
+    # phi3, packed int8, one shot in each MESH_RUNS config (on (2, 1)
+    # shorter: the pool held whole on each data rank, its block tables
+    # narrowed to the rank's rows); the scheduler (on (2, 1) its first
+    # requests at half their budgets); bit planes, plain and speculative
+    tp, dp = ((1, 2),), ((2, 1),)
     for label, act, dtype, kv in MESH_RUNS:
         cfg = served_config(ARCH, act, dtype, size, n_layers=MESH_DEPTH)
         qat = build(cfg).init(seed=0, device=dev)
         dep = to_serving_params(qat, 8, device=dev)
         tok, reqs = mesh_prompts(cfg.vocab, dev, dims)
-        leg(f"phi3_int8_{label}", cfg, dep, "oneshot", (tp, dp), kv, tok,
-            reqs)
+        leg(f"phi3_int8_{label}", cfg, dep, "oneshot", tp, kv,
+            {"tokens": tok})
+        cfg_dp = served_config(ARCH, act, dtype, size,
+                               n_layers=MESH_DP_DEPTH)
+        dep_dp = to_serving_params(build(cfg_dp).init(seed=0, device=dev),
+                                   8, device=dev)
+        leg(f"phi3_int8_{label}_dp", cfg_dp, dep_dp, "oneshot", dp, kv,
+            {"tokens": tok}, new=dims["dp_new"])
         if act == 32:
-            leg("phi3_int8_scheduler_f32", cfg, dep, "scheduler", (tp,),
-                kv, tok, reqs)
             short = [dataclasses.replace(r, sampling=dataclasses.replace(
                 r.sampling, max_new_tokens=r.sampling.max_new_tokens // 2))
                 for r in reqs[:MESH_DP_REQUESTS]]
-            leg("phi3_int8_scheduler_f32_short", cfg, dep, "scheduler",
-                (dp,), kv, tok, short)
+            leg("phi3_int8_scheduler_f32_short", cfg_dp, dep_dp,
+                "scheduler", dp, kv, {"tokens": tok}, short)
+        del dep_dp
+        if act == 32:
+            leg("phi3_int8_scheduler_f32", cfg, dep, "scheduler", tp, kv,
+                {"tokens": tok}, reqs)
             bp = to_serving_params(qat, 8, layout="bitplane", device=dev)
-            leg("phi3_bitplane_f32", cfg, bp, "oneshot", (tp,), kv, tok,
-                reqs)
+            leg("phi3_bitplane_f32", cfg, bp, "oneshot", tp, kv,
+                {"tokens": tok})
+            leg(f"phi3_bitplane_spec{MESH_SPEC[0]}x{MESH_SPEC[1]}_f32",
+                cfg, bp, "spec", tp, kv, {"tokens": tok},
+                backend="bitplane", spec=MESH_SPEC)
             del bp
         del qat, dep
     # granite-moe, int8, expert parallel over 2 model ranks
@@ -5934,11 +6041,51 @@ def mesh_rank(rank, port, work, dev, size):
     dep = to_serving_params(build(cfg).init(seed=0, device=dev), 8,
                             device=dev)
     tok, reqs = mesh_prompts(cfg.vocab, dev, dims)
-    leg("granite_int8_f32", cfg, dep, "oneshot", (((1, 2), dims["new"]),),
-        32, tok, reqs, route=True)
+    leg("granite_int8_f32", cfg, dep, "oneshot", tp, 32, {"tokens": tok},
+        route=True)
+    del dep
+    # the other families, int8, contiguous, each MESH_RUNS config
+    for arch, depth in MESH_FAMILY_DEPTH.items():
+        shapes = tp + (((2, 1),) if arch in MESH_DP_FAMILIES else ())
+        for label, act, dtype, kv in MESH_RUNS:
+            cfg = served_config(arch, act, dtype, size, n_layers=depth,
+                                enc_layers=depth if "seamless" in arch
+                                else 0)
+            dep = to_serving_params(build(cfg).init(seed=0, device=dev), 8,
+                                    device=dev)
+            tok, _ = mesh_prompts(cfg.vocab, dev, dims)
+            inputs = mesh_family_inputs(cfg, tok, dev, dims)
+            leg(f"{arch.split('-')[0]}_int8_{label}", cfg, dep, "family",
+                shapes, kv if cfg.family != "ssm" else 32, inputs,
+                new=dims["fam_new"])
+            if cfg.family == "hybrid" and act == 32:
+                # paged on (2, 1): the pool whole on each data rank beside
+                # the rank's recurrent rows
+                leg("zamba2_int8_f32_paged_dp", cfg, dep, "oneshot", dp,
+                    kv, inputs, new=dims["dp_new"])
+                leg("zamba2_int8_f32_fault", cfg, dep, "family", tp, kv,
+                    inputs, new=dims["fam_new"],
+                    fault=shared_block_whole_heads)
+            del dep
     dist.barrier()
     dist.destroy_process_group()
     return 0
+
+
+@contextlib.contextmanager
+def shared_block_whole_heads():
+    """A planted sharding fault: zamba2's shared attention block reads its
+    projections as if unsharded (``head_shards`` 1), so every model rank
+    computes rank 0's heads and the row-parallel output sums the wrong
+    heads."""
+    from repro_torch.models import transformer
+    orig = transformer.attn_forward
+    transformer.attn_forward = lambda *a, **k: orig(
+        *a, **dict(k, head_shards=1))
+    try:
+        yield
+    finally:
+        transformer.attn_forward = orig
 
 
 def mesh_host_rehearsal():
@@ -5959,39 +6106,59 @@ def mesh_host_rehearsal():
         setattr(mod, f"{fn.__name__}_ref", counted_ref)
 
 
+def mesh_verdict(row, out, out0, one):
+    """Why a sharded run's tokens or logits fail against the single
+    process's ``one`` (None where they pass; ``out0`` is rank 0's run,
+    which holds the logit comparison).  Quantizer-free: tokens identical,
+    but for rwkv6 and zamba2, held to ``MESH_F32_TOL_REL`` (logits within
+    it of the largest, a token parting only where the single process's
+    top-two gap is below it); with 8-bit activations, logits within
+    ``QUANT_TOL_REL`` while the prefixes agree."""
+    cmp = out0.get("vs_single")
+    if row["act_bits"] < 32:
+        tol = QUANT_TOL_REL[row["kv"] if row["kv"] < 32 else 8]
+        if not (cmp["finite"] and cmp["err"] <= tol):
+            return f"logits {cmp}"
+    elif row["family"] in ("ssm", "hybrid"):
+        tol = MESH_F32_TOL_REL
+        if not (cmp["finite"] and cmp["err"] <= tol and (
+                cmp["first_diff"] is None or
+                cmp["top2_gap_at_first_diff"] < tol * cmp["max_logit"])):
+            return f"logits {cmp}"
+    elif out["tokens"] != one["tokens"]:
+        return f"tokens differ from the single process's ({cmp})"
+    return None
+
+
 def check_mesh(res):
     """Every sharded leg on every rank against the single-process engine
-    (rank 0 runs it): launches equal; quantizer-free tokens identical;
-    with 8-bit activations rank 0's logits within QUANT_TOL_REL while the
-    prefixes agree, and every rank's tokens rank 0's (each reads the same
-    gathered logits); every launch's local shard shape logged, and the
-    kernel against its plain version on the shards."""
+    (rank 0 runs it): launches equal (a speculative drive's to its own
+    rounds); tokens and logits by :func:`mesh_verdict`, which a leg with
+    a planted fault must fail; every rank's tokens rank 0's (each reads
+    the same gathered logits); every launch's local shard shape logged,
+    and the kernel against its plain version on the shards."""
     r0 = res["ranks"][0]
     for rank in res["ranks"]:
+        assert [row["label"] for row in rank["legs"]] == \
+            [row["label"] for row in r0["legs"]], "ranks ran other legs"
         for row, row0 in zip(rank["legs"], r0["legs"]):
-            one = row0["single"]
             for key, out in row["runs"].items():
                 out0 = row0["runs"][key]
                 where = f"mesh rank {rank['rank']} {row['label']} {key}"
-                if out["launches"] != out0["launches_want"]:
+                want = out.get("launches_want", out0["launches_want"])
+                if out["launches"] != want:
                     raise AssertionError(f"{where}: launches "
-                                         f"{out['launches']} vs "
-                                         f"{out0['launches_want']}")
-                if row["label"].endswith("bf16_act8"):
-                    cmp = out0["vs_single"]
-                    if not (cmp["finite"] and
-                            cmp["err"] <= QUANT_TOL_REL[row["kv"]]):
-                        raise AssertionError(f"{where}: {cmp}")
-                    if out["tokens"] != out0["tokens"]:
-                        raise AssertionError(f"{where}: tokens differ from "
-                                             f"rank 0's")
-                else:
-                    want = one["tokens"] if row["kind"] != "oneshot" else [
-                        t[:len(out["tokens"][0])] for t in one["tokens"]]
-                    if out["tokens"] != want:
-                        raise AssertionError(
-                            f"{where}: tokens differ from the single "
-                            f"process's ({out0.get('vs_single')})")
+                                         f"{out['launches']} vs {want}")
+                why = mesh_verdict(row, out, out0, row0["single"])
+                if row["fault"] is None and why is not None:
+                    raise AssertionError(f"{where}: {why}")
+                if row["fault"] is not None and why is None:
+                    raise AssertionError(f"{where}: the planted fault "
+                                         f"{row['fault']} passed "
+                                         f"({out0.get('vs_single')})")
+                if out["tokens"] != out0["tokens"]:
+                    raise AssertionError(f"{where}: tokens differ from "
+                                         f"rank 0's")
                 if out["launches"]["packed_matmul"] + \
                         out["launches"]["bitplane_matmul"] != \
                         sum(out["shapes"].values()):
@@ -6005,20 +6172,22 @@ def check_mesh(res):
 
 
 def mesh_summary(res) -> dict:
-    """The mesh phase's figures: each leg's decode ms/step beside the
-    single-process engine's, the launches, the local shapes, the
-    collectives gloo took and their times, the phase's seconds."""
+    """The mesh phase's figures: each leg's decode ms/step (a speculative
+    drive's ms and acceptance) beside the single-process engine's, the
+    launches, the local shapes, the collectives gloo took and their
+    times, the phase's seconds."""
     r0 = res["ranks"][0]
+    keys = ("decode_ms_per_step", "prefill_ms", "s", "ms", "acceptance",
+            "launches")
     legs = {}
     for row in r0["legs"]:
         one = row["single"]
         legs[row["label"]] = {
-            "single": {k: one[k] for k in ("decode_ms_per_step",
-                                           "prefill_ms", "s", "launches")
-                       if k in one},
-            **{key: {k: out[k] for k in (
-                "decode_ms_per_step", "prefill_ms", "s", "launches",
-                "tokens_equal", "shapes") if k in out} | {
+            "layers": row["layers"],
+            **({"fault": row["fault"]} if row["fault"] else {}),
+            "single": {k: one[k] for k in keys if k in one},
+            **{key: {k: out[k] for k in keys + ("tokens_equal", "shapes")
+                     if k in out} | {
                 "matmul_err_max": max(out["matmul_errs"].values(),
                                       default=0.0)} | (
                 {"err": out["vs_single"]["err"]} if "vs_single" in out

@@ -5,13 +5,17 @@ repository root:
     python3 scripts/mesh_probe.py [tiny] [full]
 
 It builds the four CUDA kernels and runs ``chip_smoke.mesh_phase``: two
-gloo ranks on the one card serve phi3-mini-3.8b and granite-moe-3b-a800m
-under the meshes (1, 2) and (2, 1) against the single-process engine
-(``check_mesh``).  ``tiny`` runs it at the tiny configs (9x8 blocks,
-whose shards start inside a weight block), ``full`` at full width cut to
-``chip_smoke.MESH_DEPTH`` / ``MESH_MOE_DEPTH`` layers (both, in that
-order, by default).  The record goes to ``chiprun_out/mesh_probe.json``
-and the summary to stdout, with the card's name and power limit.
+gloo ranks on the one card serve phi3-mini-3.8b (packed, bit planes and
+speculative; packed also on (2, 1)), granite-moe-3b-a800m, qwen2-vl-2b,
+rwkv6-1.6b, zamba2-1.2b and seamless-m4t-large-v2 under the mesh (1, 2),
+and rwkv6 and zamba2 also under (2, 1), against the single-process engine
+(``check_mesh``, which also requires a planted sharding fault to fail).
+``tiny`` runs it at the tiny configs (9x8 blocks, whose shards start
+inside a weight block), ``full`` at full width cut to
+``chip_smoke.MESH_DEPTH`` / ``MESH_MOE_DEPTH`` / ``MESH_FAMILY_DEPTH``
+layers (both, in that order, by default).  The record goes to
+``chiprun_out/mesh_probe.json`` and the summary to stdout, with the
+card's name and power limit.
 """
 import json
 import subprocess

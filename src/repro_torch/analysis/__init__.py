@@ -152,9 +152,11 @@ def lint_engine(engine, prompt_len: int = 16, n_slots: int = 4,
         report.extend(validate_decode_state(state, n_slots=n_slots))
         tokens = torch.zeros((n_slots, 1), dtype=torch.int32, device=dev)
         index = torch.zeros((n_slots,), dtype=torch.int32, device=dev)
+        # the engine's step: under a mesh, this rank's rows of the tokens
+        # and of the state (a contiguous state holds only those)
         report.extend(lint_traced_fn(
-            lambda p, t, s, i: run(engine.api.decode_step, p, t, s, i,
-                                   **be),
+            lambda p, t, s, i: engine._step(engine.api.decode_step, p, t,
+                                            s, i),
             (engine.params, tokens, state, index), fn_name="decode",
             calls=calls, **be))
         if engine.prefill_chunk > 0 and cfg.family not in ("ssm", "hybrid"):

@@ -21,12 +21,13 @@ import torch
 import torch.nn.functional as F
 
 from ..configs.base import ModelConfig
+from ..dist.parallel import ShardedTensor
 from .attention import attn_forward
 from .common import (builds_graph, embed_init, make_weight, prepare_params,
                      qmatmul, remat_call, rms_norm)
 from .ffn import mlp_forward
-from .transformer import (_cdtype, _layer, _unstack, decode_positions,
-                          make_kv_cache)
+from .transformer import (_cdtype, _embed_lookup, _layer, _unstack,
+                          _vocab_logits, decode_positions, make_kv_cache)
 
 
 def _attn_weights(cfg: ModelConfig, stack: int, mk) -> Dict:
@@ -123,7 +124,8 @@ def encode(mp, cfg: ModelConfig, frames: torch.Tensor,
         out, _ = attn_forward(lp["attn"], rms_norm(h, lp["ln_attn"]), pos,
                               n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads,
                               d_head=cfg.head_dim, rope_theta=cfg.rope_theta,
-                              causal=False, backend=backend)
+                              causal=False, backend=backend,
+                              head_shards=cfg.head_shards)
         h = h + out
         if cfg.conformer_encoder:
             h = h + _conformer_conv(lp, rms_norm(h, lp["ln_conv"]), backend)
@@ -140,16 +142,17 @@ def decode(mp, cfg: ModelConfig, tokens, enc_out, cache=None, index=None,
            backend: str = "dense", attn_backend: str = "gather"):
     """Decoder over a (B, S) token block: self-attention through the cache
     (written in place at ``index``), cross-attention over ``enc_out``, the
-    GELU MLP; the head is ``embed.T``.  Returns (f32 (B, S, V) logits,
-    cache)."""
-    h = mp["embed"][tokens.long()].to(_cdtype(cfg))
+    GELU MLP; the head is ``embed.T`` (under a mesh the vocab-sharded
+    table's lookup and logits, ``transformer._embed_lookup`` /
+    ``_vocab_logits``).  Returns (f32 (B, S, V) logits, cache)."""
+    h = _embed_lookup(mp["embed"], tokens).to(_cdtype(cfg))
     b, s, _ = h.shape
     pos = _arange_positions(b, s, h.device) if index is None else \
         decode_positions(index, b, s, h.device)
     enc_pos = _arange_positions(b, enc_out.shape[1], h.device)
     heads = dict(n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads,
                  d_head=cfg.head_dim, rope_theta=cfg.rope_theta,
-                 backend=backend)
+                 backend=backend, head_shards=cfg.head_shards)
 
     def body(lp, h, enc_out, layer_cache):
         out, _ = attn_forward(lp["self_attn"], rms_norm(h, lp["ln_self"]),
@@ -169,6 +172,8 @@ def decode(mp, cfg: ModelConfig, tokens, enc_out, cache=None, index=None,
         layer_cache = _layer(cache, i) if cache is not None else None
         h = remat_call(remat, body, lp, h, enc_out, layer_cache)
     h = rms_norm(h, mp["final_norm"])
+    if isinstance(mp["embed"], ShardedTensor):
+        return _vocab_logits(h, mp["embed"], backend), cache
     logits = qmatmul(h, mp["embed"].T, backend).to(torch.float32)
     return logits, cache
 

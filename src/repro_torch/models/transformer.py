@@ -310,7 +310,8 @@ def _walk_hybrid(mp, cfg, h, emb0, positions, cache, index, backend,
             n_kv=cfg.n_kv_heads, d_head=cfg.head_dim,
             rope_theta=cfg.rope_theta, causal=True,
             cache=_layer(acaches, si) if acaches is not None else None,
-            cache_index=index, backend=backend, attn_backend=attn_backend)
+            cache_index=index, backend=backend, attn_backend=attn_backend,
+            head_shards=cfg.head_shards)
         h = h + out
         h = h + mlp_forward(mp["shared_mlp"], rms_norm(h, mp["shared_ln2"]),
                             cfg.mlp_kind, backend)

@@ -54,8 +54,15 @@ every rank sees the same tokens.  A paged pool is held whole on every data
 rank (a placement that differs from ``cache_pspecs``, which puts its pages
 on ``data``): prompts are inserted on every rank, a decode step writes its
 own rows' tokens, and parking takes a slot's pages from the rank that
-decodes it.  The dense and MoE families serve under a mesh; the others,
-and speculative decoding, raise ``NotImplementedError``.
+decodes it.  Every family serves under a mesh, and so does
+self-speculative decoding (its draft reads the placed shards through
+truncated masks; draft and verify steps split and gather rows as a decode
+step does).  RWKV-6 splits no head (its scans run every head on every
+rank, ``wk`` / ``wv`` gathered after their column-parallel products); the
+other families' heads and KV heads must divide ``model``.  Recurrent rows
+and an encoder-decoder state's ``enc_out`` follow the KV rows: split over
+``data`` in a contiguous state, whole (and narrowed to a rank's rows for
+its steps) beside a paged pool.
 """
 from __future__ import annotations
 
@@ -71,7 +78,8 @@ from ..configs.base import PlacedConfig
 from ..dist import parallel as par
 from ..dist.sharding import (get_mesh, padded_shape, param_pspecs,
                              spec_leaves, use_mesh)
-from ..models.api import ModelAPI, _write_tree, cache_is_paged
+from ..models.api import (ModelAPI, _write_enc_out, _write_tree,
+                          cache_is_paged)
 from ..models.attention import PAGED_ATTN_BACKENDS
 from ..models.common import MATMUL_BACKENDS, prepare_params
 from ..models.transformer import _cdtype
@@ -190,10 +198,6 @@ class ServeEngine:
         # accepted_drafts and emitted token counts over the batch
         self.round_log: List[Dict[str, int]] = []
         if self.speculate_planes:
-            if self.global_params is not None:
-                raise NotImplementedError(
-                    "speculative decoding under a mesh is not ported "
-                    "(ROADMAP item 6, distribution)")
             if cfg.is_encdec or cfg.family in ("ssm", "hybrid", "rwkv"):
                 raise ValueError(
                     f"speculate_planes needs a purely positional KV cache "
@@ -202,7 +206,8 @@ class ServeEngine:
             if self.draft_gamma < 1:
                 raise ValueError(f"draft_gamma must be >= 1, "
                                  f"got {self.draft_gamma}")
-            # a view: payload tensors shared, only the masks are new
+            # a view: payload tensors (a placed engine's shards) shared,
+            # only the masks are new
             self.draft_params = make_draft_params(self.params,
                                                   self.speculate_planes)
 
@@ -223,9 +228,9 @@ class ServeEngine:
         """Padded placement under ``self.mesh``: specs fitted with padding,
         each deployed leaf cut to this rank's shard, the vocab-sharded
         embedding (or unquantized LM head) to its rows (columns); the
-        config's head counts become this rank's.  ``global_params`` keeps
-        the padded global shapes (``meta`` tensors) for the sharding
-        lint."""
+        config's head counts become this rank's (RWKV-6, which has no
+        head-split layer, keeps its config).  ``global_params`` keeps the
+        padded global shapes (``meta`` tensors) for the sharding lint."""
         cfg = self.api.cfg
         mesh = self.mesh
         if not isinstance(mesh, par.Mesh):
@@ -238,17 +243,15 @@ class ServeEngine:
                 f"serving under mesh axes {tuple(mesh.shape)} is not "
                 f"ported; the port serves on ('data', 'model') meshes "
                 f"(ROADMAP item 6, distribution)")
-        if cfg.family not in ("dense", "moe") or cfg.is_encdec:
-            raise NotImplementedError(
-                f"serving family {cfg.family!r} under a mesh is not ported "
-                f"(ROADMAP item 6, distribution); the dense and MoE "
-                f"families serve under a mesh")
         m = mesh.axis_size("model")
-        if cfg.n_heads % m or cfg.n_kv_heads % m:
+        # the reference's rules shard only RWKV-6's column-parallel wk /
+        # wv, whose products every rank gathers whole: its heads stay whole
+        split_heads = cfg.family != "ssm"
+        if split_heads and (cfg.n_heads % m or cfg.n_kv_heads % m):
             raise NotImplementedError(
                 f"{cfg.n_heads} heads / {cfg.n_kv_heads} KV heads do not "
                 f"divide the model axis ({m}); the port shards heads "
-                f"evenly")
+                f"evenly, where GSPMD pads them (ROADMAP item 6)")
         with use_mesh(mesh):
             specs = dict(spec_leaves(param_pspecs(self.params, pad=True)))
 
@@ -272,7 +275,7 @@ class ServeEngine:
                 return par.tensor_shard(node, specs[path], mesh, kind)
             return node
         self.params = walk(self.params, "")
-        if m > 1:
+        if m > 1 and split_heads:
             fields = {f.name: getattr(cfg, f.name)
                       for f in dataclasses.fields(cfg)}
             self.api = ModelAPI(PlacedConfig(**dict(
@@ -318,20 +321,25 @@ class ServeEngine:
         return r1 - r0
 
     def _row_view(self, state: Any, rows) -> Any:
-        """The state as a step over this rank's rows sees it: paged block
-        tables narrowed to the rows (the pool is whole), contiguous rows
-        already local."""
-        if not rows[0]:
+        """The state as a step over this rank's rows sees it.  A
+        contiguous state's rows are already local; beside a paged pool
+        (whole on every rank) the block tables, the recurrent rows and
+        ``enc_out`` are whole, and are narrowed to the rows (views, so the
+        step's writes land in the state)."""
+        if not rows[0] or not cache_is_paged(state["cache"]):
             return state
+        r0, r1 = rows[1], rows[2]
 
         def walk(cache):
             if isinstance(cache, dict):
                 if "table" in cache:
-                    return dict(cache, table=cache["table"][
-                        :, rows[1]:rows[2]])
+                    return dict(cache, table=cache["table"][:, r0:r1])
                 return {k: walk(v) for k, v in cache.items()}
-            return cache
-        return dict(state, cache=walk(state["cache"]))
+            return cache[:, r0:r1]
+        out = dict(state, cache=walk(state["cache"]))
+        if "enc_out" in state:
+            out["enc_out"] = state["enc_out"][r0:r1]
+        return out
 
     # ---- core ops ---------------------------------------------------------
     def prefill(self, batch: Dict[str, Any], extra_slots: int = 0) -> tuple:
@@ -379,14 +387,18 @@ class ServeEngine:
         holds, local = self._owner(state, slot)
         if holds:
             _write_tree(state["cache"], sub["cache"], local)
+            if "enc_out" in state:
+                _write_enc_out(state, sub["enc_out"], local)
         return logits, state
 
     def prefill_chunk_at(self, batch: Dict[str, Any], state: Any, slot: int,
                          start: int) -> tuple:
         """Insert a prompt chunk at cache position ``start`` of row
         ``slot``; returns (full (1, W, V) chunk logits, state).  Under a
-        mesh every rank runs the chunk (a rank that does not hold a
-        contiguous row runs it on a scratch row)."""
+        mesh every rank runs the chunk; where a contiguous state's rows
+        are split over ``data``, a rank that does not hold the row runs it
+        on a scratch row (its weight gathers over ``data`` must meet the
+        holder's) and takes the holder's logits."""
         inputs = self._inputs(batch)
         if self.mesh is None or cache_is_paged(state["cache"]) or \
                 not self._rows(self._state_slots(state))[0]:
@@ -395,12 +407,17 @@ class ServeEngine:
         holds, local = self._owner(state, slot)
         if holds:
             view = dict(state, cache=_narrow_rows(state["cache"], local))
-            logits, _ = self._run(self.api.prefill_chunk_at, self.params,
-                                  inputs, view, 0, start, **self._be)
+            if "enc_out" in state:
+                view["enc_out"] = state["enc_out"][local:local + 1]
         else:
-            scratch = {"cache": _zero_row(state["cache"])}
-            logits, _ = self._run(self.api.prefill_chunk_at, self.params,
-                                  inputs, scratch, 0, start, **self._be)
+            view = {"cache": _zero_row(state["cache"])}
+            if "enc_out" in state:
+                view["enc_out"] = torch.zeros_like(state["enc_out"][:1])
+        logits, _ = self._run(self.api.prefill_chunk_at, self.params,
+                              inputs, view, 0, start, **self._be)
+        with use_mesh(self.mesh):
+            logits = par.broadcast(logits.contiguous(), "data",
+                                   self._slot_rank(state, slot))
         return logits, state
 
     def init_decode_state(self, example: Dict[str, Any], n_slots: int,
@@ -408,8 +425,10 @@ class ServeEngine:
                           n_pages: Optional[int] = None) -> Any:
         """Empty (zeroed) decode state, paged when ``page_size > 0``.
         Under a mesh it holds this rank's heads, and a contiguous state
-        this rank's rows; a paged pool is whole."""
-        rows = n_slots if page_size > 0 else self.local_slots(n_slots)
+        this rank's rows; a paged pool, and the rows beside it, are whole
+        (an ssm state has no pool: its rows are this rank's)."""
+        paged = page_size > 0 and self.api.cfg.family != "ssm"
+        rows = n_slots if paged else self.local_slots(n_slots)
         state = self.api.init_decode_state(self.params, self._inputs(example),
                                            rows, max_len,
                                            page_size=page_size,
@@ -426,7 +445,7 @@ class ServeEngine:
         local = self.local_slots(n_slots)
         state = dict(sub, cache=_tile_rows(sub["cache"], local))
         if "enc_out" in sub:
-            state["enc_out"] = sub["enc_out"].repeat(n_slots, 1, 1)
+            state["enc_out"] = sub["enc_out"].repeat(local, 1, 1)
         if local != n_slots:
             state["_n_slots"] = n_slots
         return state
@@ -451,15 +470,24 @@ class ServeEngine:
         """One decode step; ``index`` is the shared fill level (int or 0-d)
         or a per-slot (B,) vector.  Under a mesh a rank steps its rows and
         the logits of every row come back."""
+        return self._step(self.api.decode_step, self.params, tokens, state,
+                          index)
+
+    def _step(self, fn, params, tokens: torch.Tensor, state: Any,
+              index) -> tuple:
+        """``fn`` (a decode or verify step) over ``tokens``' rows: without
+        a mesh all of them; under one this rank's rows of the tokens, the
+        fill levels and the state, with every row's logits gathered back,
+        so every rank reads the same tokens."""
         if self.mesh is None:
-            return self.api.decode_step(self.params, tokens.to(self.device),
-                                        state, index, **self._be)
+            return fn(params, tokens.to(self.device), state, index,
+                      **self._be)
         rows = self._rows(int(tokens.shape[0]))
         tok = tokens.to(self.device)[rows[1]:rows[2]]
         if not isinstance(index, int) and torch.as_tensor(index).ndim == 1:
             index = torch.as_tensor(index)[rows[1]:rows[2]]
-        logits, _ = self._run(self.api.decode_step, self.params, tok,
-                              self._row_view(state, rows), index, **self._be)
+        logits, _ = self._run(fn, params, tok, self._row_view(state, rows),
+                              index, **self._be)
         return self._gather(logits, rows), state
 
     def draft_decode(self, tokens: torch.Tensor, state: Any, index) -> tuple:
@@ -469,9 +497,8 @@ class ServeEngine:
         fill level."""
         if self.draft_params is None:
             raise ValueError("engine built without speculate_planes")
-        return self.api.decode_step(self.draft_params,
-                                    tokens.to(self.device), state, index,
-                                    **self._be)
+        return self._step(self.api.decode_step, self.draft_params, tokens,
+                          state, index)
 
     def verify(self, tokens: torch.Tensor, state: Any, index) -> tuple:
         """Batched W-token verify forward with the full deployed tree.
@@ -481,8 +508,8 @@ class ServeEngine:
         positions (re)written at full precision."""
         if self.draft_params is None:
             raise ValueError("engine built without speculate_planes")
-        return self.api.verify_step(self.params, tokens.to(self.device),
-                                    state, index, **self._be)
+        return self._step(self.api.verify_step, self.params, tokens, state,
+                          index)
 
     # ---- preemption / prefix-cache state plumbing ------------------------
     def park_slot(self, state: Any, slot: int, pages) -> Dict[str, Any]:
@@ -500,17 +527,20 @@ class ServeEngine:
         rec: Dict[str, Any] = {"pages": {}, "rows": {}, "enc_out": None,
                                "n_pages": len(ids)}
         # under a mesh whose data axis splits the slots, only the rank
-        # stepping ``slot`` holds its decoded tokens: every rank takes them
-        # from that rank
+        # stepping ``slot`` holds its decoded tokens and recurrent rows:
+        # every rank takes them from that rank
         src = self._slot_rank(state, slot)
-        holds, row = self._owner(state, slot) if src is not None \
-            else (True, slot)
 
         def take(t):
             if src is not None:
                 with use_mesh(self.mesh):
                     t = par.broadcast(t.contiguous(), "data", src)
             return t.to("cpu", copy=True)
+
+        def row(leaf, dim):
+            holds, i = self._slot_row(state, slot, leaf.shape[dim])
+            return take(leaf.select(dim, i) if holds
+                        else torch.zeros_like(leaf.select(dim, 0)))
 
         def walk(cache, path):
             if isinstance(cache, dict):
@@ -522,12 +552,11 @@ class ServeEngine:
                 for k, v in cache.items():
                     walk(v, f"{path}.{k}")
                 return
-            rec["rows"][path] = take(cache[:, row] if holds
-                                     else torch.zeros_like(cache[:, 0]))
+            rec["rows"][path] = row(cache, 1)
 
         walk(state["cache"], "cache")
         if "enc_out" in state:
-            rec["enc_out"] = state["enc_out"][slot].to("cpu", copy=True)
+            rec["enc_out"] = row(state["enc_out"], 0)
         return rec
 
     def restore_slot(self, state: Any, slot: int, pages,
@@ -536,11 +565,17 @@ class ServeEngine:
         landing the parked pool pages on the freshly allocated ``pages``
         (same count, any ids — the caller rewrites its block-table row to
         match).  The inverse of parking, bit for bit, written into the
-        live state in place."""
+        live state in place (under a mesh, into every rank's copy of the
+        row, or the holder's)."""
         if len(pages) != record["n_pages"]:
             raise ValueError(f"snapshot holds {record['n_pages']} pages, "
                              f"restore got {len(pages)} page ids")
         ids = torch.as_tensor(np.asarray(pages, np.int64))
+
+        def put(leaf, dim, value):
+            holds, i = self._slot_row(state, slot, leaf.shape[dim])
+            if holds:
+                leaf.select(dim, i).copy_(value.to(leaf.device))
 
         def walk(cache, path):
             if isinstance(cache, dict):
@@ -553,17 +588,21 @@ class ServeEngine:
                 for k, v in cache.items():
                     walk(v, f"{path}.{k}")
                 return
-            if holds:
-                cache[:, row] = record["rows"][path].to(cache.device)
+            put(cache, 1, record["rows"][path])
 
-        src = self._slot_rank(state, slot)
-        holds, row = self._owner(state, slot) if src is not None \
-            else (True, slot)
         walk(state["cache"], "cache")
         if record.get("enc_out") is not None and "enc_out" in state:
-            state["enc_out"][slot] = record["enc_out"].to(
-                state["enc_out"].device)
+            put(state["enc_out"], 0, record["enc_out"])
         return state
+
+    def _slot_row(self, state: Any, slot: int, rows: int):
+        """(holds, index) of ``slot`` in a per-slot leaf of ``rows`` rows:
+        a whole leaf (every slot's row, as beside a paged pool) holds it at
+        ``slot``; a leaf of this rank's rows at its local row, if this
+        rank's."""
+        if rows == self._state_slots(state):
+            return True, slot
+        return self._owner(state, slot)
 
     def _slot_rank(self, state: Any, slot: int) -> Optional[int]:
         """The data coord of the rank stepping ``slot`` when the data axis

@@ -182,31 +182,29 @@ def _placed_lint(tree, make_mesh, use_mesh, ServeEngine):
 
 
 def _refusals(build, make_mesh, use_mesh, ServeEngine):
-    """What an engine under the (1, 2) mesh raises for the families not
-    ported under a mesh, for speculative decoding and for a shape-only
-    mesh (exception type and message)."""
+    """What an engine raises under the meshes it still refuses (exception
+    type and message): a (1, 2) mesh over heads or KV heads that the model
+    axis does not divide, a mesh with an axis other than ``data`` and
+    ``model``, and a shape-only mesh."""
     from repro_torch.analysis import ShapeOnlyMesh
     from repro_torch.configs import REGISTRY
     out = {}
-    mesh = make_mesh((1, 2), ("data", "model"), "cpu")
-    cases = [(arch, {}) for arch in ("qwen2-vl-2b", "rwkv6-1.6b",
-                                     "zamba2-1.2b", "seamless-m4t-large-v2")]
-    cases.append(("phi3-mini-3.8b", dict(speculate_planes=4)))
-    for arch, kw in cases:
-        api = build(REGISTRY[arch].tiny(dtype="float32"))
+    tiny = REGISTRY["phi3-mini-3.8b"].tiny(dtype="float32")
+    cases = {"kv-heads": (make_mesh((1, 2), ("data", "model"), "cpu"),
+                          dataclasses.replace(tiny, n_kv_heads=1)),
+             "heads": (make_mesh((1, 2), ("data", "model"), "cpu"),
+                       dataclasses.replace(tiny, n_heads=3, n_kv_heads=3)),
+             "axes": (make_mesh((1, 2), ("pod", "model"), "cpu"), tiny),
+             "shape-only": (ShapeOnlyMesh({"data": 1, "model": 2}), tiny)}
+    for key, (mesh, cfg) in cases.items():
+        api = build(cfg)
         params = api.init(seed=0, device="cpu")
         try:
             with use_mesh(mesh):
-                ServeEngine(api, params, device="cpu", **kw)
-            out[arch, bool(kw)] = None
+                ServeEngine(api, params, device="cpu")
+            out[key] = None
         except Exception as e:              # noqa: BLE001 - recorded
-            out[arch, bool(kw)] = (type(e).__name__, str(e))
-    try:
-        with use_mesh(ShapeOnlyMesh({"data": 1, "model": 2})):
-            ServeEngine(api, params, device="cpu")
-        out["shape-only"] = None
-    except Exception as e:                  # noqa: BLE001 - recorded
-        out["shape-only"] = (type(e).__name__, str(e))
+            out[key] = (type(e).__name__, str(e))
     return out
 
 
@@ -355,10 +353,15 @@ def test_sharded_moe_loss_equals_reference(run, leg, shape):
 
 
 def test_unported_paths_refuse_a_mesh(run):
-    """The vlm, ssm, hybrid and enc-dec families and speculative decoding
-    raise ``NotImplementedError`` naming ROADMAP item 6 under a mesh of
-    two ranks; a shape-only mesh cannot be placed on (``TypeError``)."""
+    """What the port still does not place raises: heads or KV heads that
+    the model axis does not divide, and a mesh axis other than ``data``
+    and ``model``, ``NotImplementedError`` naming ROADMAP item 6 (every
+    family and speculative decoding serve under a mesh:
+    tests/test_torch_sharded_families.py); a shape-only mesh cannot be
+    placed on (``TypeError``)."""
     _, out = run
+    assert set(out["refused"]) == {"kv-heads", "heads", "axes",
+                                   "shape-only"}
     for key, got in out["refused"].items():
         if key == "shape-only":
             assert got is not None and got[0] == "TypeError", got

@@ -30,8 +30,9 @@ It builds the four CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
    wbr = 3072: the stream plan cuts a block); two launches on the same
    inputs must agree bit for bit (the matmuls, and ``paged_attention``
    at kv_len 144 and 4096);
-2. path phase — serves full-width ``phi3-mini-3.8b`` (all 32 layers,
-   random weights from seed 0) in float32.
+2. path phase — serves full-width ``phi3-mini-3.8b`` (its first
+   ``PHI3_DEPTH`` = 8 of 32 layers, as in every phase through the lint
+   and time phases; random weights from seed 0) in float32.
 
    * Packed: deployed to int8 and int4, driven through the kernels
      (``backend="kernel", attn_backend="fused"``) twice, contiguous and
@@ -309,6 +310,36 @@ It builds the four CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
    version on the same shard.  The collectives gloo takes on the card's
    tensors are probed and timed.
 
+14. mesh train phase — BWQ-A training under a process mesh
+   (``mesh_train_phase``): full-width phi3 cut to ``MT_LAYERS`` = 2, f32,
+   fake quantization with PACT off, a global batch of 4 x 128 from the
+   train launcher's stream, AdamW on a cosine schedule over 6 steps,
+   maintenance and an alpha round every 2.  Here, the single-process
+   baseline (6 steps; its params saved).  Then two gloo ranks on the card
+   (``mesh_train_rank``) on (2, 1): ``compressed_all_reduce`` of layer
+   0's ``wq`` gradient over ``data`` equals ``compressed_sum`` and sends
+   int8; a batch with an uneven mask gives the single process's loss and
+   gradient norm within ``MT_LOSS_TOL_REL``, and with the ranks' shares
+   forced equal (a planted fault) reads above it; steps 1-4 with a
+   checkpoint every 2 and a crash before data step 3
+   (``run_with_restarts`` resumes from step 2).  Then two fresh ranks on
+   (1, 2) restore step 4 (elastic restore) and train to 6.  Every step's
+   loss within
+   ``MT_LOSS_TOL_REL`` of the single run's, every rank's state one
+   digest (all-gathered), the (1, 2) params and every step's gradient
+   norm within ``MT_LEAF_TOL`` of the single run's or ``MT_WITNESS_X``
+   times a witness's distance (the single run on reversed rows:
+   ``mt_param_faults``), the saves one shard file a data (step 4) and a
+   model coordinate (step 6), CK-clean.  The step-6 checkpoint is
+   cold-started to packed int8 on each rank and served one shot (4 x 64,
+   8 new, 16-token pages, fused attention) on (1, 2) through
+   ``packed_matmul`` and ``paged_attention`` on each rank's shards:
+   quantizers off in f32, tokens identical to the single process's cold
+   start; bf16 with 8-bit activations and int8 KV, logits within
+   ``QUANT_TOL_REL``; each rank's launches equal the single process's.
+   Step ms, the gradient all-reduce's ms, save and restore seconds, the
+   cold start's seconds and the phase's are recorded.
+
 Output: a ``{"train": {...}}`` line with the train phase's figures and
 the card, a ``{"moe": {...}}`` line with the MoE phase's, an
 ``{"encdec": {...}}`` line with the enc-dec phase's, a
@@ -319,7 +350,8 @@ train families phase's, a ``{"deploy": {...}}`` line with the deploy
 phase's, a ``{"lint": {...}}`` line with
 each linted engine's seconds and rules, the faults' and the launcher's,
 a ``{"mesh": {...}}`` line with each mesh leg's decode ms/step beside the
-single process's, a ``{"kernels": [...]}`` JSON line, the card's name and power
+single process's, a ``{"mesh_train": {...}}`` line with the mesh train
+phase's figures, a ``{"kernels": [...]}`` JSON line, the card's name and power
 limit, and as the last line ``{"ok": true, "device": {...}}``.  Details go
 to ``chiprun_out/chip_smoke_detail.json``.  Any failure exits non-zero; so
 does a machine without CUDA, or a directory without the repository.
@@ -1026,6 +1058,26 @@ def compare(a, b):
 # grouped by weights so each CPU witness tree is built once
 PATH_RUNS = ((8, 8, 8), (8, 4, 8), (8, 32, 32), (4, 8, 8), (4, 4, 8),
              (4, 32, 32))
+
+
+# phi3's depth in the path, bit-plane, speculative, scheduler, lint and
+# time phases (32 layers registered; full width): the kernels' per-call
+# timings are at the full-width shapes whatever the depth
+PHI3_DEPTH = 8
+
+
+@contextlib.contextmanager
+def phi3_depth(n_layers=PHI3_DEPTH):
+    """The registered phi3 cut to ``n_layers`` for the calls inside: the
+    trees, ``api_for`` and the serve and lint launchers all read
+    ``REGISTRY[ARCH]``."""
+    from repro_torch.configs import REGISTRY
+    full = REGISTRY[ARCH]
+    REGISTRY[ARCH] = dataclasses.replace(full, n_layers=n_layers)
+    try:
+        yield
+    finally:
+        REGISTRY[ARCH] = full
 
 
 def api_for(act_bits, dtype="float32"):
@@ -2044,8 +2096,8 @@ LINT_RULES = {
     "hybrid": _LINT_CLEAN | {"info:PX-smoke"},
 }
 # phi3's int8 / int8-KV kernel decode ms/step (time phase, contiguous,
-# bf16) in the smoke's run before the kernel boundary existed (PERF.md
-# §5); printed beside this run's
+# bf16, 32 layers) in the smoke's run before the kernel boundary existed
+# (PERF.md §5); printed beside this run's, which is at PHI3_DEPTH layers
 BASELINE_DECODE_MS = 83.53
 
 
@@ -6198,6 +6250,675 @@ def mesh_summary(res) -> dict:
                          "NVLink)"}
 
 
+# ---------------------------------------------------------------------------
+# mesh train phase: BWQ-A training under a process mesh, its checkpoints
+# restored across meshes, the trained tree served under the mesh
+# ---------------------------------------------------------------------------
+
+# full-width phi3 cut to 2 layers, f32, fake quantization, PACT off; a
+# global batch of 4 x 128; maintenance and an alpha round every 2 steps
+MT_LAYERS = 2
+MT_B, MT_SEQ = 4, 128
+MT_STEPS, MT_EVERY, MT_FAULT, MT_SPLIT = 6, 2, 3, 4  # (2,1) trains to 4
+MT_LR, MT_DELTA = 2e-3, 1e-7
+MT_LOSS_TOL_REL = 1e-5          # each step's loss against the single run's
+# A param leaf against the single run's: within MT_LEAF_TOL of its largest
+# magnitude, or within MT_WITNESS_X times the witness's distance, the
+# single run again on each batch's rows reversed (the same means, another
+# summation order); a step's gradient norm within MT_WITNESS_X times the
+# witness's largest relative distance over the run.  AdamW moves an
+# element whose gradient is near zero by about the learning rate whatever
+# the gradient's size, so rounding alone parts such elements (the norm
+# scales, the embedding) by up to lr a step, and maintenance snaps a
+# master weight near a level boundary one level apart (H100 80GB HBM3,
+# 700 W: the witness 1.0e-3-1.2e-2 of a leaf's largest after 6 steps, the
+# mesh run 1.0-1.7x the witness; gradient norms 2.1e-5 and 4.3e-5 at most)
+MT_LEAF_TOL, MT_WITNESS_X = 1e-4, 4.0
+MT_KEEP = (0.9, 0.3, 0.6, 1.0)  # the uneven batch: each row's labels kept
+MT_SERVE_B, MT_SERVE_P, MT_SERVE_NEW = 4, 64, 8
+# (label, activation bits, dtype, KV bits) of the cold-started serving legs
+MT_SERVE_RUNS = (("f32", 32, "float32", 32), ("bf16_act8", 8, "bfloat16", 8))
+MT_DISK_GB = 24                 # three 3.9 GB steps, tmp dirs, the baseline
+MT_TIMEOUT_S = 600
+
+
+def mt_dims(size):
+    """The phase's sizes: full width, or a rehearsal's tiny ones."""
+    if size == ("--no-tiny",):
+        return dict(b=MT_B, seq=MT_SEQ, sb=MT_SERVE_B, sp=MT_SERVE_P,
+                    new=MT_SERVE_NEW, page=PAGE)
+    return dict(b=MT_B, seq=16, sb=4, sp=8, new=4, page=4)
+
+
+def mt_config(size, act_bits=32, dtype="float32"):
+    """The train launcher's phi3 config (``--layers 2``, fake mode) at
+    ``dtype`` with ``act_bits`` activations."""
+    from repro_torch.launch import train as tl
+    cfg = tl.config(tl.build_parser().parse_args(
+        ["--arch", ARCH, *size, "--layers", str(MT_LAYERS), "--act-bits",
+         str(act_bits)]))
+    return dataclasses.replace(cfg, dtype=dtype)
+
+
+def mt_batch(cfg, step, dims):
+    """Data step ``step`` of the phase's stream (the train launcher's
+    synthetic bigram stream, seed 0)."""
+    from repro_torch.data.synthetic import SyntheticLM
+    return SyntheticLM(cfg.vocab, dims["seq"], dims["b"]).batch_at(step)
+
+
+def mt_uneven(cfg, dims):
+    """A batch whose rows keep ``MT_KEEP`` of their labels (a ``mask``):
+    the data ranks' label counts differ."""
+    import numpy as np
+    import torch
+    b = mt_batch(cfg, 100, dims)
+    rng = np.random.default_rng(5)
+    keep = np.asarray(MT_KEEP)[:, None]
+    b["mask"] = torch.from_numpy(
+        (rng.random((dims["b"], dims["seq"])) < keep).astype(np.float32))
+    return b
+
+
+def mt_trainer(cfg, ck, sink):
+    """The phase's trainer over the seed-0 init, each step timed into
+    ``sink`` (synchronized)."""
+    import torch
+    from repro_torch.models.api import build
+    from repro_torch.optim import adamw, cosine_schedule
+    from repro_torch.train import Trainer, TrainerConfig
+    api = build(cfg)
+    tr = Trainer(api.loss, adamw(weight_decay=0.0),
+                 cosine_schedule(MT_LR, MT_STEPS),
+                 api.init(seed=0, device=DEV),
+                 TrainerConfig(total_steps=MT_STEPS,
+                               ckpt_every=MT_EVERY if ck else 0,
+                               ckpt_dir=ck, log_every=1,
+                               requant_interval=MT_EVERY,
+                               alpha_round_steps=MT_EVERY,
+                               delta_alpha=MT_DELTA))
+    step = tr.train_step
+
+    def timed(state, batch):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = step(state, batch)
+        torch.cuda.synchronize()
+        sink.append((time.perf_counter() - t0) * 1e3)
+        return out
+    tr.train_step = timed
+    return tr
+
+
+def mt_data(cfg, dims, reverse=False):
+    """The stream from a start step; ``reverse`` flips each batch's rows
+    (the witness)."""
+    def make(start):
+        s = start
+        while True:
+            b = mt_batch(cfg, s, dims)
+            yield s, {k: v.flip(0) for k, v in b.items()} if reverse else b
+            s += 1
+    return make
+
+
+def mt_history(trainers):
+    """Each step's (loss, ce, reg, grad_norm) over trainers run in turn
+    (a restarted step: the last run's)."""
+    out = {}
+    for tr in trainers:
+        for h in tr.history:
+            out[h["step"]] = {k: h[k] for k in ("loss", "ce", "reg",
+                                                "grad_norm")}
+    return [out[s] for s in sorted(out)], sorted(out)
+
+
+def mt_vg_loss(api, params, batch, mesh):
+    """The loss and gradient norm of one data-parallel value-and-gradient
+    on ``batch`` (the train step's reduction, no update).  A random
+    model's per-row losses all sit near ln(vocab), so a misweighted sum
+    shows in the gradient, whose ranks' parts differ."""
+    from repro_torch.dist.sharding import use_mesh
+    from repro_torch.optim import global_norm
+    from repro_torch.train.step import (data_parallel,
+                                        microbatched_value_and_grad)
+    with use_mesh(mesh):
+        (loss, _), g = data_parallel(microbatched_value_and_grad(api.loss))(
+            params, batch)
+    return {"loss": float(loss), "grad_norm": float(global_norm(g))}
+
+
+def mesh_train_phase(size=("--no-tiny",)):
+    """BWQ-A training under a process mesh (see the module docstring, 14):
+    the single-process baseline here, then two gloo ranks on the card on
+    (2, 1) (:func:`mesh_train_rank`, leg ``dp``), then two fresh ranks on
+    (1, 2) (leg ``tp``).  Writes under ``chiprun_out/mesh_train`` (free
+    space checked first) and removes it at the end, pass or fail."""
+    import shutil
+    import socket
+    import torch
+    from repro_torch.ckpt import save_tree
+    from repro_torch.models.api import build
+    t_phase = time.perf_counter()
+    dims = mt_dims(size)
+    root = ROOT / "chiprun_out" / "mesh_train"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    free_gb = shutil.disk_usage(root).free / 1e9
+    if free_gb < MT_DISK_GB and size == ("--no-tiny",):
+        raise AssertionError(f"mesh train phase: {free_gb:.1f} GB free under "
+                             f"{root}, needs {MT_DISK_GB}")
+    out = {"free_gb": free_gb, "layers": MT_LAYERS, "size": list(size)}
+    try:
+        cfg = mt_config(size)
+        # the single-process baseline: 6 steps, then the uneven batch's
+        # loss and gradient norm from the seed-0 init
+        ms = []
+        tr = mt_trainer(cfg, None, ms)
+        tr.run(mt_data(cfg, dims)(0), steps=MT_STEPS)
+        hist, steps = mt_history([tr])
+        single = tr.state.params
+        save_tree(single, str(root / "single_params"))
+        del tr
+        # the witness: the same 6 steps on each batch's rows reversed
+        wit = mt_trainer(cfg, None, [])
+        wit.run(mt_data(cfg, dims, reverse=True)(0), steps=MT_STEPS)
+        out["witness"] = {"history": mt_history([wit])[0],
+                          "leaf_diffs": mt_leaf_diffs(wit.state.params,
+                                                      single)}
+        del wit, single
+        api = build(cfg)
+        params = api.init(seed=0, device=DEV)
+        batch = {k: v.to(DEV) for k, v in mt_uneven(cfg, dims).items()}
+        uneven = mt_vg_loss(api, params, batch, None)
+        del params, batch
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        out["single"] = {"history": hist, "steps": steps, "step_ms": ms,
+                         "uneven": uneven}
+        for leg in ("dp", "tp"):
+            with socket.socket() as sk:
+                sk.bind(("localhost", 0))
+                port = sk.getsockname()[1]
+            out[leg] = mt_spawn(leg, port, root, size, t_phase)
+        out["phase_s"] = time.perf_counter() - t_phase
+        return out
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def mt_spawn(leg, port, root, size, t_phase):
+    """Two rank processes of ``leg``; both ranks' records."""
+    procs = [subprocess.Popen(
+        [sys.executable, str(Path(__file__).resolve()), "--mesh-train-rank",
+         str(r), str(port), str(root), DEV, leg, *size],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(2)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=max(
+                10.0, MT_TIMEOUT_S - (time.perf_counter() - t_phase)))[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, text) in enumerate(zip(procs, logs)):
+        log(f"--- mesh train {leg} rank {r} (exit {p.returncode})\n"
+            f"{text[-4000:]}")
+    if any(p.returncode != 0 for p in procs):
+        raise RuntimeError(f"a mesh train rank ({leg}) failed: " + "; ".join(
+            f"rank {r} exit {p.returncode}" for r, p in enumerate(procs)))
+    return [json.loads((root / f"{leg}{r}.json").read_text())
+            for r in range(2)]
+
+
+class GradReduceClock:
+    """Observer of the train step's flat all-reduce
+    (``train.step.all_reduce_tensors``): each call's ms (synchronized)
+    and bytes."""
+
+    def __init__(self):
+        import repro_torch.train.step as st
+        self.mod, self.orig, self.calls = st, st.all_reduce_tensors, []
+
+    def __enter__(self):
+        import torch
+
+        def timed(ts, *a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            self.orig(ts, *a, **k)
+            torch.cuda.synchronize()
+            self.calls.append({"ms": (time.perf_counter() - t0) * 1e3,
+                               "bytes": sum(t.numel() * t.element_size()
+                                            for t in ts)})
+        self.mod.all_reduce_tensors = timed
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.all_reduce_tensors = self.orig
+
+
+def mt_checksum(state):
+    """One digest of every leaf of a state, bit for bit: each leaf's bytes
+    as int32 words (bytes for an odd size), their sum and their
+    position-weighted sum (int64, on the leaf's device), hashed."""
+    import hashlib
+    import numpy as np
+    import torch
+    from repro_torch.ckpt.checkpoint import iter_leaves
+    h = hashlib.sha256()
+    for k, v in iter_leaves(state):
+        h.update(k.encode())
+        if isinstance(v, (np.ndarray, int)):
+            h.update(np.asarray(v).tobytes())
+            continue
+        b = v.detach().contiguous().reshape(-1).view(torch.uint8)
+        w = (b.view(torch.int32) if b.numel() % 4 == 0 else b).long()
+        pos = torch.arange(1, w.numel() + 1, device=w.device)
+        h.update(np.array([int(w.sum()), int((w * pos).sum())],
+                          np.int64).tobytes())
+    return h.hexdigest()
+
+
+def mt_replicas(state):
+    """Every rank's digest of ``state`` (all-gathered)."""
+    import torch.distributed as dist
+    digests = [None] * dist.get_world_size()
+    dist.all_gather_object(digests, mt_checksum(state))
+    return digests
+
+
+def mt_ckpt(path, mesh):
+    """A save's shard files, the bytes this rank wrote (the shard files
+    whose host it owns) and its CK findings."""
+    from repro_torch.analysis.contracts import validate_checkpoint
+    from repro_torch.ckpt.checkpoint import _writes
+    meta = json.loads((Path(path) / "META").read_text())
+    hosts = [dict(zip(meta["shard_axes"], c)) for c in meta["hosts"]]
+    n = meta["n_shards"]
+    mine = sum((Path(path) / f"shard_{h:05d}-of-{n:05d}.npz").stat().st_size
+               for h, c in enumerate(hosts) if _writes(mesh, c))
+    return {"shards": sorted(p.name for p in Path(path).iterdir()
+                             if p.name.startswith("shard_")),
+            "mesh_axes": meta["mesh_axes"], "rank_bytes": mine,
+            "findings": sorted({f"{f.severity}:{f.rule}"
+                                for f in validate_checkpoint(str(path))})}
+
+
+def mt_leaf_diffs(params, ref):
+    """Each float param leaf's (largest |difference|, largest |ref|)
+    against ``ref``: a tree of one structure, or a checkpoint's path."""
+    from repro_torch.ckpt import CheckpointReader
+    from repro_torch.ckpt.checkpoint import iter_leaves
+    reader = CheckpointReader(str(ref)) if isinstance(ref, (str, Path)) \
+        else None
+    want = None if reader else dict(iter_leaves(ref))
+    out = {}
+    try:
+        for k, v in iter_leaves(params):
+            if not v.is_floating_point():
+                continue
+            w = reader.read_tensor(k, v.device) if reader else want[k]
+            w = w.double()
+            out[k] = [float((v.double() - w).abs().max()),
+                      float(w.abs().max())]
+    finally:
+        if reader:
+            reader.close()
+    return out
+
+
+def mt_param_faults(diffs, witness):
+    """(path, |difference| / largest, witness's) of every leaf off by more
+    than ``MT_LEAF_TOL`` of its largest magnitude and ``MT_WITNESS_X``
+    times the witness's difference."""
+    return [(k, d / max(mag, 1e-30), witness[k][0] / max(mag, 1e-30))
+            for k, (d, mag) in diffs.items()
+            if d > max(MT_LEAF_TOL * mag, MT_WITNESS_X * witness[k][0])]
+
+
+def mesh_train_rank(rank, port, root, dev, leg, size):
+    """One rank of the mesh train phase.  ``dp``: on (2, 1), one layer's
+    gradient through ``compressed_all_reduce``; the uneven batch's loss
+    with the ranks' shares and with the shares forced equal (the planted
+    fault); steps 1-4 through a crash before data step 3
+    (``run_with_restarts``).  ``tp``: on (1, 2), fresh ranks restore step
+    4 and train to 6; the params against the single run's; the step-6
+    checkpoint cold-started to packed int8 and served one shot (rank 0
+    also on the single-process engine first) in each ``MT_SERVE_RUNS``
+    config."""
+    import torch
+    import torch.distributed as dist
+    global DEV
+    DEV = dev
+    sys.path.insert(0, str(ROOT / "src"))
+    if dev == "cuda":
+        torch.cuda.set_device(0)
+        torch.backends.cuda.matmul.allow_tf32 = False
+    else:
+        mesh_host_rehearsal()
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            world_size=2, rank=rank)
+    from repro_torch.dist import sharding
+    from repro_torch.dist.sharding import use_mesh
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.train import run_with_restarts
+    if size != ("--no-tiny",):
+        # a rehearsal's leaves are below the FSDP threshold: shard them on
+        # data anyway, so that its saves have the card's file layout
+        sharding.FSDP["min_bytes"] = 0
+    if dev == "cpu":
+        torch.set_num_threads(2)
+    root = Path(root)
+    dims = mt_dims(size)
+    cfg = mt_config(size)
+    shape = (2, 1) if leg == "dp" else (1, 2)
+    mesh = make_mesh(shape, ("data", "model"), dev)
+    data = mt_data(cfg, dims)
+    ck = str(root / "ck")
+    rec = {"rank": rank, "leg": leg, "shape": list(shape)}
+    trainers, ms = [], []
+
+    def make():
+        trainers.append(mt_trainer(cfg, ck, ms))
+        return trainers[-1]
+    with CkptClock() as clock, GradReduceClock() as gr:
+        if leg == "dp":
+            rec.update(mt_dp_checks(cfg, mesh, dims))
+            with use_mesh(mesh):
+                run_with_restarts(make, data, total_steps=MT_SPLIT,
+                                  fault_at=MT_FAULT)
+            rec["attempts"] = len(trainers)
+        else:
+            with use_mesh(mesh):
+                make()
+                rec["resumed"] = trainers[-1].try_restore()
+                trainers[-1].run(data(rec["resumed"]), steps=MT_STEPS)
+    state = trainers[-1].state
+    rec["history"], rec["steps"] = mt_history(trainers)
+    rec["first_attempt_steps"] = [h["step"] for h in trainers[0].history]
+    rec["step_ms"] = ms
+    rec["grad_reduce"] = [c for c in gr.calls if c["bytes"] > 1 << 20]
+    rec["saves"] = clock.saves
+    rec["restores"] = clock.restores
+    rec["replicas"] = mt_replicas(state)
+    last = Path(ck) / f"step_{state.step}"
+    rec["ckpt"] = mt_ckpt(last, mesh)
+    rec["ckpt_steps"] = sorted(p.name for p in Path(ck).iterdir())
+    if leg == "tp":
+        rec["leaf_diffs"] = mt_leaf_diffs(state.params,
+                                          root / "single_params")
+    del trainers, state
+    if dev == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+    if leg == "tp":
+        rec["serve"] = mt_serve(last, mesh, dims, size)
+    (root / f"{leg}{rank}.json").write_text(json.dumps(rec))
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def mt_dp_checks(cfg, mesh, dims):
+    """(2, 1): ``compressed_all_reduce`` of layer 0's ``wq`` gradient on
+    this rank's rows against ``compressed_sum`` of every rank's, and what
+    it sent; the uneven batch's loss, then again with the ranks' shares
+    forced equal (loss and gradient norm)."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.dist.parallel import all_gather, batch_coord, batch_rows
+    from repro_torch.dist.sharding import use_mesh
+    from repro_torch.models.api import build
+    from repro_torch.optim import compressed_all_reduce, compressed_sum
+    from repro_torch.train import step as st
+    api = build(cfg)
+    params = api.init(seed=0, device=DEV)
+    batch = {k: v.to(DEV) for k, v in mt_batch(cfg, 0, dims).items()}
+    lo, hi = batch_rows(dims["b"], mesh)[batch_coord(mesh)]
+    with use_mesh(None):
+        _, g = st.microbatched_value_and_grad(api.loss)(
+            params, {k: v[lo:hi] for k, v in batch.items()})
+    x = g["layers"]["attn"]["wq"].w[0].contiguous()
+    del g
+    sent, orig = [], dist.all_gather_into_tensor
+
+    def spy(o, t, *a, **k):
+        sent.append(str(t.dtype))
+        return orig(o, t, *a, **k)
+    dist.all_gather_into_tensor = spy
+    try:
+        with use_mesh(mesh):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            y = compressed_all_reduce(x, "data")
+            torch.cuda.synchronize()
+            c_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        dist.all_gather_into_tensor = orig
+    with use_mesh(mesh):
+        xs = all_gather(x, "data")
+    want = compressed_sum(xs)
+    out = {"compressed": {
+        "shape": list(x.shape), "equal": bool(torch.equal(y, want)),
+        "sent": sent, "ms": c_ms,
+        "err_vs_sum": float((y - sum(xs)).abs().max()
+                            / sum(xs).abs().max())}}
+    uneven = {k: v.to(DEV) for k, v in mt_uneven(cfg, dims).items()}
+    out["uneven"] = mt_vg_loss(api, params, uneven, mesh)
+    real = st.rank_share
+    st.rank_share = lambda b, m: (real(b, m)[0], 1.0 / 2)
+    try:
+        out["planted"] = mt_vg_loss(api, params, uneven, mesh)
+    finally:
+        st.rank_share = real
+    return out
+
+
+def mt_serve(step_dir, mesh, dims, size):
+    """The step-6 checkpoint cold-started to packed int8 on this rank and
+    served one shot (paged, fused attention) in each ``MT_SERVE_RUNS``
+    config: rank 0 first on the single-process engine (the other rank
+    waiting), then both placed on ``mesh``, launches counted around each
+    drive."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch import kernels as tk
+    from repro_torch.dist.sharding import use_mesh
+    from repro_torch.models.api import build
+    from repro_torch.serve.deploy import to_serving_params
+    from repro_torch.serve.engine import ServeEngine
+    rank = dist.get_rank()
+    out = {}
+    for label, act, dtype, kv in MT_SERVE_RUNS:
+        cfg = mt_config(size, act, dtype)
+        api = build(cfg)
+        stats = {}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        # the checkpoint's structure is the PACT-off config's
+        dep = to_serving_params(
+            str(step_dir), 8, device=DEV, stats=stats,
+            template=build(mt_config(size, 32, dtype)).abstract_params())
+        torch.cuda.synchronize()
+        if act < 32:
+            # PACT was off in training: the clip values are the init's
+            dep["layers"] = dict(dep["layers"], **{
+                k: torch.full((cfg.n_layers,), cfg.quant.pact_init,
+                              dtype=torch.float32, device=DEV)
+                for k in ("beta_attn", "beta_mlp")})
+        rec = {"cold_start_s": time.perf_counter() - t0,
+               "peak_host_bytes": stats["peak_host_bytes"],
+               "dense_tree_bytes": stats["dense_tree_bytes"]}
+        g = torch.Generator(device="cpu").manual_seed(3)
+        tok = torch.randint(0, cfg.vocab, (dims["sb"], dims["sp"]),
+                            generator=g, dtype=torch.int32).to(DEV)
+        kw = dict(kv_quant_bits=kv, backend="kernel", attn_backend="fused",
+                  device=DEV)
+        if rank == 0:
+            eng = ServeEngine(api, dep, **kw)
+            tk.reset_launch_counts()
+            single = greedy(eng, tok, dims["new"], page=dims["page"])
+            torch.cuda.synchronize()
+            single["launches"] = tk.launch_counts()
+            del eng
+        dist.barrier()
+        with use_mesh(mesh):
+            eng = ServeEngine(api, dep, **kw)
+        torch.cuda.synchronize()
+        tk.reset_launch_counts()
+        run = greedy(eng, tok, dims["new"], page=dims["page"])
+        torch.cuda.synchronize()
+        rec["launches"] = tk.launch_counts()
+        rec["tokens"] = run["tokens"].tolist()
+        rec["decode_ms_per_step"] = run["decode_ms_per_step"]
+        if rank == 0:
+            rec["single_launches"] = single["launches"]
+            rec["single_tokens"] = single["tokens"].tolist()
+            rec["single_decode_ms_per_step"] = single["decode_ms_per_step"]
+            rec["vs_single"] = compare(run, single)
+            del single
+        out[label] = rec
+        del eng, dep, run
+        dist.barrier()
+    return out
+
+
+def check_mesh_train(res):
+    """The phase's rules: every step's loss within ``MT_LOSS_TOL_REL`` of
+    the single run's; both ranks' states one digest; the restart resumed
+    from step 2 and the elastic restore from step 4; the saves one shard
+    file a data (step 4) and a model coordinate (step 6), CK-clean; the
+    (1, 2) params and the gradient norms against the single run's by
+    :func:`mt_param_faults`' rule; ``compressed_all_reduce`` its
+    formula, sending int8; the uneven batch's loss and gradient norm
+    within the limit, and the planted fault's above it; the cold-started
+    tree served on (1, 2):
+    launches equal the single process's on every rank, tokens identical
+    with the quantizers off, logits within ``QUANT_TOL_REL`` with them."""
+    one = res["single"]
+    want = dict(zip(one["steps"], one["history"]))
+    for leg, steps in (("dp", list(range(1, MT_SPLIT + 1))),
+                       ("tp", list(range(MT_SPLIT + 1, MT_STEPS + 1)))):
+        r0 = res[leg][0]
+        for rank in res[leg]:
+            where = f"mesh train {leg} rank {rank['rank']}"
+            assert rank["history"] == r0["history"], where
+            assert rank["replicas"][0] == rank["replicas"][1], \
+                f"{where}: replicas differ"
+            assert rank["steps"] == (list(range(1, MT_SPLIT + 1))
+                                     if leg == "dp" else steps), where
+            assert rank["ckpt"]["findings"] == ["info:CK0"], \
+                (where, rank["ckpt"]["findings"])
+            assert len(rank["ckpt"]["shards"]) == 2, (where, rank["ckpt"])
+        for s, h in zip(r0["steps"], r0["history"]):
+            err = abs(h["loss"] - want[s]["loss"]) / abs(want[s]["loss"])
+            assert err <= MT_LOSS_TOL_REL, (leg, s, h, want[s])
+    dp, tp = res["dp"][0], res["tp"][0]
+    assert dp["attempts"] == 2 and dp["first_attempt_steps"] == [1, 2, 3], dp
+    assert dp["restores"] and dp["restores"][0]["path"].endswith("step_2")
+    assert dp["ckpt"]["mesh_axes"] == {"data": 2, "model": 1}, dp["ckpt"]
+    assert tp["resumed"] == MT_SPLIT and \
+        tp["ckpt"]["mesh_axes"] == {"data": 1, "model": 2}, tp
+    bad = mt_param_faults(tp["leaf_diffs"], res["witness"]["leaf_diffs"])
+    assert not bad, ("params off the single run's", bad)
+    # a gradient norm's noise moves from step to step: the limit is the
+    # witness's largest relative distance over the run
+    wit = max(abs(w["grad_norm"] - want[s]["grad_norm"])
+              / abs(want[s]["grad_norm"])
+              for s, w in zip(one["steps"], res["witness"]["history"]))
+    lim = max(MT_LOSS_TOL_REL, MT_WITNESS_X * wit)
+    for r0 in (dp, tp):
+        for s, h in zip(r0["steps"], r0["history"]):
+            g, w = h["grad_norm"], want[s]["grad_norm"]
+            assert abs(g - w) <= lim * abs(w), ("grad norm", s, g, w, lim)
+    c = dp["compressed"]
+    assert c["equal"] and c["sent"] == ["torch.int8"], c
+    u = one["uneven"]
+    ok, bad = mt_rel(dp["uneven"], u), mt_rel(dp["planted"], u)
+    assert max(ok.values()) <= MT_LOSS_TOL_REL, (ok, dp["uneven"], u)
+    assert max(bad.values()) > MT_LOSS_TOL_REL, \
+        ("the planted fault (equal shares) passed", bad)
+    t0 = res["tp"][0]["serve"]
+    for rank in res["tp"]:
+        for label, act, _, kv in MT_SERVE_RUNS:
+            got, ref = rank["serve"][label], t0[label]
+            where = f"mesh train serve {label} rank {rank['rank']}"
+            assert got["launches"] == ref["single_launches"], \
+                (where, got["launches"], ref["single_launches"])
+            assert got["launches"]["packed_matmul"] > 0 and \
+                got["launches"]["paged_attention"] > 0, where
+            assert got["tokens"] == ref["tokens"], where
+            assert 0 < got["peak_host_bytes"] < got["dense_tree_bytes"], \
+                where
+            cmp = ref["vs_single"]
+            if act == 32:
+                assert ref["tokens"] == ref["single_tokens"], (where, cmp)
+            else:
+                assert cmp["finite"] and cmp["err"] <= QUANT_TOL_REL[kv], \
+                    (where, cmp)
+
+
+def mt_rel(got, want):
+    """Relative error of each of a value-and-gradient's figures."""
+    return {k: abs(got[k] - want[k]) / abs(want[k]) for k in want}
+
+
+def mesh_train_summary(res) -> dict:
+    """The phase's figures for the printout."""
+    import statistics
+    one, dp, tp = res["single"], res["dp"][0], res["tp"][0]
+
+    def med(xs):
+        return statistics.median(xs[1:] or xs) if xs else None
+    saves = [s for r in (dp, tp) for s in r["saves"]]
+    rank_bytes = {dp["ckpt"]["rank_bytes"], tp["ckpt"]["rank_bytes"]}
+    return {
+        "phase_s": res["phase_s"], "layers": res["layers"],
+        "step_ms_median_after_first": {
+            "single": med(one["step_ms"]), "2x1": med(dp["step_ms"]),
+            "1x2": med(tp["step_ms"])},
+        "grad_all_reduce_ms_a_step": {
+            "2x1": med([c["ms"] for c in dp["grad_reduce"]]),
+            "1x2": med([c["ms"] for c in tp["grad_reduce"]])},
+        "grad_all_reduce_bytes": dp["grad_reduce"][0]["bytes"]
+        if dp["grad_reduce"] else None,
+        "save_s": [round(s["s"], 3) for s in saves],
+        "save_gb_per_s_a_rank": {
+            "2x1": dp["ckpt"]["rank_bytes"] / med(
+                [s["s"] for s in dp["saves"]]) / 1e9,
+            "1x2": tp["ckpt"]["rank_bytes"] / med(
+                [s["s"] for s in tp["saves"]]) / 1e9},
+        "save_rank_bytes": sorted(rank_bytes),
+        "restore_s": {"2x1": [r["s"] for r in dp["restores"]],
+                      "1x2": [r["s"] for r in tp["restores"]]},
+        "cold_start_s": {k: v["cold_start_s"]
+                         for k, v in tp["serve"].items()},
+        "serve_decode_ms_per_step": {
+            k: {"single": v["single_decode_ms_per_step"],
+                "1x2": v["decode_ms_per_step"]}
+            for k, v in tp["serve"].items()},
+        "loss_err_max": max(
+            abs(h["loss"] - w["loss"]) / abs(w["loss"])
+            for r in (dp, tp) for s, h in zip(r["steps"], r["history"])
+            for w in [dict(zip(one["steps"], one["history"]))[s]]),
+        "param_err_max": max(d / max(m, 1e-30)
+                             for d, m in tp["leaf_diffs"].values()),
+        "witness_param_err_max": max(
+            d / max(m, 1e-30)
+            for d, m in res["witness"]["leaf_diffs"].values()),
+        "params_over_leaf_tol": sorted(
+            k for k, (d, m) in tp["leaf_diffs"].items()
+            if d > MT_LEAF_TOL * m),
+        "uneven_err": mt_rel(dp["uneven"], one["uneven"]),
+        "planted_err": mt_rel(dp["planted"], one["uneven"]),
+        "compressed_all_reduce": dp["compressed"],
+        "transport": "gloo, two ranks on one card (host-staged)"}
+
+
 def time_packed(m, k, n, bits, wbr=8):
     import torch
     from repro_torch.kernels import packed_matmul
@@ -6359,7 +7080,7 @@ def time_path(deployed, tok):
 def time_bitplane(bp, sub, name, m, x_dtype=None):
     """``bitplane_matmul`` on one leaf of a bit-plane tree (the mixed tree,
     or its speculative draft) at M=m, bf16 x unless ``x_dtype``, cycling
-    through the 32 layers' views so each call reads its weights cold.
+    through the layers' views so each call reads its weights cold.
     Library: ``torch.matmul`` on the weight composed to x's dtype.  Bound:
     the bytes ``bitplane_stream_bytes`` bills (live planes, the sign of
     live blocks, mask bits, scales) plus x and the output over HBM, or the
@@ -6508,6 +7229,11 @@ def main() -> int:
         # one rank of the mesh phase, started by mesh_phase
         _, _, rank, port, work, dev, *size = sys.argv
         return mesh_rank(int(rank), int(port), work, dev, tuple(size))
+    if len(sys.argv) > 1 and sys.argv[1] == "--mesh-train-rank":
+        # one rank of the mesh train phase, started by mesh_train_phase
+        _, _, rank, port, work, dev, leg, *size = sys.argv
+        return mesh_train_rank(int(rank), int(port), work, dev, leg,
+                               tuple(size))
     if not torch.cuda.is_available():
         log("chip_smoke: no CUDA device; this script runs only on a GPU")
         return 2
@@ -6549,6 +7275,8 @@ def main() -> int:
     print(json.dumps({"lint": dict(lint_summary(detail), card=smi)}))
     print(json.dumps({"mesh": dict(mesh_summary(detail["mesh_phase"]),
                                    card=smi)}))
+    print(json.dumps({"mesh_train": dict(
+        mesh_train_summary(detail["mesh_train_phase"]), card=smi)}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
@@ -6568,6 +7296,10 @@ def run(detail) -> list:
     from repro_torch.configs import REGISTRY
     from repro_torch.models.api import build
     from repro_torch.serve.deploy import to_serving_params
+    # phi3 at PHI3_DEPTH layers through the time phase and its checks
+    depth = contextlib.ExitStack()
+    depth.enter_context(phi3_depth())
+    detail["phi3_layers"] = PHI3_DEPTH
     t0 = time.perf_counter()
     qat = build(REGISTRY[ARCH]).init(seed=0, device=DEV)
     deployed = {b: to_serving_params(qat, b, device=DEV) for b in (8, 4)}
@@ -6656,10 +7388,12 @@ def run(detail) -> list:
                                     p["leg"]) == (8, 8, "kernel",
                                                   "contiguous"))
     detail["decode_vs_baseline"] = {"ms_per_step": dec["decode_ms_per_step"],
-                                    "baseline_ms": BASELINE_DECODE_MS}
+                                    "layers": PHI3_DEPTH,
+                                    "baseline_ms": BASELINE_DECODE_MS,
+                                    "baseline_layers": 32}
     log(f"phi3 int8 kernel decode {dec['decode_ms_per_step']:.2f} ms/step "
-        f"(the run before the kernel boundary: {BASELINE_DECODE_MS} "
-        f"ms/step)")
+        f"at {PHI3_DEPTH} layers (the run before the kernel boundary, 32 "
+        f"layers: {BASELINE_DECODE_MS} ms/step)")
 
     # one kernels entry per kernel, timed at the shapes of the run its
     # launches come from: this slice's main path, the counted scheduler
@@ -6746,6 +7480,7 @@ def run(detail) -> list:
     check_bitplane(detail["bitplane_phase"], detail["speculative_phase"],
                    bp_paths)
 
+    depth.close()
     del deployed, bp, tok
     torch.cuda.empty_cache()
     detail["moe_phase"] = moe_phase()
@@ -6843,6 +7578,16 @@ def run(detail) -> list:
             f"{row['label']} {key}": out["launches"][k["name"]]
             for row in mp["ranks"][0]["legs"]
             for key, out in row["runs"].items()}
+    save_detail(detail)
+
+    detail["mesh_train_phase"] = mt = mesh_train_phase()
+    log(f"mesh train phase ran in {mt['phase_s']:.1f} s")
+    save_detail(detail)
+    check_mesh_train(mt)
+    for k in kernels:
+        k["mesh_train_launches_a_rank"] = {
+            f"{label} 1x2": rec["launches"][k["name"]]
+            for label, rec in mt["tp"][0]["serve"].items()}
     save_detail(detail)
     return kernels
 

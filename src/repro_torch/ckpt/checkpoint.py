@@ -8,11 +8,25 @@ Layout::
         shard_00000-of-0000M.npz      # one file per (emulated) host
 
 META records, per leaf, its ``jax.tree_util.keystr`` path, the sanitized
-npz key, the true shape, the dtype name and the spec entries; a leaf is
-reassembled from the shard chunks its spec assigns to each host.  The
-port writes single-shard saves (no mesh; sharded saves belong to the
-distribution work, ROADMAP item 6) and reads the reference's sharded and
-legacy (format 1, ``arrays.npz``) ones.
+npz key, the true shape, the dtype name and the spec entries, and the
+saving mesh's axis sizes; a leaf is reassembled from the shard chunks
+its spec assigns to each host, so a save restores under any other mesh
+or none (elastic restore).  Legacy (format 1, ``arrays.npz``) saves are
+read too.
+
+**Sharded saves.**  With ``mesh``, every leaf is chunked by its fitted
+spec (``pad=False``: the chunks tile the true array) — the parameter
+rules of ``dist.sharding`` keyed by the leaf's path unless ``specs``
+names them — and each chunk lands in the shard file of the host that
+owns it, one file a coordinate over the mesh axes any leaf uses.  Under
+a shape-only mesh (anything with ``.shape``: ``ShapeOnlyMesh``) one
+process writes every host's file, as the reference emulates a fleet.
+Under a live process mesh (``dist.parallel.Mesh``) every rank holds the
+whole tree and writes the files of the hosts whose coordinates are its
+own on the used axes (0 on the others); rank 0 then writes META and
+commits.  Restore gives every rank whole leaves (the reference places
+them by ``param_pspecs`` instead: a recorded divergence, the values are
+the same).
 
 Leaf paths are the reference's: dict keys in sorted order, list indices,
 and a dataclass node's data fields (``.w``, ``.planes``) — so a tree the
@@ -26,7 +40,10 @@ name (no ``ml_dtypes`` needed).
 Commit protocol (crash-safe at every point): write into a unique
 ``<path>.tmp.<nonce>``, fsync every file and the directory, move an
 existing ``<path>`` aside to ``<path>.old.<nonce>``, rename the tmp dir
-in, fsync the parent, and only then delete the old copy.
+in, fsync the parent, and only then delete the old copy.  Under a live
+mesh the nonce is rank 0's, every rank fsyncs its own files, and after a
+barrier rank 0 alone writes META and commits; a second barrier holds
+every rank until the step is live.
 ``CheckpointManager._gc`` sweeps stale ``.tmp.*`` / ``.old.*`` debris.
 
 Restore maps saved arrays onto a template tree by path; a disagreement
@@ -158,13 +175,17 @@ def _fsync_dir(path: str) -> None:
         os.close(fd)
 
 
+def _fsync_file(name: str) -> None:
+    fd = os.open(name, os.O_RDONLY)
+    try:
+        os.fsync(fd)
+    finally:
+        os.close(fd)
+
+
 def _fsync_tree(tmp: str) -> None:
     for name in os.listdir(tmp):
-        fd = os.open(os.path.join(tmp, name), os.O_RDONLY)
-        try:
-            os.fsync(fd)
-        finally:
-            os.close(fd)
+        _fsync_file(os.path.join(tmp, name))
     _fsync_dir(tmp)
 
 
@@ -219,22 +240,110 @@ class HostTree(dict):
         return cls((k, to_host(v)) for k, v in iter_leaves(tree))
 
 
-def _no_mesh(mesh, specs) -> None:
-    if mesh is not None or specs is not None:
-        raise NotImplementedError(
-            "sharded checkpoints under a mesh are not ported (ROADMAP "
-            "item 6, distribution: training under a mesh); save and "
-            "restore with mesh=None")
+# --------------------------------------------------------------------------
+# sharded layout
+# --------------------------------------------------------------------------
+
+def _spec_entries(ps) -> List[Any]:
+    """JSON-able spec: one entry a dim, None or a list of axis names."""
+    out: List[Any] = []
+    for entry in tuple(ps):
+        if entry is None:
+            out.append(None)
+        else:
+            out.append(list(entry) if isinstance(entry, tuple)
+                       else [entry])
+    return out
+
+
+def _leaf_specs(flat: "HostTree", mesh, specs) -> Dict[str, List[Any]]:
+    """Fitted, divisible (``pad=False``) spec entries per leaf path: a
+    padded placement still saves its true array, which is what elastic
+    restore wants.  ``specs`` (a spec tree) overrides the parameter rules,
+    which key every leaf of a ``TrainState`` by its path (``.params…``,
+    ``.opt_state…``; the 0-d ``.step`` and ``.alpha`` replicated).
+
+    One entry a dim, always: the rules' replicated quantization metadata
+    (``.scale``, ``.mask``, ``.bitwidth``) is ``[None] * rank``, where the
+    reference writes ``[]``, which its own ``validate_checkpoint`` rejects
+    (CK1, and CK2 for the whole chunk) though both readers assemble the
+    same leaf from either."""
+    from ..dist.sharding import _leaf_spec, fit_spec, spec_leaves, use_mesh
+    if mesh is None:
+        return {k: [None] * v.ndim for k, (v, _) in flat.items()}
+    if specs is None:
+        with use_mesh(mesh):
+            out = {k: _spec_entries(_leaf_spec(k, v, pad=False))
+                   for k, (v, _) in flat.items()}
+        return {k: e + [None] * (flat[k][0].ndim - len(e))
+                for k, e in out.items()}
+    spec_flat = dict(spec_leaves(specs))
+    out = {}
+    for k, (v, _) in flat.items():
+        ps = spec_flat.get(k)
+        out[k] = [None] * v.ndim if ps is None else _spec_entries(
+            fit_spec(ps, v.shape, mesh, label=k, pad=False))
+    return out
+
+
+def _used_axes(leaf_specs: Dict[str, List[Any]]) -> List[str]:
+    axes: List[str] = []
+    for entries in leaf_specs.values():
+        for entry in entries:
+            for a in entry or ():
+                if a not in axes:
+                    axes.append(a)
+    return sorted(axes)
+
+
+def _host_grid(mesh_axes: Dict[str, int],
+               axes: Sequence[str]) -> List[Dict[str, int]]:
+    """One host per coordinate tuple over ``axes`` (the mesh axes any
+    leaf spec uses), the last axis fastest."""
+    hosts: List[Dict[str, int]] = [{}]
+    for a in axes:
+        hosts = [dict(h, **{a: i}) for h in hosts
+                 for i in range(mesh_axes.get(a, 1))]
+    return hosts
+
+
+def _live(mesh) -> bool:
+    """A process mesh whose ranks each run this call."""
+    from ..dist.parallel import Mesh
+    return isinstance(mesh, Mesh) and torch.distributed.is_initialized()
+
+
+def _writes(mesh, coords: Dict[str, int]) -> bool:
+    """Whether this rank of a live ``mesh`` writes the host at ``coords``:
+    its coordinates there on the used axes, 0 on the others (one writer
+    a host)."""
+    return all(mesh.coord(a) == coords.get(a, 0) for a in mesh.axis_names)
 
 
 def save_tree(tree: Any, path: str, extra_meta: Optional[Dict] = None,
-              mesh=None, specs: Any = None) -> None:
-    """Atomic write of all array leaves of ``tree`` to ``path``: one
-    shard file (no mesh) and the META manifest."""
-    _no_mesh(mesh, specs)
+              mesh=None, specs: Any = None, group=None) -> None:
+    """Atomic sharded write of all array leaves of ``tree`` to ``path``.
+
+    With no ``mesh``, one shard file.  With one, every leaf is chunked by
+    its fitted spec (``specs``, a spec tree, overrides the parameter
+    rules) into the shard file of the host that owns the chunk; META
+    carries the spec and mesh-shape metadata that makes restore
+    topology-independent.  Under a live process mesh every rank of it
+    calls this with the same tree; the nonce, the barriers and the
+    commit run over ``group`` (default: the whole world)."""
+    from ..dist.parallel import barrier, broadcast_object
     flat = HostTree.of(tree)
+    mesh_axes = {a: int(n) for a, n in dict(
+        getattr(mesh, "shape", {}) or {}).items()} if mesh is not None \
+        else {}
+    leaf_specs = _leaf_specs(flat, mesh, specs)
+    axes = _used_axes(leaf_specs)
+    hosts = _host_grid(mesh_axes, axes)
+    n = len(hosts)
+    live = _live(mesh)
+    rank0 = not live or torch.distributed.get_rank(group) == 0
+
     manifest: Dict[str, Dict[str, Any]] = {}
-    arrays: Dict[str, np.ndarray] = {}
     seen: Dict[str, str] = {}
     for k, (v, dtype) in flat.items():
         sk = _sanitize(k)
@@ -244,17 +353,40 @@ def save_tree(tree: Any, path: str, extra_meta: Optional[Dict] = None,
                 f"map to {sk!r}")
         seen[sk] = k
         manifest[k] = {"key": sk, "shape": list(v.shape), "dtype": dtype,
-                       "spec": [None] * v.ndim}
-        arrays[sk] = v
-    tmp = f"{path}.tmp.{uuid.uuid4().hex[:8]}"
-    os.makedirs(tmp)
-    np.savez(os.path.join(tmp, "shard_00000-of-00001.npz"), **arrays)
-    with open(os.path.join(tmp, "META"), "w") as f:
-        json.dump({"format": CKPT_FORMAT, "manifest": manifest,
-                   "mesh_axes": {}, "shard_axes": [], "n_shards": 1,
-                   "hosts": [[]], "extra": extra_meta or {}}, f)
-    _fsync_tree(tmp)
-    _commit_dir(tmp, path)
+                       "spec": leaf_specs[k]}
+    nonce = uuid.uuid4().hex[:8]
+    if live:
+        nonce = broadcast_object(nonce, group)
+    tmp = f"{path}.tmp.{nonce}"
+    os.makedirs(tmp, exist_ok=True)
+    written = []
+    for h, coords in enumerate(hosts):
+        if live and not _writes(mesh, coords):
+            continue
+        arrays = {}
+        for k, (v, _) in flat.items():
+            sl = _chunk_slices(v.shape, leaf_specs[k], mesh_axes, coords)
+            if sl is not None:
+                arrays[manifest[k]["key"]] = v[sl]
+        name = os.path.join(tmp, f"shard_{h:05d}-of-{n:05d}.npz")
+        np.savez(name, **arrays)
+        written.append(name)
+    if live:
+        for name in written:
+            _fsync_file(name)
+        barrier(group)
+    if rank0:
+        with open(os.path.join(tmp, "META"), "w") as f:
+            json.dump({"format": CKPT_FORMAT, "manifest": manifest,
+                       "mesh_axes": mesh_axes, "shard_axes": axes,
+                       "n_shards": n,
+                       "hosts": [[hst.get(a, 0) for a in axes]
+                                 for hst in hosts],
+                       "extra": extra_meta or {}}, f)
+        _fsync_tree(tmp)
+        _commit_dir(tmp, path)
+    if live:
+        barrier(group)
 
 
 class CheckpointMismatchError(ValueError):
@@ -361,8 +493,17 @@ def restore_tree(template: Any, path: str, mesh=None,
     overrides the latter; a template on the ``meta`` device needs it).
     A key-set mismatch raises :class:`CheckpointMismatchError` unless
     ``partial=True`` (missing keys keep their template values, extra
-    checkpoint keys are skipped)."""
-    _no_mesh(mesh, shardings)
+    checkpoint keys are skipped).
+
+    Any save restores under any ``mesh`` or none: each leaf is assembled
+    whole from whatever shard files the saving mesh wrote, and every rank
+    of a live mesh holds it whole (the port's train state is whole on
+    every rank; the reference places the leaves by ``param_pspecs``
+    instead).  ``shardings`` (the reference's per-leaf JAX shardings) has
+    no counterpart and is refused."""
+    if shardings is not None:
+        raise TypeError("restore_tree(shardings=...) places JAX arrays; "
+                        "the port restores whole leaves on every rank")
     reader = CheckpointReader(path)
     try:
         keys = [k for k, _ in iter_leaves(template)]
@@ -398,7 +539,17 @@ class CheckpointManager:
     ``save`` copies every leaf to host numpy before the writer thread
     starts, so an optimizer updating its tensors in place during the
     write cannot tear the saved state.  A failed async save is never
-    silent: it is re-raised from the next :meth:`wait` or :meth:`save`."""
+    silent: it is re-raised from the next :meth:`wait` or :meth:`save`.
+
+    Under a live process mesh every rank calls ``save`` and
+    ``restore_latest`` at the same steps.  The writer thread's
+    collectives (the nonce, the barriers around the commit) run on a gloo
+    group of the manager's own, made by every rank at the first such call:
+    gloo does not order collectives that two threads start on one group,
+    and the training step's gradient all-reduce runs on the main thread
+    meanwhile.  Rank 0 alone picks the latest step (broadcast to the
+    others, on that group, after the writer is joined) and prunes old
+    steps."""
 
     def __init__(self, directory: str, keep: int = 3, use_async: bool = True):
         self.dir = directory
@@ -406,7 +557,17 @@ class CheckpointManager:
         self.use_async = use_async
         self._thread: Optional[threading.Thread] = None
         self._error: Optional[BaseException] = None
+        self._group = None
         os.makedirs(directory, exist_ok=True)
+
+    def _group_for(self, mesh):
+        """The manager's own group under a live ``mesh`` (None without
+        one); collective the first time."""
+        if not _live(mesh):
+            return None
+        if self._group is None:
+            self._group = torch.distributed.new_group(backend="gloo")
+        return self._group
 
     def _step_dirs(self):
         out = []
@@ -420,11 +581,16 @@ class CheckpointManager:
         dirs = self._step_dirs()
         return dirs[-1][0] if dirs else None
 
-    def wait(self):
-        """Join any in-flight async save; re-raise its failure, if any."""
+    def join(self):
+        """Join any in-flight async save, keeping its failure for
+        :meth:`wait` (a crashing trainer lets its last save land first)."""
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+
+    def wait(self):
+        """Join any in-flight async save; re-raise its failure, if any."""
+        self.join()
         if self._error is not None:
             err, self._error = self._error, None
             raise RuntimeError(
@@ -433,14 +599,16 @@ class CheckpointManager:
     def save(self, step: int, tree: Any, extra_meta: Optional[Dict] = None,
              mesh=None, specs: Any = None):
         self.wait()
-        _no_mesh(mesh, specs)
+        group = self._group_for(mesh)
         host = HostTree.of(tree)     # synchronous copy; written async
         path = os.path.join(self.dir, f"step_{step}")
 
         def work():
             try:
-                save_tree(host, path, extra_meta)
-                self._gc()
+                save_tree(host, path, extra_meta, mesh=mesh, specs=specs,
+                          group=group)
+                if group is None or torch.distributed.get_rank(group) == 0:
+                    self._gc()
             except BaseException as e:       # surfaced by the next wait()
                 self._error = e
 
@@ -466,7 +634,11 @@ class CheckpointManager:
     def restore_latest(self, template: Any, mesh=None, shardings=None,
                        partial: bool = False, device=None):
         self.wait()
+        group = self._group_for(mesh)
         step = self.latest_step()
+        if group is not None:
+            from ..dist.parallel import broadcast_object
+            step = broadcast_object(step, group)
         if step is None:
             return None, None
         path = os.path.join(self.dir, f"step_{step}")

@@ -25,6 +25,12 @@ through the same kernel wrappers, with these collectives around them:
   (:func:`gather_rows`), so every rank reads the same tokens and runs the
   same scheduler.
 
+Training under a mesh (``train.step.data_parallel``) places nothing: each
+rank takes its rows of the global batch (:func:`batch_rows`), and its
+gradients are summed over every rank of the mesh through flat buffers
+(:func:`all_reduce_tensors`); a checkpoint's nonce and commit use
+:func:`broadcast_object` and :func:`barrier`.
+
 **Shard windows.**  A deployed leaf's payload is blocked into weight
 blocks (WBs) of ``wb_rows x wb_cols``; its per-WB scale (and bit-plane
 mask) grid stays replicated.  A rank's shard along the model-sharded dim
@@ -49,7 +55,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import torch
 import torch.distributed as dist
 
-from .sharding import entry_axes, get_mesh
+from .sharding import batch_axes, entry_axes, get_mesh
 
 
 # --------------------------------------------------------------------------
@@ -107,14 +113,74 @@ def active_mesh() -> Optional[Mesh]:
 # ``reduce_scatter_tensor``) for host tensors in torch 2.13 and for CUDA
 # tensors in torch 2.11 (``scripts/mesh_probe.py`` on the H100).
 
-def all_reduce(t: torch.Tensor, axis: str = "model") -> torch.Tensor:
-    """Sum ``t`` over ``axis`` in place (identity on a 1-rank axis)."""
+_OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}
+
+
+def all_reduce(t: torch.Tensor, axis: Optional[str] = "model",
+               op: str = "sum") -> torch.Tensor:
+    """Reduce ``t`` (``op``: ``sum`` or ``max``) over ``axis``, or over
+    every rank of the mesh with ``axis=None``, in place (identity on a
+    1-rank axis or mesh)."""
     mesh = active_mesh()
-    if mesh is None or mesh.axis_size(axis) == 1:
+    if mesh is None or (axis is not None and mesh.axis_size(axis) == 1):
         return t
     t = t.contiguous()
-    dist.all_reduce(t, group=mesh.group(axis))
+    dist.all_reduce(t, op=_OPS[op],
+                    group=mesh.group(axis) if axis is not None else None)
     return t
+
+
+# a flat buffer's bytes in :func:`all_reduce_tensors`: a few buffers a
+# step at full width (phi3 at 2 layers: ~1.3 GB of f32 gradients)
+BUCKET_BYTES = 256 << 20
+
+
+def all_reduce_tensors(ts: Sequence[torch.Tensor], scale: float = 1.0
+                       ) -> None:
+    """Sum every tensor of ``ts`` over every rank of the mesh, in place,
+    each rank's values multiplied by ``scale`` first: through flat
+    buffers, one a (dtype, device), each cut into buckets of at most
+    :data:`BUCKET_BYTES` (a few collectives, not one a tensor)."""
+    mesh = active_mesh()
+    if mesh is None:
+        if scale != 1.0:
+            for t in ts:
+                t.mul_(scale)
+        return
+    groups: Dict[Tuple[Any, Any], List[torch.Tensor]] = {}
+    for t in ts:
+        groups.setdefault((t.dtype, t.device), []).append(t)
+    for group in groups.values():
+        bucket: List[torch.Tensor] = []
+        size = 0
+        for i, t in enumerate(group):
+            bucket.append(t)
+            size += t.numel() * t.element_size()
+            if size >= BUCKET_BYTES or i == len(group) - 1:
+                flat = torch.cat([b.reshape(-1) for b in bucket])
+                if scale != 1.0:
+                    flat.mul_(scale)
+                all_reduce(flat, axis=None)
+                off = 0
+                for b in bucket:
+                    b.copy_(flat[off:off + b.numel()].view_as(b))
+                    off += b.numel()
+                bucket, size = [], 0
+
+
+def barrier(group=None) -> None:
+    """Wait for every rank of ``group`` (default: the whole world)."""
+    dist.barrier(group=group)
+
+
+def broadcast_object(obj: Any, group=None) -> Any:
+    """Rank 0's ``obj`` (of ``group``; a small picklable value: a step
+    number, a nonce) on every rank of ``group``."""
+    box = [obj]
+    dist.broadcast_object_list(
+        box, src=0 if group is None else dist.get_global_rank(group, 0),
+        group=group)
+    return box[0]
 
 
 def all_gather(t: torch.Tensor, axis: str) -> List[torch.Tensor]:
@@ -163,6 +229,38 @@ def gather_rows(t: torch.Tensor) -> torch.Tensor:
     """Batch rows sharded on ``data`` -> every row on every rank (what the
     host reads: the logits)."""
     return torch.cat(all_gather(t, "data"), dim=0)
+
+
+# --------------------------------------------------------------------------
+# the batch over the data axes
+# --------------------------------------------------------------------------
+
+def batch_group_size(mesh) -> int:
+    """Ranks along the data axes (``pod`` x ``data``): the batch's
+    parallel copies."""
+    return math.prod(mesh.shape[a] for a in batch_axes(mesh))
+
+
+def batch_coord(mesh) -> int:
+    """This rank's index along the data axes (pod-major)."""
+    idx = 0
+    for a in batch_axes(mesh):
+        idx = idx * mesh.axis_size(a) + mesh.coord(a)
+    return idx
+
+
+def batch_rows(n_rows: int, mesh) -> List[Tuple[int, int]]:
+    """The rows ``[lo, hi)`` of a global batch of ``n_rows`` that each
+    data-axes coordinate holds (:func:`batch_coord` order), as the
+    reference places a batch (``batch_pspecs``: dim 0 on the data axes,
+    fitted with ``pad=False``): equal contiguous chunks when the axes'
+    size divides ``n_rows``; else the fit drops the axes and every
+    coordinate holds the whole batch."""
+    n = batch_group_size(mesh)
+    if n_rows % n:
+        return [(0, n_rows)] * n
+    c = n_rows // n
+    return [(i * c, (i + 1) * c) for i in range(n)]
 
 
 # --------------------------------------------------------------------------

@@ -356,9 +356,10 @@ _RULES: Tuple[Tuple[re.Pattern, str], ...] = tuple(
 
 def _leaf_bytes(leaf) -> int:
     # the reference canonicalizes dtypes with x64 off: 8-byte types count
-    # as their 4-byte counterparts
+    # as their 4-byte counterparts.  A tensor or a host numpy copy (a
+    # checkpoint's; bfloat16 as 2-byte void)
     try:
-        return int(math.prod(leaf.shape)) * min(leaf.element_size(), 4)
+        return int(math.prod(leaf.shape)) * min(leaf.itemsize, 4)
     except (AttributeError, TypeError):
         return 0
 

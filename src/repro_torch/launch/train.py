@@ -18,8 +18,22 @@ reference's 9x8.  A model the port trains thus deploys at the geometry
 its serve launcher serves.  ``--ckpt-dir D`` saves a checkpoint every
 ``max(steps // 4, 1)`` steps into D (the reference's format, read by
 ``python -m repro_torch.launch.serve --ckpt D``) and resumes from the
-latest one there, the data pipeline starting at the resumed step.  Not
-ported yet: ``--mesh`` (distribution).
+latest one there, the data pipeline starting at the resumed step.
+
+Under a mesh every rank runs this same command.  ``--mesh single`` /
+``multi`` is the reference's production mesh
+(``launch.mesh.make_production_mesh``: 256 or 512 ranks, which fail with
+``make_mesh``'s error without such a process group); beyond the
+reference, ``--mesh-shape D,M`` trains on a ``(data, model)`` mesh of D x
+M ranks.  A process group not yet initialized is initialized from the
+environment (``RANK``, ``WORLD_SIZE``, ``MASTER_ADDR``, ``MASTER_PORT``,
+as ``torchrun`` sets them) with ``--dist-backend`` (gloo by default: ranks
+sharing one card cannot use NCCL), and destroyed at the end.  Every rank
+holds the whole train state and trains on its rows of each global batch
+(``train.step.data_parallel``); checkpoints are sharded one file a host
+coordinate.  Only rank 0 prints.  A loss holding a statistic of the
+whole batch (the MoE family's load-balancing term) is refused when the
+mesh's data axes split the batch (``NotImplementedError``).
 
 Every decoder-only family trains: dense, MoE (cross entropy plus ``0.01
 x`` the load-balancing term), and vlm, ssm and hybrid.  A vlm model
@@ -62,6 +76,14 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--delta-alpha", type=float, default=1e-3)
     ap.add_argument("--device", default="cuda",
                     help="device to train on (cuda raises without a card)")
+    ap.add_argument("--mesh", default="none",
+                    choices=["none", "single", "multi"])
+    ap.add_argument("--mesh-shape", default="",
+                    help="D,M: train on a (data, model) process mesh of "
+                         "D x M ranks")
+    ap.add_argument("--dist-backend", default="gloo",
+                    help="the process group's backend when this launcher "
+                         "initializes it")
     return ap
 
 
@@ -82,13 +104,39 @@ def config(args):
         cfg.quant, mode=args.quant_mode, n_bits=8, act_bits=args.act_bits))
 
 
-def make_trainer(args):
+def make_mesh_of(args):
+    """The mesh ``--mesh`` / ``--mesh-shape`` name (None for neither),
+    over the process group, which is initialized from the environment
+    first when it is not yet (the caller then destroys it)."""
+    import os
+
+    import torch
+    import torch.distributed as dist
+
+    from .mesh import make_mesh, make_production_mesh
+    if args.mesh == "none" and not args.mesh_shape:
+        return None
+    if args.mesh != "none" and args.mesh_shape:
+        raise SystemExit("--mesh and --mesh-shape are exclusive")
+    if not dist.is_initialized() and "WORLD_SIZE" in os.environ:
+        dist.init_process_group(args.dist_backend, init_method="env://")
+    dev = torch.device(args.device).type
+    if args.mesh_shape:
+        shape = tuple(int(x) for x in args.mesh_shape.split(","))
+        return make_mesh(shape, ("data", "model"), dev)
+    return make_production_mesh(multi_pod=args.mesh == "multi",
+                                device_type=dev)
+
+
+def make_trainer(args, mesh=None):
     """The launcher's trainer over a fresh seed-0 init (not yet restored
-    from ``--ckpt-dir``)."""
+    from ``--ckpt-dir``); a loss that ``mesh`` cannot split is refused
+    before the model is built."""
     from ..models.api import build
     from ..models.transformer import check_trainable
     from ..optim import adamw, cosine_schedule
     from ..train import Trainer, TrainerConfig
+    from ..train.step import batch_statistic, check_batch_split
     cfg = config(args)
     check_trainable(cfg)
     if cfg.is_encdec:
@@ -100,6 +148,7 @@ def make_trainer(args):
             f"train it through Trainer on repro_torch.data.lm_batch_for "
             f"batches")
     api = build(cfg)
+    check_batch_split(batch_statistic(api.loss), mesh)
     params = api.init(seed=0, device=args.device)
     return Trainer(
         api.loss, adamw(weight_decay=0.0), cosine_schedule(2e-3, args.steps),
@@ -115,16 +164,29 @@ def make_trainer(args):
 
 
 def main(argv: Optional[List[str]] = None):
+    import torch.distributed as dist
+
     from ..data import make_lm_pipeline
+    from ..dist.sharding import use_mesh
     args = build_parser().parse_args(argv)
-    trainer = make_trainer(args)
-    resumed = trainer.try_restore()
-    data = make_lm_pipeline(config(args), args.seq, args.batch,
-                            start_step=resumed)
-    trainer.run(data, steps=args.steps)
-    for h in trainer.history:
-        print(f"step {h['step']:6d} ce={h['ce']:.4f} "
-              f"bits={h['avg_bitwidth']:.2f} comp={h['compression_x']:.1f}x")
+    owned = not dist.is_initialized()
+    try:
+        mesh = make_mesh_of(args)
+        with use_mesh(mesh):
+            trainer = make_trainer(args, mesh)
+            resumed = trainer.try_restore()
+            data = make_lm_pipeline(config(args), args.seq, args.batch,
+                                    start_step=resumed)
+            trainer.run(data, steps=args.steps)
+        rank = dist.get_rank() if mesh is not None else 0
+    finally:
+        if owned and dist.is_initialized():
+            dist.destroy_process_group()
+    if rank == 0:
+        for h in trainer.history:
+            print(f"step {h['step']:6d} ce={h['ce']:.4f} "
+                  f"bits={h['avg_bitwidth']:.2f} "
+                  f"comp={h['compression_x']:.1f}x")
     return trainer
 
 

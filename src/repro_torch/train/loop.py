@@ -10,8 +10,13 @@
   start: the data pipeline is index-addressable, so a crash resumes
   exactly (``run_with_restarts``; ``run``'s ``fault_at`` injects one).
 
-Checkpoints are single-shard (``repro_torch.ckpt``); the reference's save
-and restore under a live mesh belong to the distribution work.
+Under a process mesh (``dist.sharding.use_mesh``) every rank runs the
+same trainer on the same global batches: the step splits each batch over
+the data axes and sums the gradients (``train.step.data_parallel``), so
+every rank holds the same state and the same ``history``.  Saves and
+restores take the active mesh, as the reference's do: a save is sharded
+one file a host coordinate, and a restore gives whole leaves on whatever
+mesh is live (elastic restore).
 """
 from __future__ import annotations
 
@@ -23,6 +28,8 @@ import torch
 
 from ..ckpt.checkpoint import CheckpointManager
 from ..core.state import tensor_leaves
+from ..dist.parallel import active_mesh, all_reduce
+from ..dist.sharding import get_mesh
 from ..optim.optimizers import Optimizer
 from .state import TrainState
 from .step import build_maintenance_step, build_train_step
@@ -42,6 +49,15 @@ class TrainerConfig:
 
 
 class Trainer:
+    """The BWQ-A loop over ``loss_fn(params, batch) -> (loss, metrics)``.
+
+    Under a mesh whose data axes split the batch, the loss must be a mean
+    of per-row terms (over the ``mask``, or over the labels) plus terms
+    of the params alone: then the ranks' share-weighted losses sum to the
+    single-device loss exactly.  A loss holding a statistic of the whole
+    batch (``train.step.batch_statistic``: the MoE load-balancing term,
+    the CNN's BatchNorm) is refused there."""
+
     def __init__(self, loss_fn: Callable, optimizer: Optimizer,
                  lr_schedule: Callable, params: Any,
                  tcfg: TrainerConfig,
@@ -60,12 +76,14 @@ class Trainer:
 
     # -- fault tolerance -------------------------------------------------
     def try_restore(self, template_state: Optional[TrainState] = None) -> int:
-        """Resume from the latest checkpoint; each leaf lands on its
-        template leaf's device.  Returns the restored step (0 if none)."""
+        """Resume from the latest checkpoint, whatever mesh saved it; each
+        leaf lands whole on its template leaf's device.  Returns the
+        restored step (0 if none)."""
         if self.ckpt is None:
             return 0
         meta, restored = self.ckpt.restore_latest(template_state
-                                                  or self.state)
+                                                  or self.state,
+                                                  mesh=get_mesh())
         if restored is None:
             return 0
         self.state = restored
@@ -73,7 +91,10 @@ class Trainer:
 
     def _save(self, step: int):
         if self.ckpt is not None:
-            self.ckpt.save(step, self.state, dict(step=step))
+            # the active mesh shards the save: one file a host, chunked
+            # by each leaf's fitted spec (single-shard with no mesh)
+            self.ckpt.save(step, self.state, dict(step=step),
+                           mesh=get_mesh())
 
     # -- main loop ---------------------------------------------------------
     def run(self, data: Iterator, steps: Optional[int] = None,
@@ -81,9 +102,18 @@ class Trainer:
         """Train from the state's step to ``steps`` (default
         ``total_steps``), taking (step, batch) pairs from ``data``; batches
         move to the params' device.  ``fault_at`` raises before the batch
-        of that data step (the restart tests' injected crash).  Saves every
+        of that data step (the restart tests' injected crash); a save in
+        flight then lands before the exception leaves.  Saves every
         ``ckpt_every`` steps and at the end.  Returns the last logged
         metrics."""
+        try:
+            return self._run(data, steps, fault_at)
+        except BaseException:
+            if self.ckpt is not None:
+                self.ckpt.join()
+            raise
+
+    def _run(self, data, steps, fault_at):
         tcfg = self.tcfg
         steps = steps or tcfg.total_steps
         t0 = time.time()
@@ -104,7 +134,7 @@ class Trainer:
             if step % tcfg.log_every == 0 or step == steps:
                 m = {k: float(v) for k, v in metrics.items()}
                 m["step"] = step
-                m["wall_s"] = time.time() - t0
+                m["wall_s"] = self._wall_s(t0)
                 self.history.append(m)
                 last_metrics = m
             if tcfg.ckpt_every and step % tcfg.ckpt_every == 0:
@@ -113,6 +143,16 @@ class Trainer:
         if self.ckpt:
             self.ckpt.wait()
         return last_metrics
+
+    def _wall_s(self, t0: float) -> float:
+        """Seconds since ``t0``; under a mesh the slowest rank's, so that
+        every rank logs the same history."""
+        wall = time.time() - t0
+        if active_mesh() is None:
+            return wall
+        return float(all_reduce(torch.tensor([wall], dtype=torch.float64,
+                                             device=self.device),
+                                axis=None, op="max")[0])
 
     def _alpha_round(self):
         """Alg. 1 outer loop: raise alpha while quality stays in budget."""

@@ -14,11 +14,25 @@
 
 The reference jits a functional step that donates the old state; here the
 step runs eagerly and updates the state in place.
+
+**Under a process mesh** (``dist.sharding.use_mesh`` of a
+``dist.parallel.Mesh`` of more than one rank) the step is numerically the
+single-device step, as the reference's is under GSPMD, which splits only
+the activations by the batch: every rank holds the whole train state,
+runs the loss and its backward on its rows of the global batch
+(:func:`~repro_torch.dist.parallel.batch_rows`) with the mesh context
+suspended (the model's serving collectives have no autograd), and the
+gradients and metrics are summed over every rank of the mesh
+(:func:`data_parallel`), each rank's weighted by its share of the batch's
+label count over ``1 / model`` replicas.  That is exact for a loss that
+is a mean of per-row terms plus terms of the params alone; a loss that
+holds a statistic of the whole batch (:func:`batch_statistic`) is refused
+when the batch is split.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 from torch.utils.checkpoint import checkpoint
@@ -30,6 +44,9 @@ from ..core.group_lasso import layer_bit_count, wb_group_lasso
 from ..core.precision import adjust_precision
 from ..core.quantize import requantize
 from ..core.state import map_tensors, quant_nodes, tensor_leaves, tree_map
+from ..dist.parallel import (active_mesh, all_reduce_tensors, batch_coord,
+                             batch_group_size, batch_rows)
+from ..dist.sharding import use_mesh
 from ..optim.optimizers import Optimizer, global_norm
 from .state import TrainState
 
@@ -146,11 +163,95 @@ def microbatched_value_and_grad(loss_fn: Callable, num_mb: int = 1):
     return fn
 
 
+def batch_statistic(loss_fn: Callable) -> Optional[str]:
+    """What of the whole batch ``loss_fn``'s loss holds beyond a mean of
+    per-row terms (None when it holds nothing else): an MoE model's
+    load-balancing term (``ModelAPI.loss`` of a config with experts: a
+    product of batch means), or whatever a loss function names in its
+    ``batch_statistic`` attribute (the CNN's BatchNorm)."""
+    named = getattr(loss_fn, "batch_statistic", None)
+    if named:
+        return named
+    cfg = getattr(getattr(loss_fn, "__self__", None), "cfg", None)
+    if getattr(cfg, "n_experts", 0):
+        return (f"{cfg.name}'s MoE load-balancing term (the product of the "
+                f"batch's mean expert hits and mean router probabilities)")
+    return None
+
+
+def check_batch_split(statistic: Optional[str], mesh) -> None:
+    """Refuse to split the batch over ``mesh``'s data axes for a loss
+    that holds a statistic of the whole batch: the ranks' losses would
+    not sum to it."""
+    if statistic and mesh is not None and batch_group_size(mesh) > 1:
+        raise NotImplementedError(
+            f"training under a mesh with data axes of "
+            f"{batch_group_size(mesh)} ranks splits the batch, and the "
+            f"loss holds {statistic}, a statistic of the whole batch: not "
+            f"ported (ROADMAP item 6); train it on a mesh of data size 1")
+
+
+def _row_count(batch: Dict[str, torch.Tensor], lo: int, hi: int) -> float:
+    """Rows [lo, hi)'s weight in the loss's mean: their ``mask`` sum, or
+    their label count."""
+    mask = batch.get("mask")
+    if mask is not None:
+        return float(mask[lo:hi].sum())
+    return float(batch["labels"][lo:hi].numel())
+
+
+def rank_share(batch: Dict[str, torch.Tensor], mesh
+               ) -> Tuple[Dict[str, torch.Tensor], float]:
+    """This rank's rows of the global ``batch`` and their share ``w`` of
+    its label count, summed over the data axes (each coordinate's rows,
+    counted again where an indivisible batch is whole on every
+    coordinate), so that the ranks' ``w``-weighted means sum to the
+    global one and a term of the params alone counts once."""
+    n_rows = next(iter(batch.values())).shape[0]
+    rows = batch_rows(n_rows, mesh)
+    counts = [_row_count(batch, lo, hi) for lo, hi in rows]
+    me = batch_coord(mesh)
+    total = sum(counts)
+    share = counts[me] / total if total else 1.0 / len(rows)
+    lo, hi = rows[me]
+    return {k: v[lo:hi] for k, v in batch.items()}, share
+
+
+def data_parallel(value_and_grad: Callable,
+                  statistic: Optional[str] = None) -> Callable:
+    """``value_and_grad(params, batch) -> ((loss, aux), grads)`` under the
+    active mesh: each rank runs it on its rows (:func:`rank_share`) with
+    the mesh suspended, then its gradient leaves outside the frozen
+    metadata and every tensor of ``(loss, aux)`` are scaled by ``w /
+    model`` and summed over every rank of the mesh (flat buffers), so that
+    every rank holds the global values, bit for bit the same.  With no
+    mesh, ``value_and_grad`` itself."""
+    def fn(params, batch):
+        mesh = active_mesh()
+        if mesh is None:
+            return value_and_grad(params, batch)
+        check_batch_split(statistic, mesh)
+        local, share = rank_share(batch, mesh)
+        with use_mesh(None):
+            (loss, aux), grads = value_and_grad(params, local)
+        scale = share * batch_group_size(mesh) / mesh.size
+        all_reduce_tensors([g for p, g in tensor_leaves(grads)
+                            if g.is_floating_point() and not _frozen(p)],
+                           scale=scale)
+        loss = loss.clone()
+        all_reduce_tensors([loss] + [t for _, t in tensor_leaves(aux)
+                                     if t.is_floating_point()], scale=scale)
+        return (loss, aux), grads
+    return fn
+
+
 def build_train_step(loss_fn: Callable, optimizer: Optimizer,
                      lr_schedule: Callable, num_mb: int = 1):
     """``loss_fn(params, batch) -> (loss, metrics dict)``; the step
     updates ``state`` in place and returns it with the metrics (tensors;
-    the caller reads them when it logs)."""
+    the caller reads them when it logs).  Under a process mesh the step
+    takes the global batch and runs :func:`data_parallel`."""
+    statistic = batch_statistic(loss_fn)
 
     def total_loss(alpha):
         def fn(params, batch):
@@ -167,7 +268,8 @@ def build_train_step(loss_fn: Callable, optimizer: Optimizer,
         return fn
 
     def step(state: TrainState, batch) -> Tuple[TrainState, Dict]:
-        vg = microbatched_value_and_grad(total_loss(state.alpha), num_mb)
+        vg = data_parallel(microbatched_value_and_grad(
+            total_loss(state.alpha), num_mb), statistic)
         (loss, (metrics, reg)), grads = vg(state.params, batch)
         grad_norm = global_norm(grads)
         lr = lr_schedule(state.step)

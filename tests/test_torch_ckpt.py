@@ -212,14 +212,6 @@ def test_mismatch_lists_keys_and_partial_restore(tmp_path):
     assert torch.equal(out["c"], torch.full((2,), 9.0)) and "a" not in out
 
 
-def test_mesh_saves_are_refused(tmp_path):
-    with pytest.raises(NotImplementedError, match="item 6"):
-        save_tree({"a": torch.ones(2)}, str(tmp_path / "ck"), mesh=_Mesh12())
-    with pytest.raises(NotImplementedError, match="item 6"):
-        CheckpointManager(str(tmp_path)).save(1, {"a": torch.ones(2)},
-                                              mesh=_Mesh12())
-
-
 def _sharded_save(d):
     tree = {"wo": np.arange(64, dtype=np.float32).reshape(8, 8),
             "b": np.arange(3, dtype=np.float32)}

@@ -68,8 +68,10 @@ def test_launcher_geometry_and_flags():
     """Tiny takes 9x8 blocks, ``--no-tiny`` the registered 8x128 (the
     reference launcher's full width takes 9x8: a recorded divergence);
     ``--quant-mode none`` turns quantization off; ``--ckpt-dir`` is taken
-    (tests/test_torch_ckpt.py drives it) and the reference's ``--mesh``
-    is not ported and is refused."""
+    (tests/test_torch_ckpt.py drives it), and so are the reference's
+    ``--mesh`` and the port's ``--mesh-shape`` (tests/
+    test_torch_sharded_train.py drives them); ``--mesh single`` without a
+    process group of 256 ranks fails with ``make_mesh``'s error."""
     parse = tl.build_parser().parse_args
     tiny = tl.config(parse(["--arch", ARCH]))
     full = tl.config(parse(["--arch", ARCH, "--no-tiny", "--act-bits",
@@ -87,8 +89,15 @@ def test_launcher_geometry_and_flags():
     assert tl.config(parse(["--arch", ARCH, "--layers", "1"])).n_layers == 1
     assert parse(["--arch", ARCH, "--ckpt-dir", "run"]).ckpt_dir == "run"
     assert parse(["--arch", ARCH]).ckpt_dir is None
+    assert parse(["--arch", ARCH]).mesh == "none"
+    assert parse(["--arch", ARCH, "--mesh", "single"]).mesh == "single"
+    assert parse(["--arch", ARCH, "--mesh-shape", "2,1"]).mesh_shape == \
+        "2,1"
     with pytest.raises(SystemExit):
-        parse(["--arch", ARCH, "--mesh", "single"])
+        parse(["--arch", ARCH, "--mesh", "pod"])
+    with pytest.raises(RuntimeError, match="initialized process group"):
+        tl.make_mesh_of(parse(["--arch", ARCH, "--mesh", "single",
+                               "--device", "cpu"]))
 
 
 def _drifted_qat():

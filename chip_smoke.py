@@ -338,7 +338,28 @@ It builds the four CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
    start; bf16 with 8-bit activations and int8 KV, logits within
    ``QUANT_TOL_REL``; each rank's launches equal the single process's.
    Step ms, the gradient all-reduce's ms, save and restore seconds, the
-   cold start's seconds and the phase's are recorded.
+   cold start's seconds and the phase's are recorded.  The (2, 1) ranks
+   then train granite-moe (full width cut to ``MESH_MOE_DEPTH`` = 2, f32,
+   ``ragged``; its load-balancing term takes the whole batch's means) and
+   ResNet-20 (B = ``MT_CNN_B``; its BatchNorm the whole batch's moments)
+   ``MT_SPLIT_STEPS`` steps each, held to the single process's losses
+   within ``MT_LOSS_TOL_REL`` and params by ``mt_param_faults`` against
+   ``mt_split_witness`` (the larger distance of the single run on
+   reversed rows and the single run on the host CPU); with a planted
+   fault each (per-rank means in the aux term, per-rank BatchNorm
+   moments) they must fail.  Every rank
+   process turns TF32 off for matmuls and cuDNN, as the single process
+   does.
+   The mesh phase's ranks also record one phi3 (1, 2) decode step's
+   collectives (``mesh_decode_collectives``).
+15. dry run phase — the meta-device dry run (``repro_torch.launch.dryrun``,
+   on the host, no kernel launched): the train phase's phi3 step's
+   predicted argument bytes and peak beside the measured peak (the
+   argument bytes at most it, the peak within ``DRY_PEAK_RATIO``); the
+   mesh phase's decode step's recorded collectives equal to the live
+   ranks', op for op; the predicted FLOPs of a train step over the
+   profiled step's device time, the achieved TFLOP/s against
+   ``dist.cost_analysis.PEAK_FLOPS``.
 
 Output: a ``{"train": {...}}`` line with the train phase's figures and
 the card, a ``{"moe": {...}}`` line with the MoE phase's, an
@@ -351,7 +372,8 @@ phase's, a ``{"lint": {...}}`` line with
 each linted engine's seconds and rules, the faults' and the launcher's,
 a ``{"mesh": {...}}`` line with each mesh leg's decode ms/step beside the
 single process's, a ``{"mesh_train": {...}}`` line with the mesh train
-phase's figures, a ``{"kernels": [...]}`` JSON line, the card's name and power
+phase's figures, a ``{"dryrun": {...}}`` line with the dry run phase's,
+a ``{"kernels": [...]}`` JSON line, the card's name and power
 limit, and as the last line ``{"ok": true, "device": {...}}``.  Details go
 to ``chiprun_out/chip_smoke_detail.json``.  Any failure exits non-zero; so
 does a machine without CUDA, or a directory without the repository.
@@ -5910,6 +5932,26 @@ def mesh_family_inputs(cfg, tok, dev, dims, seed=4):
     return out
 
 
+def mesh_decode_collectives(cfg, tree, mesh, tok, kv, dev):
+    """The collectives of one decode step of ``tree`` placed on ``mesh``
+    (a contiguous cache after a prefill of ``tok``, one free position;
+    the kernels and fused attention), as the dry run records them
+    (``dryrun_phase`` holds them to its prediction)."""
+    from repro_torch.dist.parallel import collective_log
+    from repro_torch.dist.sharding import use_mesh
+    from repro_torch.launch.dryrun import collective_records
+    from repro_torch.models.api import build
+    from repro_torch.serve.engine import ServeEngine
+    with use_mesh(mesh):
+        eng = ServeEngine(build(cfg), tree, kv_quant_bits=kv,
+                          backend="kernel", attn_backend="fused", device=dev)
+    _, state = eng.prefill({"tokens": tok}, extra_slots=1)
+    with collective_log(mesh) as log:
+        eng.decode(tok[:, -1:], state, tok.shape[1])
+    return {"b": int(tok.shape[0]), "s": int(tok.shape[1]) + 1,
+            "log": collective_records(log)}
+
+
 def mesh_rank(rank, port, work, dev, size):
     """One rank of the mesh phase.  Every rank builds the same seeded
     trees; rank 0 alone (the other waiting at a barrier) runs each leg on
@@ -5931,6 +5973,7 @@ def mesh_rank(rank, port, work, dev, size):
     if dev == "cuda":
         torch.cuda.set_device(0)
         torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
     else:
         mesh_host_rehearsal()
     dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
@@ -6063,6 +6106,9 @@ def mesh_rank(rank, port, work, dev, size):
         tok, reqs = mesh_prompts(cfg.vocab, dev, dims)
         leg(f"phi3_int8_{label}", cfg, dep, "oneshot", tp, kv,
             {"tokens": tok})
+        if act == 32:
+            rec["decode_collectives"] = mesh_decode_collectives(
+                cfg, dep, meshes[1, 2], tok, kv, dev)
         cfg_dp = served_config(ARCH, act, dtype, size,
                                n_layers=MESH_DP_DEPTH)
         dep_dp = to_serving_params(build(cfg_dp).init(seed=0, device=dev),
@@ -6280,6 +6326,24 @@ MT_SERVE_B, MT_SERVE_P, MT_SERVE_NEW = 4, 64, 8
 MT_SERVE_RUNS = (("f32", 32, "float32", 32), ("bf16_act8", 8, "bfloat16", 8))
 MT_DISK_GB = 24                 # three 3.9 GB steps, tmp dirs, the baseline
 MT_TIMEOUT_S = 600
+# The losses that hold a statistic of the whole batch, on (2, 1) against
+# the single process, after MT_SPLIT_STEPS steps each: granite-moe at full
+# width cut to MESH_MOE_DEPTH layers (f32, fake mode, PACT off, the
+# ``ragged`` dispatch; its load-balancing term) on the phase's 4 x 128
+# batches, and ResNet-20 (the CIFAR launcher's bit-plane 9x8 blocks, PACT
+# off, its SGD and schedule; its BatchNorm) on MT_CNN_B 32x32 images.
+# Losses within MT_LOSS_TOL_REL, params by ``mt_param_faults`` against
+# ``mt_split_witness``: each leaf's larger distance of two single runs,
+# on reversed rows and on the host CPU from the card's init.  Reversed
+# rows keep every row's forward values bit for bit (each product keeps
+# its M) and change only the sums over rows; the split halves every
+# product's M, so its forward rounds as another arithmetic does (H100
+# 80GB HBM3, 700 W: granite's embedding 2.44e-4 of its largest, 21x the
+# reversed witness, 1.5x the host's; ResNet-20 4.50e-3, 1.8x / 1.07x).
+# Each with a planted fault (per-rank means in the aux term; per-rank
+# BatchNorm moments) that must fail.
+MT_SPLIT_STEPS = 2
+MT_CNN_B, MT_CNN_DEPTH = 64, 20
 
 
 def mt_dims(size):
@@ -6388,6 +6452,149 @@ def mt_vg_loss(api, params, batch, mesh):
     return {"loss": float(loss), "grad_norm": float(global_norm(g))}
 
 
+def mt_split_trainer(model, size, dev=None):
+    """A fresh trainer of ``model`` (``granite`` / ``resnet``, see
+    ``MT_SPLIT_STEPS``) over its seed-0 init (drawn on the card, then
+    moved to ``dev``), and its data stream."""
+    from repro_torch.data import SyntheticCIFAR
+    from repro_torch.launch import cifar
+    from repro_torch.launch import train as tl
+    from repro_torch.models import cnn
+    from repro_torch.models.api import build
+    from repro_torch.optim import adamw, cosine_schedule
+    from repro_torch.serve.deploy import tree_to
+    from repro_torch.train import Trainer, TrainerConfig
+    tcfg = TrainerConfig(total_steps=MT_SPLIT_STEPS, log_every=1,
+                         requant_interval=0)
+    dev = dev or DEV
+    if model == "granite":
+        cfg = dataclasses.replace(tl.config(tl.build_parser().parse_args(
+            ["--arch", MOE_ARCH, *size, "--layers", str(MESH_MOE_DEPTH),
+             "--act-bits", "32"])), dtype="float32")
+        api = build(cfg)
+        dims = mt_dims(size)
+        tr = Trainer(api.loss, adamw(weight_decay=0.0),
+                     cosine_schedule(MT_LR, MT_SPLIT_STEPS),
+                     tree_to(api.init(seed=0, device=DEV), dev), tcfg)
+        return tr, lambda s: mt_batch(cfg, s, dims)
+    qc = cifar.quant_config("bwq", act_bits=32)
+    image = 32 if size == ("--no-tiny",) else 8
+    depth = MT_CNN_DEPTH if size == ("--no-tiny",) else 8
+    tr = Trainer(lambda p, b: cnn.cnn_loss(cnn.resnet_apply, p, b, qc),
+                 cifar.optimizer(), cifar.lr_schedule(MT_SPLIT_STEPS),
+                 tree_to(cnn.resnet_init(qc, depth=depth, seed=0,
+                                         device=DEV), dev), tcfg)
+    gen = SyntheticCIFAR(image=image, batch=MT_CNN_B, noise=0.5, seed=0)
+    return tr, gen.batch_at
+
+
+def mt_split_run(model, size, rows=None, sink=None, dev=None):
+    """``model``'s trainer after ``MT_SPLIT_STEPS`` steps under the active
+    mesh, on ``dev`` (default the card), and its losses; each step's ms
+    (synchronized) into ``sink``.  ``rows="reversed"``: a witness's
+    batches, each batch's rows reversed."""
+    import torch
+    dev = dev or DEV
+    tr, batch_at = mt_split_trainer(model, size, dev)
+    if sink is not None:
+        step = tr.train_step
+
+        def timed(state, batch):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = step(state, batch)
+            torch.cuda.synchronize()
+            sink.append((time.perf_counter() - t0) * 1e3)
+            return out
+        tr.train_step = timed
+
+    def data():
+        for s in range(MT_SPLIT_STEPS):
+            b = {k: v.to(dev) for k, v in batch_at(s).items()}
+            if rows == "reversed":
+                b = {k: v.flip(0) for k, v in b.items()}
+            yield s, b
+    tr.run(data(), steps=MT_SPLIT_STEPS)
+    return tr, [h["loss"] for h in tr.history]
+
+
+def mt_split_single(model, root, size):
+    """The single process's run of ``model`` (its params saved under
+    ``root``), and two witnesses' distances from it: the single run on
+    reversed rows and the single run on the host CPU (every op in
+    another f32 arithmetic): ``mt_split_witness``."""
+    from repro_torch.ckpt import save_tree
+    tr, losses = mt_split_run(model, size)
+    path = root / f"split_{model}"
+    save_tree(tr.state.params, str(path))
+    del tr
+    wit, wlosses = mt_split_run(model, size, rows="reversed")
+    rev = mt_leaf_diffs(wit.state.params, path)
+    del wit
+    t0 = time.perf_counter()
+    host, hlosses = mt_split_run(model, size, dev="cpu")
+    return {"losses": losses, "reversed_losses": wlosses,
+            "reversed_diffs": rev, "host_losses": hlosses,
+            "host_diffs": mt_leaf_diffs(host.state.params, path),
+            "host_s": time.perf_counter() - t0}
+
+
+def mt_split_witness(one):
+    """Each leaf's witness distance from the single run: the larger of
+    the single run's on reversed rows and on the host CPU (neither runs
+    the split)."""
+    host = one["host_diffs"]
+    return {k: [max(d, host[k][0]), m]
+            for k, (d, m) in one["reversed_diffs"].items()}
+
+
+@contextlib.contextmanager
+def mt_split_fault(model):
+    """The planted fault of ``model``'s leg: each rank's aux term from its
+    own rows' means (granite), or its BatchNorm from its own rows'
+    moments (resnet)."""
+    if model == "granite":
+        from repro_torch.models import moe as mod
+        name, fake = "batch_sum", (lambda t: t)
+    else:
+        from repro_torch.models import cnn as mod
+        name, fake = "split_mesh", (lambda: None)
+    real = getattr(mod, name)
+    setattr(mod, name, fake)
+    try:
+        yield
+    finally:
+        setattr(mod, name, real)
+
+
+def mt_split_rank(mesh, root, size):
+    """This rank's runs of each model on ``mesh``: plain and with the
+    planted fault; losses, step times and the params' distance from the
+    single run's."""
+    import torch
+    from repro_torch.dist.sharding import use_mesh
+    out = {}
+    for model in ("granite", "resnet"):
+        for leg, planted in (("", False), ("_planted", True)):
+            t0 = time.perf_counter()
+            ms = []
+            with use_mesh(mesh), (mt_split_fault(model) if planted
+                                  else contextlib.nullcontext()), \
+                    GradReduceClock() as gr:
+                tr, losses = mt_split_run(model, size, sink=ms)
+            torch.cuda.synchronize()
+            out[model + leg] = {
+                "losses": losses, "s": time.perf_counter() - t0,
+                "step_ms": ms,
+                "grad_reduce": [c for c in gr.calls
+                                if c["bytes"] > 1 << 20],
+                "leaf_diffs": mt_leaf_diffs(tr.state.params,
+                                            root / f"split_{model}")}
+            del tr
+            torch.cuda.empty_cache()
+    return out
+
+
 def mesh_train_phase(size=("--no-tiny",)):
     """BWQ-A training under a process mesh (see the module docstring, 14):
     the single-process baseline here, then two gloo ranks on the card on
@@ -6436,6 +6643,10 @@ def mesh_train_phase(size=("--no-tiny",)):
         torch.cuda.empty_cache()
         out["single"] = {"history": hist, "steps": steps, "step_ms": ms,
                          "uneven": uneven}
+        out["split_single"] = {m: mt_split_single(m, root, size)
+                               for m in ("granite", "resnet")}
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
         for leg in ("dp", "tp"):
             with socket.socket() as sk:
                 sk.bind(("localhost", 0))
@@ -6598,6 +6809,7 @@ def mesh_train_rank(rank, port, root, dev, leg, size):
     if dev == "cuda":
         torch.cuda.set_device(0)
         torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
     else:
         mesh_host_rehearsal()
     dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
@@ -6655,6 +6867,8 @@ def mesh_train_rank(rank, port, root, dev, leg, size):
     if dev == "cuda":
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
+    if leg == "dp":
+        rec["split"] = mt_split_rank(mesh, root, size)
     if leg == "tp":
         rec["serve"] = mt_serve(last, mesh, dims, size)
     (root / f"{leg}{rank}.json").write_text(json.dumps(rec))
@@ -6842,6 +7056,20 @@ def check_mesh_train(res):
     assert max(ok.values()) <= MT_LOSS_TOL_REL, (ok, dp["uneven"], u)
     assert max(bad.values()) > MT_LOSS_TOL_REL, \
         ("the planted fault (equal shares) passed", bad)
+    for model, one in res["split_single"].items():
+        for rank in res["dp"]:
+            got = rank["split"][model]
+            where = f"mesh train split {model} rank {rank['rank']}"
+            errs = mt_loss_errs(got["losses"], one["losses"])
+            assert max(errs) <= MT_LOSS_TOL_REL, (where, errs)
+            bad = mt_param_faults(got["leaf_diffs"], mt_split_witness(one))
+            assert not bad, (where, "params off the single run's", bad)
+            assert got["losses"] == res["dp"][0]["split"][model]["losses"]
+        planted = res["dp"][0]["split"][model + "_planted"]
+        errs = mt_loss_errs(planted["losses"], one["losses"])
+        bad = mt_param_faults(planted["leaf_diffs"], mt_split_witness(one))
+        assert max(errs) > MT_LOSS_TOL_REL or bad, \
+            (f"the planted fault of {model} passed", errs)
     t0 = res["tp"][0]["serve"]
     for rank in res["tp"]:
         for label, act, _, kv in MT_SERVE_RUNS:
@@ -6860,6 +7088,54 @@ def check_mesh_train(res):
             else:
                 assert cmp["finite"] and cmp["err"] <= QUANT_TOL_REL[kv], \
                     (where, cmp)
+
+
+def mt_split_summary(res) -> dict:
+    """The (2, 1) granite and ResNet legs' figures: loss and param errors
+    beside the witness's, the planted faults', and step and gradient
+    all-reduce times (the last step's: the first pays the lazy starts)."""
+    out = {}
+    for model, one in res["split_single"].items():
+        split = res["dp"][0]["split"]
+        got, planted = split[model], split[model + "_planted"]
+
+        def worst(diffs):
+            return max(d / max(m, 1e-30) for d, m in diffs.values())
+        out[model] = {
+            "loss_err_max": max(mt_loss_errs(got["losses"], one["losses"])),
+            "witness_loss_err_max": {
+                "reversed": max(mt_loss_errs(one["reversed_losses"],
+                                             one["losses"])),
+                "host": max(mt_loss_errs(one["host_losses"],
+                                         one["losses"]))},
+            "param_err_max": worst(got["leaf_diffs"]),
+            "witness_param_err_max": {
+                "reversed": worst(one["reversed_diffs"]),
+                "host": worst(one["host_diffs"])},
+            # the 5 leaves nearest the check's limit: (leaf, the split's,
+            # the reversed witness's, the host witness's distance)
+            "worst_leaves": sorted(
+                ([k, d / max(m, 1e-30),
+                  one["reversed_diffs"][k][0] / max(m, 1e-30),
+                  one["host_diffs"][k][0] / max(m, 1e-30)]
+                 for k, (d, m) in got["leaf_diffs"].items()),
+                key=lambda r: -r[1] / max(MT_WITNESS_X * max(r[2], r[3]),
+                                          MT_LEAF_TOL))[:5],
+            "host_s": one["host_s"],
+            "planted_loss_err_max": max(mt_loss_errs(planted["losses"],
+                                                     one["losses"])),
+            "planted_param_faults": len(mt_param_faults(
+                planted["leaf_diffs"], mt_split_witness(one))),
+            "step_ms": got["step_ms"],
+            "grad_all_reduce_ms": [c["ms"] for c in got["grad_reduce"]],
+            "grad_all_reduce_bytes": [c["bytes"]
+                                      for c in got["grad_reduce"]]}
+    return out
+
+
+def mt_loss_errs(got, want):
+    """Each step's relative loss error."""
+    return [abs(g - w) / abs(w) for g, w in zip(got, want)]
 
 
 def mt_rel(got, want):
@@ -6913,6 +7189,7 @@ def mesh_train_summary(res) -> dict:
         "params_over_leaf_tol": sorted(
             k for k, (d, m) in tp["leaf_diffs"].items()
             if d > MT_LEAF_TOL * m),
+        "split": mt_split_summary(res),
         "uneven_err": mt_rel(dp["uneven"], one["uneven"]),
         "planted_err": mt_rel(dp["planted"], one["uneven"]),
         "compressed_all_reduce": dp["compressed"],
@@ -7277,6 +7554,8 @@ def main() -> int:
                                    card=smi)}))
     print(json.dumps({"mesh_train": dict(
         mesh_train_summary(detail["mesh_train_phase"]), card=smi)}))
+    print(json.dumps({"dryrun": dict(
+        dryrun_summary(detail["dryrun_phase"]), card=smi)}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
@@ -7589,7 +7868,109 @@ def run(detail) -> list:
             f"{label} 1x2": rec["launches"][k["name"]]
             for label, rec in mt["tp"][0]["serve"].items()}
     save_detail(detail)
+
+    detail["dryrun_phase"] = dr = dryrun_phase(detail)
+    m, r = dr["memory"], dr["rate"]
+    log(f"dry run phase ran in {dr['phase_s']:.1f} s: train step predicted "
+        f"argument {m['argument_bytes'] / 1e9:.2f} GB, peak "
+        f"{m['peak_bytes'] / 1e9:.2f} GB against the measured "
+        f"{m['measured_peak_bytes'] / 1e9:.2f} GB (ratio "
+        f"{m['peak_ratio']:.3f}); achieved {r['achieved_tflops']:.2f} "
+        f"TFLOP/s, {r['peak_share']:.4f} of the peak; decode collectives "
+        f"{dr['collectives']['counts']}")
+    save_detail(detail)
+    check_dryrun(dr)
     return kernels
+
+
+# ---------------------------------------------------------------------------
+# dry run phase: the meta-device dry run (``launch.dryrun``) against this
+# run's measurements
+# ---------------------------------------------------------------------------
+
+# The predicted peak (the train state the rank holds and the step's live
+# new storages, ``per_device.peak_bytes``) against the train phase's
+# ``torch.cuda.max_memory_allocated``: within this ratio
+DRY_PEAK_RATIO = (0.5, 1.5)
+
+
+def dryrun_phase(detail, size=("--no-tiny",)):
+    """The dry run's predictions against what this run measured, each cell
+    run on ``meta`` on one rank of a ``RecordingMesh``:
+
+    * memory: the train phase's phi3 step (the launcher's config, 32
+      layers, ``TRAIN_BATCH`` x ``TRAIN_SEQ``, bf16, a 1-rank mesh, one
+      microbatch): its argument bytes and peak beside the train phase's
+      measured peak;
+    * collectives: the mesh phase's phi3 (1, 2) decode step (int8 deploy,
+      ``MESH_DEPTH`` layers, f32) recorded, against the live ranks' log
+      (:func:`mesh_decode_collectives`);
+    * achieved rate: the predicted FLOPs of a train step over the profiled
+      step's device time, against ``cost_analysis.PEAK_FLOPS``."""
+    from repro_torch.configs.base import ShapeCell
+    from repro_torch.dist.cost_analysis import PEAK_FLOPS
+    from repro_torch.dist.parallel import RecordingMesh
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import train as tl
+    t_phase = time.perf_counter()
+    cfg = tl.config(tl.build_parser().parse_args(train_argv(size)))
+    rec = dryrun.lower_cell(cfg, ShapeCell("train_smoke", TRAIN_SEQ,
+                                           TRAIN_BATCH, "train"),
+                            RecordingMesh({"data": 1, "model": 1}),
+                            microbatches=1)
+    pd = rec["per_device"]
+    tp = detail["train_phase"]
+    measured = tp["fake"]["peak_mem_gb"] * 1e9
+    out = {"memory": {
+        "layers": cfg.n_layers, "argument_bytes": pd["argument_bytes"],
+        "peak_bytes": pd["peak_bytes"], "temp_bytes": pd["temp_bytes"],
+        "measured_peak_bytes": measured,
+        "peak_ratio": pd["peak_bytes"] / measured,
+        "meta_run_s": rec["lower_s"]}}
+    prof = tp["fake_profile"]
+    achieved = pd["flops"] / (prof["device_ms"] / 1e3)
+    out["rate"] = {"flops": pd["flops"], "device_ms": prof["device_ms"],
+                   "wall_ms": prof["wall_ms"],
+                   "achieved_tflops": achieved / 1e12,
+                   "peak_flops": PEAK_FLOPS,
+                   "peak_share": achieved / PEAK_FLOPS}
+    live = [r["decode_collectives"] for r in detail["mesh_phase"]["ranks"]]
+    dcfg = served_config(ARCH, 32, "float32", size, n_layers=MESH_DEPTH)
+    drec = dryrun.lower_cell(
+        dcfg, ShapeCell("decode_mesh", live[0]["s"], live[0]["b"],
+                        "decode"),
+        RecordingMesh({"data": 1, "model": 2}), deploy_bits=8,
+        include_text=True)
+    out["collectives"] = {"predicted": drec["collective_log"],
+                          "live": [r["log"] for r in live],
+                          "counts": drec["collectives"]["counts"],
+                          "bytes": drec["collectives"]["bytes"],
+                          "meta_run_s": drec["lower_s"]}
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out
+
+
+def check_dryrun(res):
+    """The predicted argument bytes at most the measured peak, the
+    predicted peak within ``DRY_PEAK_RATIO`` of it; the recorded decode
+    collectives the live ranks', op for op."""
+    m = res["memory"]
+    assert m["argument_bytes"] <= m["measured_peak_bytes"], m
+    lo, hi = DRY_PEAK_RATIO
+    assert lo <= m["peak_ratio"] <= hi, m
+    c = res["collectives"]
+    assert c["predicted"], c
+    for r, log in enumerate(c["live"]):
+        assert log == c["predicted"], (f"rank {r}'s decode collectives",
+                                       log, c["predicted"])
+
+
+def dryrun_summary(res) -> dict:
+    return {"phase_s": res["phase_s"], "memory": res["memory"],
+            "rate": res["rate"],
+            "collectives": {k: res["collectives"][k] for k in
+                            ("counts", "bytes", "meta_run_s")},
+            "collectives_equal_live": True}
 
 
 def train_summary(detail) -> dict:

@@ -36,6 +36,7 @@ def main() -> int:
         cs.log("mesh_train_probe: no CUDA device")
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True, check=True).stdout.strip()
@@ -52,6 +53,9 @@ def main() -> int:
                                   else ("--no-tiny",))
         out[size] = res
         path.write_text(json.dumps(out, indent=1, default=str))
+        # the (2, 1) granite and ResNet legs' figures, before the check
+        print(json.dumps({size: {"split": cs.mt_split_summary(res)}}),
+              flush=True)
         cs.check_mesh_train(res)
         print(json.dumps({size: cs.mesh_train_summary(res)}))
     print(card)

@@ -140,3 +140,14 @@ LM_SHAPES: Tuple[ShapeCell, ...] = (
     ShapeCell("decode_32k", 32768, 128, "decode"),
     ShapeCell("long_500k", 524288, 1, "decode"),
 )
+
+# archs allowed to run long_500k (sub-quadratic state path); the rest skip
+# it, as the reference's dry run does.
+LONG_CONTEXT_OK = ("rwkv6-1.6b", "zamba2-1.2b")
+
+
+def cells_for(cfg: ModelConfig):
+    for cell in LM_SHAPES:
+        if cell.name == "long_500k" and cfg.name not in LONG_CONTEXT_OK:
+            continue
+        yield cell

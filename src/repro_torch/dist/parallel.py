@@ -28,8 +28,18 @@ through the same kernel wrappers, with these collectives around them:
 Training under a mesh (``train.step.data_parallel``) places nothing: each
 rank takes its rows of the global batch (:func:`batch_rows`), and its
 gradients are summed over every rank of the mesh through flat buffers
-(:func:`all_reduce_tensors`); a checkpoint's nonce and commit use
-:func:`broadcast_object` and :func:`barrier`.
+(:func:`all_reduce_tensors`); a statistic of the whole batch (the MoE
+load-balancing term's means, BatchNorm's moments) is summed over the
+data axes by :func:`batch_sum`, which autograd passes through; a
+checkpoint's nonce and commit use :func:`broadcast_object` and
+:func:`barrier`.
+
+**The dry run** (``launch.dryrun``) runs a step for one rank of a
+:class:`RecordingMesh`: the production mesh's shape and a coordinate, no
+process group.  The model's parallel paths take it for a live mesh, and
+each collective helper returns a tensor of its result's shape and logs
+a :class:`Collective` instead of communicating; :func:`collective_log`
+takes the same log from a live mesh's ranks.
 
 **Shard windows.**  A deployed leaf's payload is blocked into weight
 blocks (WBs) of ``wb_rows x wb_cols``; its per-WB scale (and bit-plane
@@ -48,6 +58,7 @@ ranks' partial results sum (row-parallel) or concatenate
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 from typing import Any, Dict, List, Optional, Sequence, Tuple
@@ -93,10 +104,91 @@ class Mesh:
         return f"Mesh({self.shape}, rank {dist.get_rank()})"
 
 
+class RecordingMesh(Mesh):
+    """One rank of a mesh of ``shape`` (axis name -> size), at ``coords``
+    (default all zeros), with no process group: the dry run's
+    (``launch.dryrun``).  It is live to the model's parallel paths
+    (:func:`active_mesh`), and under it each collective helper returns a
+    tensor of its result's shape (``meta`` for a ``meta`` input) without
+    communicating, and records what it would have moved in
+    :attr:`log`."""
+
+    def __init__(self, shape: Dict[str, int],
+                 coords: Optional[Dict[str, int]] = None):
+        self.device_mesh = None
+        self.axis_names = tuple(shape)
+        self.shape = dict(shape)
+        self._coords = dict(coords or {})
+        self._groups = {}
+        self.log: List["Collective"] = []
+
+    def group(self, axis: str):
+        raise RuntimeError("a recording mesh has no process group")
+
+    def __repr__(self):
+        return f"RecordingMesh({self.shape}, at {self._coords})"
+
+
+@dataclasses.dataclass(frozen=True)
+class Collective:
+    """One collective as a rank issues it: ``op`` in the reference's
+    vocabulary (``all-reduce``, ``all-gather``, ``all-to-all``,
+    ``collective-broadcast``), the result's ``shape`` and ``dtype``, its
+    ``bytes`` (the result's: what XLA's HLO count takes a device) and the
+    mesh axes it spans."""
+    op: str
+    shape: Tuple[int, ...]
+    dtype: str
+    bytes: int
+    axis: Tuple[str, ...]
+
+
+# process-wide, not thread-local: the autograd engine runs a CUDA
+# backward (a ``batch_sum``'s reduction, a checkpointed layer's
+# recomputed forward) on a thread of its own; each log holds its mesh
+_LOGS: List[Tuple["Mesh", List["Collective"]]] = []
+
+
+@contextlib.contextmanager
+def collective_log(mesh: "Mesh"):
+    """Inside: every collective a helper issues on the live process mesh
+    ``mesh`` is appended to the yielded list (what a
+    :class:`RecordingMesh` records in its own
+    :attr:`~RecordingMesh.log`).  Collectives on another mesh or group (a
+    checkpoint save's, say) are not."""
+    entry = (mesh, [])
+    _LOGS.append(entry)
+    try:
+        yield entry[1]
+    finally:
+        _LOGS[:] = [e for e in _LOGS if e is not entry]
+
+
+def _issue(mesh: Mesh, op: str, t: torch.Tensor, axis: Optional[str],
+           shape: Sequence[int]) -> Optional[torch.Tensor]:
+    """Log a collective of result ``shape``; under a recording mesh, the
+    stand-in result (``t`` itself for the in-place all-reduce and
+    broadcast), else None (the caller communicates)."""
+    axes = (axis,) if axis is not None else tuple(mesh.axis_names)
+    entry = Collective(op, tuple(int(d) for d in shape), str(t.dtype)
+                       .replace("torch.", ""), math.prod(shape)
+                       * t.element_size(), axes)
+    if isinstance(mesh, RecordingMesh):
+        mesh.log.append(entry)
+        if op in ("all-reduce", "collective-broadcast"):
+            return t
+        return t.new_empty(tuple(shape)) if t.is_meta else \
+            t.new_zeros(tuple(shape))
+    for owner, log in _LOGS:
+        if owner is mesh:
+            log.append(entry)
+    return None
+
+
 def active_mesh() -> Optional[Mesh]:
-    """The active mesh when it is a real process mesh of more than one
-    rank (a shape-only stand-in, or a 1-rank mesh, runs nothing in
-    parallel)."""
+    """The active mesh when it is a process mesh of more than one rank,
+    or a :class:`RecordingMesh` standing for one (a shape-only stand-in,
+    or a 1-rank mesh, runs nothing in parallel)."""
     mesh = get_mesh()
     if isinstance(mesh, Mesh) and mesh.size > 1:
         return mesh
@@ -117,13 +209,19 @@ _OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}
 
 
 def all_reduce(t: torch.Tensor, axis: Optional[str] = "model",
-               op: str = "sum") -> torch.Tensor:
+               op: str = "sum", mesh: Optional["Mesh"] = None
+               ) -> torch.Tensor:
     """Reduce ``t`` (``op``: ``sum`` or ``max``) over ``axis``, or over
     every rank of the mesh with ``axis=None``, in place (identity on a
-    1-rank axis or mesh)."""
-    mesh = active_mesh()
+    1-rank axis or mesh).  ``mesh``: reduce over it rather than the
+    active one (a mesh the caller holds while the context is
+    suspended)."""
+    mesh = mesh if mesh is not None else active_mesh()
     if mesh is None or (axis is not None and mesh.axis_size(axis) == 1):
         return t
+    stand_in = _issue(mesh, "all-reduce", t, axis, t.shape)
+    if stand_in is not None:
+        return stand_in
     t = t.contiguous()
     dist.all_reduce(t, op=_OPS[op],
                     group=mesh.group(axis) if axis is not None else None)
@@ -168,6 +266,75 @@ def all_reduce_tensors(ts: Sequence[torch.Tensor], scale: float = 1.0
                 bucket, size = [], 0
 
 
+# --------------------------------------------------------------------------
+# statistics of the whole batch under a data-split batch
+# --------------------------------------------------------------------------
+#
+# The data-parallel step (``train.step.data_parallel``) runs each rank's
+# rows with the mesh suspended and then scales the rank's gradients by
+# its share ``w`` of the batch's label count before summing them.  A loss
+# term built from a statistic of the whole batch (the MoE load-balancing
+# term's means, BatchNorm's moments) reads that statistic through
+# :func:`batch_sum`: its forward sums a rank's partial statistic over the
+# data axes, and its backward sums the ranks' incoming gradients weighted
+# by their shares over this rank's share, so that after the step's
+# scaling each rank's rows carry the whole-batch gradient.
+
+# process-wide, not thread-local: a checkpointed layer's forward is
+# recomputed in the backward, which the autograd engine runs on a thread
+# of its own for CUDA tensors, and must take the same path
+_SPLIT: List[Optional[Tuple["Mesh", float]]] = [None]
+
+
+@contextlib.contextmanager
+def batch_split(mesh: "Mesh", share: float):
+    """Inside: the batch is split over ``mesh``'s data axes and this rank
+    holds ``share`` of its label count (what :func:`batch_sum` reads)."""
+    prev = _SPLIT[0]
+    _SPLIT[0] = (mesh, share) if batch_group_size(mesh) > 1 else None
+    try:
+        yield
+    finally:
+        _SPLIT[0] = prev
+
+
+def split_mesh() -> Optional["Mesh"]:
+    """The mesh whose data axes split the batch, inside
+    :func:`batch_split` (None outside it)."""
+    return _SPLIT[0][0] if _SPLIT[0] is not None else None
+
+
+def reduce_batch_axes(t: torch.Tensor, mesh: "Mesh") -> torch.Tensor:
+    """Sum ``t`` over ``mesh``'s data axes (``pod`` x ``data``: one
+    all-reduce an axis), in place."""
+    for a in batch_axes(mesh):
+        t = all_reduce(t, a, mesh=mesh)
+    return t
+
+
+class _BatchSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, mesh, share):
+        ctx.mesh, ctx.share = mesh, share
+        return reduce_batch_axes(t.clone(), mesh)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = reduce_batch_axes(g * ctx.share, ctx.mesh)
+        return (g / ctx.share if ctx.share else torch.zeros_like(g)), \
+            None, None
+
+
+def batch_sum(t: torch.Tensor) -> torch.Tensor:
+    """A rank's partial sum over its rows -> the whole batch's, under
+    :func:`batch_split` (``t`` itself outside it), differentiable.  Exact
+    when every data rank holds rows with labels (a share of 0 would take
+    the rank's rows out of the step's gradient)."""
+    if _SPLIT[0] is None:
+        return t
+    return _BatchSum.apply(t, *_SPLIT[0])
+
+
 def barrier(group=None) -> None:
     """Wait for every rank of ``group`` (default: the whole world)."""
     dist.barrier(group=group)
@@ -192,6 +359,9 @@ def all_gather(t: torch.Tensor, axis: str) -> List[torch.Tensor]:
     if mesh is None or mesh.axis_size(axis) == 1:
         return [t]
     n = mesh.axis_size(axis)
+    stand_in = _issue(mesh, "all-gather", t, axis, (n, *t.shape))
+    if stand_in is not None:
+        return list(stand_in.unbind(0))
     t = t.contiguous()
     out = torch.empty((n * t.numel(),), dtype=t.dtype, device=t.device)
     dist.all_gather_into_tensor(out, t.reshape(-1), group=mesh.group(axis))
@@ -206,9 +376,11 @@ def all_to_all(t: torch.Tensor, axis: str) -> List[torch.Tensor]:
     if mesh is None or mesh.axis_size(axis) == 1:
         return [t]
     n = mesh.axis_size(axis)
-    t = t.contiguous()
-    out = torch.empty_like(t)
-    dist.all_to_all_single(out, t, group=mesh.group(axis))
+    out = _issue(mesh, "all-to-all", t, axis, t.shape)
+    if out is None:
+        t = t.contiguous()
+        out = torch.empty_like(t)
+        dist.all_to_all_single(out, t, group=mesh.group(axis))
     return list(out.view(n, t.shape[0] // n, *t.shape[1:]).unbind(0))
 
 
@@ -218,6 +390,9 @@ def broadcast(t: torch.Tensor, axis: str, src_coord: int) -> torch.Tensor:
     mesh = active_mesh()
     if mesh is None or mesh.axis_size(axis) == 1:
         return t
+    stand_in = _issue(mesh, "collective-broadcast", t, axis, t.shape)
+    if stand_in is not None:
+        return stand_in
     group = mesh.group(axis)
     src = dist.get_process_group_ranks(group)[src_coord]
     t = t.contiguous()

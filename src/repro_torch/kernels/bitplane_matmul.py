@@ -107,7 +107,7 @@ def bitplane_matmul(x: torch.Tensor, planes: torch.Tensor,
                          f"K={k} N<={gc * wbc}, planes "
                          f"{tuple(planes.shape)}, sign {tuple(sign.shape)}, "
                          f"scale {tuple(scale.shape)}")
-    if x.device.type == "cpu":
+    if x.device.type in ("cpu", "meta"):   # meta: shapes only (dry run)
         return bitplane_matmul_ref(x, planes, sign, mask, scale, wbr, wbc,
                                    grid)
     if x.device.type != "cuda":

@@ -92,7 +92,7 @@ def packed_matmul(x: torch.Tensor, w_int: torch.Tensor, scale: torch.Tensor,
                          f"scale grid K={k} N={n}, w N={w_int.shape[-1]}")
     if bits not in (8, 4):
         raise ValueError(bits)
-    if x.device.type == "cpu":
+    if x.device.type in ("cpu", "meta"):   # meta: shapes only (dry run)
         return packed_matmul_ref(x, w_int, scale, bits, wbr, wbc, grid)
     if x.device.type != "cuda":
         raise ValueError(f"packed_matmul runs on cuda or cpu, not {x.device}")

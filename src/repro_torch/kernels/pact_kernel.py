@@ -49,7 +49,7 @@ def pact_quant(x: torch.Tensor, beta: torch.Tensor, *,
                          f"{tuple(x.shape)} and {tuple(beta.shape)}")
     if not 2 <= act_bits <= 16:
         raise ValueError(f"act_bits must be in [2, 16], got {act_bits}")
-    if x.device.type == "cpu":
+    if x.device.type in ("cpu", "meta"):   # meta: shapes only (dry run)
         return pact_quant_ref(x, beta, act_bits)
     if x.device.type != "cuda":
         raise ValueError(f"pact_quant runs on cuda or cpu, not {x.device}")

@@ -103,7 +103,7 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
     if (bits == 4 and dh_s * 2 != dh) or (bits != 4 and dh_s != dh):
         raise ValueError(f"pool head dim {dh_s} does not fit query dh {dh} "
                          f"at {bits} bits")
-    if q.device.type == "cpu":
+    if q.device.type in ("cpu", "meta"):   # meta: shapes only (dry run)
         return paged_attention_ref(q, k_pages, v_pages, k_scale, v_scale,
                                    table, kv_len, window=window,
                                    softcap=softcap)

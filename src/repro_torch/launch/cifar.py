@@ -117,9 +117,6 @@ def train_quantized_cnn(scheme: str, args, device):
 
     def loss_fn(p, b):
         return cnn_loss(apply_fn, p, b, qc)
-    # BatchNorm normalizes by the whole batch's statistics: a trainer
-    # under a mesh refuses to split the batch over the data axes
-    loss_fn.batch_statistic = "BatchNorm's batch means and variances"
 
     steps = args.steps
     q = qc.enabled

@@ -31,9 +31,9 @@ as ``torchrun`` sets them) with ``--dist-backend`` (gloo by default: ranks
 sharing one card cannot use NCCL), and destroyed at the end.  Every rank
 holds the whole train state and trains on its rows of each global batch
 (``train.step.data_parallel``); checkpoints are sharded one file a host
-coordinate.  Only rank 0 prints.  A loss holding a statistic of the
-whole batch (the MoE family's load-balancing term) is refused when the
-mesh's data axes split the batch (``NotImplementedError``).
+coordinate.  Only rank 0 prints.  The MoE family's load-balancing term,
+a statistic of the whole batch, is summed over the data axes
+(``dist.parallel.batch_sum``).
 
 Every decoder-only family trains: dense, MoE (cross entropy plus ``0.01
 x`` the load-balancing term), and vlm, ssm and hybrid.  A vlm model
@@ -128,15 +128,13 @@ def make_mesh_of(args):
                                 device_type=dev)
 
 
-def make_trainer(args, mesh=None):
+def make_trainer(args):
     """The launcher's trainer over a fresh seed-0 init (not yet restored
-    from ``--ckpt-dir``); a loss that ``mesh`` cannot split is refused
-    before the model is built."""
+    from ``--ckpt-dir``)."""
     from ..models.api import build
     from ..models.transformer import check_trainable
     from ..optim import adamw, cosine_schedule
     from ..train import Trainer, TrainerConfig
-    from ..train.step import batch_statistic, check_batch_split
     cfg = config(args)
     check_trainable(cfg)
     if cfg.is_encdec:
@@ -148,7 +146,6 @@ def make_trainer(args, mesh=None):
             f"train it through Trainer on repro_torch.data.lm_batch_for "
             f"batches")
     api = build(cfg)
-    check_batch_split(batch_statistic(api.loss), mesh)
     params = api.init(seed=0, device=args.device)
     return Trainer(
         api.loss, adamw(weight_decay=0.0), cosine_schedule(2e-3, args.steps),
@@ -173,7 +170,7 @@ def main(argv: Optional[List[str]] = None):
     try:
         mesh = make_mesh_of(args)
         with use_mesh(mesh):
-            trainer = make_trainer(args, mesh)
+            trainer = make_trainer(args)
             resumed = trainer.try_restore()
             data = make_lm_pipeline(config(args), args.seq, args.batch,
                                     start_step=resumed)

@@ -38,6 +38,7 @@ from ..core.bitrep import from_float
 from ..core.device import resolve_device
 from ..core.fakequant import fq_from_float
 from ..core.pact import pact_quant
+from ..dist.parallel import batch_sum, split_mesh
 from ..serve.deploy import BitplaneServingWeight, ServingWeight
 from .common import qdense, qmatmul
 
@@ -119,7 +120,22 @@ def _bn_init(c: int, device) -> Dict:
 
 def _bn_apply(p: Dict, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     """Batch-norm over the batch's own statistics (population variance, as
-    ``jnp.var``), folded to a per-channel affine."""
+    ``jnp.var``), folded to a per-channel affine.  With the batch split
+    over the data axes (a training step's ``batch_split``) the moments
+    are the whole batch's: each rank's channel sums of ``x`` and of
+    ``x**2`` and its row count are summed over the data axes
+    (:func:`~repro_torch.dist.parallel.batch_sum`, which carries their
+    gradients back)."""
+    if split_mesh() is not None:
+        c = x.shape[-1]
+        count = torch.full((1,), float(x.numel() // c), dtype=x.dtype,
+                           device=x.device)
+        sums = batch_sum(torch.cat([x.sum((0, 1, 2)),
+                                    torch.square(x).sum((0, 1, 2)), count]))
+        n = sums[2 * c]
+        mu = sums[:c] / n
+        var = sums[c:2 * c] / n - torch.square(mu)
+        return (x - mu) * torch.rsqrt(var + eps) * p["scale"] + p["bias"]
     mu = torch.mean(x, dim=(0, 1, 2), keepdim=True)
     var = torch.mean(torch.square(x - mu), dim=(0, 1, 2), keepdim=True)
     xn = (x - mu) * torch.rsqrt(var + eps)

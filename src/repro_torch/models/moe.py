@@ -41,8 +41,8 @@ import torch
 import torch.nn.functional as F
 
 from ..core.bitrep import QuantizedTensor
-from ..dist.parallel import (Cols, active_mesh, all_reduce, even_ranges,
-                             take_cols, unshard)
+from ..dist.parallel import (Cols, active_mesh, all_reduce, batch_sum,
+                             even_ranges, split_mesh, take_cols, unshard)
 from .common import make_weight, qdense, qmatmul, window_weight
 
 # Implementation selector: 'ragged' (exact, no drops) or 'capacity'
@@ -54,6 +54,21 @@ def _sizes(group_sizes: Union[torch.Tensor, Sequence[int]]) -> List[int]:
     if isinstance(group_sizes, torch.Tensor):
         return [int(s) for s in group_sizes.tolist()]
     return [int(s) for s in group_sizes]
+
+
+def _counts(flat_expert: torch.Tensor, e: int) -> torch.Tensor:
+    """(E,) rows routed to each expert, on the device (no host read)."""
+    return torch.zeros((e,), dtype=torch.long, device=flat_expert.device
+                       ).scatter_add_(0, flat_expert,
+                                      torch.ones_like(flat_expert))
+
+
+def _group_sizes(flat_expert: torch.Tensor, e: int):
+    """The group sizes the dispatch takes: a device tensor for
+    ``capacity`` (no host read), ints read on the host once for the
+    ragged product (one sync a layer)."""
+    counts = _counts(flat_expert, e)
+    return counts if GROUPED_IMPL["impl"] == "capacity" else _sizes(counts)
 
 
 def _pad_slots(sizes: List[int], device) -> Tuple[torch.Tensor, int]:
@@ -157,29 +172,32 @@ def _n_experts(w) -> int:
 
 
 def grouped_matmul_capacity(x: torch.Tensor, w, group_sizes, capacity: int,
-                            backend: str = "dense") -> torch.Tensor:
+                            backend: str = "dense", start=0) -> torch.Tensor:
     """Capacity-bounded grouped matmul over sorted tokens.
 
-    ``x`` (M, K) sorted by group; ``w`` an (E, K, N) stack, plain or
-    quantized.  Each expert's ``capacity``-row window from its group's
-    start (rows past the group's size masked to zero) runs ``qmatmul``
-    against that expert's 2-D slice, so a deployed stack runs its kernel
-    one expert at a time.  Returns (M, N), zero for tokens past their
-    group's capacity."""
+    ``x`` (M, K) sorted by group, the first group starting at row
+    ``start``; ``w`` an (E, K, N) stack, plain or quantized.  Each
+    expert's ``capacity``-row window from its group's start (rows past
+    the group's size masked to zero) runs ``qmatmul`` against that
+    expert's 2-D slice, so a deployed stack runs its kernel one expert at
+    a time.  Returns (M, N), zero for tokens past their group's capacity
+    and for rows before ``start``.  ``group_sizes`` (and ``start``) may
+    be device tensors: the windows are gathered and added back by index,
+    so nothing is read on the host (the dry run's ``meta`` tensors)."""
     m, k = x.shape
-    sizes = _sizes(group_sizes)
+    sizes = torch.as_tensor(group_sizes, device=x.device)
+    starts = torch.cumsum(sizes, 0) - sizes + start
     x_pad = torch.cat([x, x.new_zeros((capacity, k))])
     y = None
     rows = torch.arange(capacity, device=x.device)
-    start = 0
-    for e, size in enumerate(sizes):
-        xs = x_pad[start:start + capacity]
-        mask = (rows < size)[:, None].to(x.dtype)
-        ys = qmatmul(xs * mask, _expert(w, e), backend) * mask
+    for e in range(sizes.shape[0]):
+        idx = starts[e] + rows
+        mask = (rows < sizes[e])[:, None].to(x.dtype)
+        ys = qmatmul(x_pad.index_select(0, idx) * mask, _expert(w, e),
+                     backend) * mask
         if y is None:
             y = x.new_zeros((m + capacity, ys.shape[-1]))
-        y[start:start + capacity] += ys
-        start += size
+        y.index_add_(0, idx, ys)
     return y[:m]
 
 
@@ -279,8 +297,7 @@ def _moe_forward_local(p: Dict, x: torch.Tensor, top_k: int,
     order = torch.argsort(flat_expert, stable=True)
     tok_sorted = torch.div(order, top_k, rounding_mode="floor")
     xs = xt[tok_sorted]                                      # (T*k, D)
-    # read on the host once for the three grouped products: one sync a layer
-    group_sizes = _sizes(torch.bincount(flat_expert, minlength=e))
+    group_sizes = _group_sizes(flat_expert, e)
 
     gate = _grouped(xs, p["expert_gate"], group_sizes, backend)
     up = _grouped(xs, p["expert_up"], group_sizes, backend)
@@ -296,12 +313,28 @@ def _moe_forward_local(p: Dict, x: torch.Tensor, top_k: int,
         out = out + qmatmul(hs, p["shared_down"], backend)
 
     # load-balance auxiliary loss (Switch-style)
-    hit = torch.zeros((t, e), dtype=torch.float32, device=x.device)
+    return out, _aux_loss(probs, expert_idx, e)
+
+
+def _aux_loss(probs: torch.Tensor, expert_idx: torch.Tensor, e: int
+              ) -> torch.Tensor:
+    """The load-balancing term ``e * sum(mean(hit) * mean(probs))`` over
+    the whole batch.  Under a training step's
+    :func:`~repro_torch.dist.parallel.batch_split` the means are the whole
+    batch's: each rank's sums of ``hit`` and ``probs`` and its row count
+    are summed over the data axes before the product, through
+    :func:`~repro_torch.dist.parallel.batch_sum`, whose backward carries
+    the gradient of ``mean(probs)``."""
+    t = probs.shape[0]
+    hit = torch.zeros((t, e), dtype=torch.float32, device=probs.device)
     hit.scatter_(1, expert_idx, 1.0)
-    frac_tokens = torch.mean(hit, 0)
-    frac_probs = torch.mean(probs, 0)
-    aux = e * torch.sum(frac_tokens * frac_probs)
-    return out, aux
+    if split_mesh() is None:
+        return e * torch.sum(torch.mean(hit, 0) * torch.mean(probs, 0))
+    count = torch.full((1,), float(t), dtype=torch.float32,
+                       device=probs.device)
+    sums = batch_sum(torch.cat([hit.sum(0), probs.sum(0), count]))
+    n = sums[2 * e]
+    return e * torch.sum((sums[:e] / n) * (sums[e:2 * e] / n))
 
 
 def _local_experts(w, e0: int, n: int, dtype) -> torch.Tensor:
@@ -366,8 +399,9 @@ def _moe_forward_sharded(p: Dict, x: torch.Tensor, top_k: int,
       (:func:`~repro_torch.dist.parallel.take_cols`).
 
     The experts are dequantized on this path, as the reference's are,
-    and the partial outputs and the aux term are summed / averaged over
-    ``model`` (the aux over the data axes too)."""
+    and the partial outputs are summed over ``model``.  The aux term is
+    this rank's rows' own (:func:`_aux_loss`): serving reads no aux, so it
+    costs no collective."""
     b, s, d = x.shape
     e = p["router_w"].shape[-1]
     t = b * s
@@ -391,11 +425,11 @@ def _moe_forward_sharded(p: Dict, x: torch.Tensor, top_k: int,
     order = torch.argsort(flat_expert, stable=True)
     tok_sorted = torch.div(order, top_k, rounding_mode="floor")
     xs = xt[tok_sorted]
-    sizes = _sizes(torch.bincount(flat_expert, minlength=e))
+    sizes = _group_sizes(flat_expert, e)
     if ep:
         gs_local = sizes[e0:e0 + e_loc]
-        start0, n_loc = sum(sizes[:e0]), sum(gs_local)
         if GROUPED_IMPL["impl"] == "ragged":
+            start0, n_loc = sum(sizes[:e0]), sum(gs_local)
             rows = xs[start0:start0 + n_loc]
             h = F.silu(grouped_matmul(rows, wg, gs_local)) \
                 * grouped_matmul(rows, wu, gs_local)
@@ -403,11 +437,12 @@ def _moe_forward_sharded(p: Dict, x: torch.Tensor, top_k: int,
             ys[start0:start0 + n_loc] = grouped_matmul(h, wd, gs_local)
         else:
             cap = _capacity(t * top_k, e)
-            xloc = torch.roll(xs, -start0, dims=0)
-            h = F.silu(grouped_matmul_capacity(xloc, wg, gs_local, cap)) \
-                * grouped_matmul_capacity(xloc, wu, gs_local, cap)
-            ys = torch.roll(grouped_matmul_capacity(h, wd, gs_local, cap),
-                            start0, dims=0)
+            start0 = sizes[:e0].sum()
+            h = F.silu(grouped_matmul_capacity(xs, wg, gs_local, cap,
+                                               start=start0)) \
+                * grouped_matmul_capacity(xs, wu, gs_local, cap,
+                                          start=start0)
+            ys = grouped_matmul_capacity(h, wd, gs_local, cap, start=start0)
     else:
         f = p["expert_gate"].shape[-1]
         g = Cols(_grouped(xs, wg, sizes), *rg[r], f, rg)
@@ -423,10 +458,4 @@ def _moe_forward_sharded(p: Dict, x: torch.Tensor, top_k: int,
             * qmatmul(x, p["shared_up"], backend)
         out = out + qmatmul(hs, p["shared_down"], backend)
 
-    hit = torch.zeros((t, e), dtype=torch.float32, device=x.device)
-    hit.scatter_(1, expert_idx, 1.0)
-    aux = e * torch.sum(torch.mean(hit, 0) * torch.mean(probs, 0))
-    for axis in ("data", "model"):
-        if mesh.axis_size(axis) > 1:
-            aux = all_reduce(aux.clone(), axis) / mesh.axis_size(axis)
-    return out, aux
+    return out, _aux_loss(probs, expert_idx, e)

@@ -48,9 +48,10 @@ def mrope_angles(positions3: torch.Tensor, d_head: int, theta: float,
     dev = positions3.device
     exps = torch.arange(half, dtype=torch.float32, device=dev) / half
     inv_freq = 1.0 / (theta ** exps)
-    sec_id = torch.repeat_interleave(
-        torch.arange(len(sections), device=dev),
-        torch.tensor(list(sections), device=dev))
+    # the section index of each frequency slot, from host ints (a
+    # tensor-valued count needs a host read, which ``meta`` has not)
+    sec_id = torch.tensor([i for i, n in enumerate(sections)
+                           for _ in range(n)], device=dev)
     # per-frequency-slot positions (B, S, half), as take_along_axis
     pos = torch.gather(positions3.to(torch.float32), -1,
                        sec_id.expand(*positions3.shape[:-1], half))

@@ -54,9 +54,9 @@ class Trainer:
     Under a mesh whose data axes split the batch, the loss must be a mean
     of per-row terms (over the ``mask``, or over the labels) plus terms
     of the params alone: then the ranks' share-weighted losses sum to the
-    single-device loss exactly.  A loss holding a statistic of the whole
-    batch (``train.step.batch_statistic``: the MoE load-balancing term,
-    the CNN's BatchNorm) is refused there."""
+    single-device loss exactly; a statistic of the whole batch (the MoE
+    load-balancing term, the CNN's BatchNorm) is summed over the data
+    axes (``dist.parallel.batch_sum``)."""
 
     def __init__(self, loss_fn: Callable, optimizer: Optimizer,
                  lr_schedule: Callable, params: Any,

@@ -25,14 +25,17 @@ suspended (the model's serving collectives have no autograd), and the
 gradients and metrics are summed over every rank of the mesh
 (:func:`data_parallel`), each rank's weighted by its share of the batch's
 label count over ``1 / model`` replicas.  That is exact for a loss that
-is a mean of per-row terms plus terms of the params alone; a loss that
-holds a statistic of the whole batch (:func:`batch_statistic`) is refused
-when the batch is split.
+is a mean of per-row terms plus terms of the params alone.  A term built
+from a statistic of the whole batch (the MoE load-balancing term's batch
+means, BatchNorm's moments) reads it through
+:func:`~repro_torch.dist.parallel.batch_sum` inside the step's
+:func:`~repro_torch.dist.parallel.batch_split`: the ranks' partial
+statistics are summed over the data axes, and their gradients back.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, Optional, Tuple
+from typing import Callable, Dict, Tuple
 
 import torch
 from torch.utils.checkpoint import checkpoint
@@ -45,7 +48,7 @@ from ..core.precision import adjust_precision
 from ..core.quantize import requantize
 from ..core.state import map_tensors, quant_nodes, tensor_leaves, tree_map
 from ..dist.parallel import (active_mesh, all_reduce_tensors, batch_coord,
-                             batch_group_size, batch_rows)
+                             batch_group_size, batch_rows, batch_split)
 from ..dist.sharding import use_mesh
 from ..optim.optimizers import Optimizer, global_norm
 from .state import TrainState
@@ -163,39 +166,12 @@ def microbatched_value_and_grad(loss_fn: Callable, num_mb: int = 1):
     return fn
 
 
-def batch_statistic(loss_fn: Callable) -> Optional[str]:
-    """What of the whole batch ``loss_fn``'s loss holds beyond a mean of
-    per-row terms (None when it holds nothing else): an MoE model's
-    load-balancing term (``ModelAPI.loss`` of a config with experts: a
-    product of batch means), or whatever a loss function names in its
-    ``batch_statistic`` attribute (the CNN's BatchNorm)."""
-    named = getattr(loss_fn, "batch_statistic", None)
-    if named:
-        return named
-    cfg = getattr(getattr(loss_fn, "__self__", None), "cfg", None)
-    if getattr(cfg, "n_experts", 0):
-        return (f"{cfg.name}'s MoE load-balancing term (the product of the "
-                f"batch's mean expert hits and mean router probabilities)")
-    return None
-
-
-def check_batch_split(statistic: Optional[str], mesh) -> None:
-    """Refuse to split the batch over ``mesh``'s data axes for a loss
-    that holds a statistic of the whole batch: the ranks' losses would
-    not sum to it."""
-    if statistic and mesh is not None and batch_group_size(mesh) > 1:
-        raise NotImplementedError(
-            f"training under a mesh with data axes of "
-            f"{batch_group_size(mesh)} ranks splits the batch, and the "
-            f"loss holds {statistic}, a statistic of the whole batch: not "
-            f"ported (ROADMAP item 6); train it on a mesh of data size 1")
-
-
 def _row_count(batch: Dict[str, torch.Tensor], lo: int, hi: int) -> float:
     """Rows [lo, hi)'s weight in the loss's mean: their ``mask`` sum, or
-    their label count."""
+    their label count (also for a ``meta`` mask, whose sum the host
+    cannot read: the dry run's batches carry no mask)."""
     mask = batch.get("mask")
-    if mask is not None:
+    if mask is not None and not mask.is_meta:
         return float(mask[lo:hi].sum())
     return float(batch["labels"][lo:hi].numel())
 
@@ -217,22 +193,22 @@ def rank_share(batch: Dict[str, torch.Tensor], mesh
     return {k: v[lo:hi] for k, v in batch.items()}, share
 
 
-def data_parallel(value_and_grad: Callable,
-                  statistic: Optional[str] = None) -> Callable:
+def data_parallel(value_and_grad: Callable) -> Callable:
     """``value_and_grad(params, batch) -> ((loss, aux), grads)`` under the
     active mesh: each rank runs it on its rows (:func:`rank_share`) with
     the mesh suspended, then its gradient leaves outside the frozen
     metadata and every tensor of ``(loss, aux)`` are scaled by ``w /
     model`` and summed over every rank of the mesh (flat buffers), so that
-    every rank holds the global values, bit for bit the same.  With no
+    every rank holds the global values, bit for bit the same.  The rows
+    run inside :func:`~repro_torch.dist.parallel.batch_split`, so that a
+    statistic of the whole batch is summed over the data axes.  With no
     mesh, ``value_and_grad`` itself."""
     def fn(params, batch):
         mesh = active_mesh()
         if mesh is None:
             return value_and_grad(params, batch)
-        check_batch_split(statistic, mesh)
         local, share = rank_share(batch, mesh)
-        with use_mesh(None):
+        with use_mesh(None), batch_split(mesh, share):
             (loss, aux), grads = value_and_grad(params, local)
         scale = share * batch_group_size(mesh) / mesh.size
         all_reduce_tensors([g for p, g in tensor_leaves(grads)
@@ -251,8 +227,6 @@ def build_train_step(loss_fn: Callable, optimizer: Optimizer,
     updates ``state`` in place and returns it with the metrics (tensors;
     the caller reads them when it logs).  Under a process mesh the step
     takes the global batch and runs :func:`data_parallel`."""
-    statistic = batch_statistic(loss_fn)
-
     def total_loss(alpha):
         def fn(params, batch):
             # the regularizer is built before the forward so that its
@@ -269,7 +243,7 @@ def build_train_step(loss_fn: Callable, optimizer: Optimizer,
 
     def step(state: TrainState, batch) -> Tuple[TrainState, Dict]:
         vg = data_parallel(microbatched_value_and_grad(
-            total_loss(state.alpha), num_mb), statistic)
+            total_loss(state.alpha), num_mb))
         (loss, (metrics, reg)), grads = vg(state.params, batch)
         grad_norm = global_norm(grads)
         lr = lr_schedule(state.step)

@@ -122,5 +122,12 @@ def test_refusals():
     with pytest.raises(ValueError):
         tops.to_packed_layout(_port(qt), 6)
     layout = tops.to_packed_layout(_port(qt), 8)
+    # a tensor on another device than cuda, cpu or meta (a ``meta``
+    # tensor takes the plain version's shape path: the dry run's)
+    class _Elsewhere(torch.Tensor):
+        @property
+        def device(self):
+            return torch.device("xpu")
+    elsewhere = torch.Tensor._make_subclass(_Elsewhere, torch.zeros((2, 72)))
     with pytest.raises(ValueError, match="cuda or cpu"):
-        tops.bwq_dense_packed(torch.zeros((2, 72), device="meta"), layout)
+        tops.bwq_dense_packed(elsewhere, layout)

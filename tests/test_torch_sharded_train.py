@@ -33,9 +33,11 @@ every 2.
 * granite-moe (tiny, activation quantizers off): one step's gradients on
   (1, 2) equal the single-device gradients bit for bit and the
   reference's within ``LEAF_TOL`` (the model's own expert-parallel
-  collectives would carry no gradient); under (2, 1) the trainer and the
-  launcher refuse it, and the CIFAR trainer a CNN (BatchNorm), naming
-  ROADMAP item 6.
+  collectives would carry no gradient); on (2, 1), where the
+  load-balancing term's means are summed over ``data``, the loss is the
+  single-device loss within ``LOSS_TOL`` and the gradients the
+  reference's within ``LEAF_TOL``; the launcher builds its trainer and
+  the CIFAR trainer (BatchNorm) trains there.
 * The launcher trains with ``--mesh-shape 2,1``, its process group
   initialized from ``RANK`` / ``WORLD_SIZE`` / ``MASTER_ADDR`` /
   ``MASTER_PORT``, within ``LOSS_TOL`` of the single-process launcher;
@@ -218,8 +220,9 @@ def _planted(inp, meshes):
 
 
 def _moe(inp, meshes):
-    """granite: one step's gradients on (1, 2) and with no mesh; the
-    trainer's and the launcher's refusals on (2, 1)."""
+    """granite: one step's gradients with no mesh, on (1, 2) and on
+    (2, 1) (the load-balancing term's means summed over ``data``); the
+    launcher's trainer and the CIFAR trainer (BatchNorm) on (2, 1)."""
     import torch
     from repro_torch.bridge import params_from_numpy
     from repro_torch.core.state import tensor_leaves
@@ -227,8 +230,6 @@ def _moe(inp, meshes):
     from repro_torch.launch import cifar
     from repro_torch.launch import train as tl
     from repro_torch.models.api import build
-    from repro_torch.optim import sgd
-    from repro_torch.train import Trainer, TrainerConfig
     from repro_torch.train.step import (data_parallel,
                                         microbatched_value_and_grad)
     api = build(inp["moe_cfg"])
@@ -237,30 +238,21 @@ def _moe(inp, meshes):
     vg = data_parallel(microbatched_value_and_grad(
         _total(api, inp["alpha"])))
     out = {}
-    for key, mesh in (("single", None), ("1x2", meshes[1, 2])):
+    for key, mesh in (("single", None), ("1x2", meshes[1, 2]),
+                      ("2x1", meshes[2, 1])):
         with use_mesh(mesh):
             (loss, _), g = vg(params, batch)
         out[key] = {"loss": float(loss),
                     "grads": {p: t.numpy().copy()
                               for p, t in tensor_leaves(g)}}
-    refused = {}
-    tr = Trainer(api.loss, sgd(momentum=0.0, weight_decay=0.0),
-                 lambda s: 1e-3, params, TrainerConfig(total_steps=1))
     cifar_args = cifar.build_parser().parse_args(
         ["--tiny", "--device", "cpu", "--steps", "1", "--batch", "4"])
-    for key, fn in (
-            ("trainer", lambda: tr.train_step(tr.state, batch)),
-            ("launcher", lambda: tl.make_trainer(tl.build_parser().parse_args(
-                ["--arch", MOE, "--device", "cpu"]), meshes[2, 1])),
-            ("cnn", lambda: cifar.train_quantized_cnn("bwq", cifar_args,
-                                                      "cpu"))):
-        try:
-            with use_mesh(meshes[2, 1]):
-                fn()
-            refused[key] = None
-        except NotImplementedError as e:
-            refused[key] = str(e)
-    out["refused"] = refused
+    with use_mesh(meshes[2, 1]):
+        trainer = tl.make_trainer(tl.build_parser().parse_args(
+            ["--arch", MOE, "--device", "cpu"]))
+        _, _, cnn = cifar.train_quantized_cnn("bwq", cifar_args, "cpu")
+    out["launcher_arch"] = trainer.state.params is not None and MOE
+    out["cnn_loss"] = float(cnn.history[-1]["loss"])
     return out
 
 
@@ -528,15 +520,24 @@ def test_moe_step_on_model_axis_gives_single_device_gradients(run):
 
 
 def test_batch_statistics_refused_under_data_parallel(run):
-    """On (2, 1) the trainer and the launcher refuse granite-moe (its
-    load-balancing term), the CIFAR trainer a CNN (its BatchNorm), each
-    naming ROADMAP item 6."""
-    refused = run["outs"][0]["moe"]["refused"]
-    assert set(refused) == {"trainer", "launcher", "cnn"}
-    for key, msg in refused.items():
-        assert msg is not None and "item 6" in msg and (
-            "BatchNorm" if key == "cnn" else "load-balancing") in msg, \
-            (key, msg)
+    """No longer refused: on (2, 1) granite's load-balancing term takes
+    the whole batch's means, so one step's loss is the single-device
+    loss within ``LOSS_TOL`` and its gradients the reference's within
+    ``LEAF_TOL``; the launcher builds granite's trainer and the CIFAR
+    trainer (BatchNorm) trains on (2, 1)."""
+    moe = run["outs"][0]["moe"]
+    split, single = moe["2x1"], moe["single"]
+    assert abs(split["loss"] - single["loss"]) <= \
+        LOSS_TOL * abs(single["loss"]), (split["loss"], single["loss"])
+    want = run["ref"]["moe_grads"]
+    for k, w in want.items():
+        w = np.asarray(w, np.float64)
+        scale = max(float(np.abs(w).max()), 1e-30)
+        err = float(np.abs(split["grads"][k].astype(np.float64) - w).max()) \
+            / scale
+        assert err <= LEAF_TOL, (k, err)
+    assert moe["launcher_arch"] == MOE
+    assert moe["cnn_loss"] is not None and np.isfinite(moe["cnn_loss"])
 
 
 def test_launcher_mesh_shape_from_environment(run):

@@ -21,10 +21,8 @@ the abstract input specs of every family.
   backward's bit for bit (the dense walk's: tests/test_torch_train.py).
 * The launcher trains qwen2-vl (text only, as the reference's launcher
   trains it), rwkv6 and zamba2 for 2 steps with a maintenance at step 2.
-* ``lm_batch_for`` gives each family the shapes and dtypes of
-  ``train_batch_spec`` (a vlm batch leaves ``positions`` to the model),
-  and the specs' shapes and dtypes are the reference's for every family;
-  ``decode_state_spec`` and ``decode_token_spec`` too.
+(The specs are in ``tests/test_torch_train_specs.py``, the batches in
+``tests/test_torch_train_batches.py``.)
 """
 import dataclasses
 
@@ -36,12 +34,7 @@ import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 
-from repro.configs import LM_SHAPES as JSHAPES  # noqa: E402
-from repro.configs import REGISTRY as JREG  # noqa: E402
-from repro.models.api import build as jbuild  # noqa: E402
-from repro_torch.configs import LM_SHAPES, REGISTRY, ShapeCell  # noqa: E402
 from repro_torch.core.state import tensor_leaves  # noqa: E402
-from repro_torch.data import lm_batch_for  # noqa: E402
 from repro_torch.models.api import build as tbuild  # noqa: E402
 from torch_train_helpers import (bridged, check_one_step,  # noqa: E402
                                  family_batch, family_case, port_grads)
@@ -148,63 +141,3 @@ def test_launcher_trains_the_family(arch, capsys):
         assert all(np.isfinite(v) for v in h.values()), h
         assert h["aux"] == 0.0
     assert "ce=" in capsys.readouterr().out
-
-
-def _spec_of(tree):
-    """{path: (shape, dtype name)} of a spec tree (torch ``meta`` tensors
-    or ``jax.ShapeDtypeStruct`` leaves)."""
-    if isinstance(tree, torch.Tensor):
-        return {"": (tuple(tree.shape), str(tree.dtype).split(".")[-1])}
-    if isinstance(tree, dict):
-        return {f"[{k!r}]{p}": v for k, sub in tree.items()
-                for p, v in _spec_of(sub).items()}
-    return {"": (tuple(tree.shape), str(np.dtype(tree.dtype)))}
-
-
-@pytest.mark.parametrize("arch", sorted(REGISTRY))
-def test_specs_match_reference(arch):
-    """``train_batch_spec``, ``decode_state_spec`` and
-    ``decode_token_spec`` for every LM shape cell: the reference's shapes
-    and dtypes, every tensor on the ``meta`` device (the registered
-    full-width configs, nothing allocated)."""
-    japi, tapi = jbuild(JREG[arch]), tbuild(REGISTRY[arch])
-    assert [dataclasses.astuple(c) for c in LM_SHAPES] == \
-        [dataclasses.astuple(c) for c in JSHAPES]
-    for cell, jcell in zip(LM_SHAPES, JSHAPES):
-        got = tapi.train_batch_spec(cell)
-        assert all(t.device.type == "meta" for t in got.values())
-        assert _spec_of(got) == _spec_of(japi.train_batch_spec(jcell))
-        small = dataclasses.replace(cell, seq_len=64, global_batch=2)
-        jsmall = dataclasses.replace(jcell, seq_len=64, global_batch=2)
-        got = tapi.decode_state_spec(small)
-        assert all(t.device.type == "meta"
-                   for t in jax.tree_util.tree_leaves(got))
-        assert _spec_of(got) == _spec_of(japi.decode_state_spec(jsmall))
-        assert _spec_of(tapi.decode_token_spec(cell)) == \
-            _spec_of(japi.decode_token_spec(jcell))
-
-
-@pytest.mark.parametrize("arch", [QWEN, "seamless-m4t-large-v2", RWKV])
-def test_lm_batch_for_follows_the_spec(arch):
-    """Batches of the cell's shapes (a vlm batch without ``positions``,
-    which the model makes), f32 where the spec says bf16, pure functions
-    of (seed, step), 0.1 x standard normal inputs; the tokens are the
-    bigram stream's."""
-    from repro.data import lm_batch_for as j_batch
-    cfg = REGISTRY[arch].tiny(dtype="float32")
-    cell = ShapeCell("train", 40, 3, "train")
-    spec = tbuild(cfg).train_batch_spec(cell)
-    b, again = lm_batch_for(cfg, cell, 2, 5), lm_batch_for(cfg, cell, 2, 5)
-    assert b.keys() == spec.keys() - {"positions"}
-    for k, t in b.items():
-        assert t.shape == spec[k].shape, k
-        want = torch.float32 if spec[k].is_floating_point() else torch.int32
-        assert t.dtype == want and torch.equal(t, again[k]), k
-    ref = j_batch(JREG[arch].tiny(dtype="float32"), cell, 2, 5)
-    for k in ("tokens", "labels"):
-        assert ref[k].shape == tuple(b[k].shape)
-    extra = b.get("vision_embeds", b.get("frames"))
-    if extra is not None:
-        assert abs(float(extra.std()) - 0.1) < 0.01
-        assert not torch.equal(extra, lm_batch_for(cfg, cell, 3, 5)[
-            "vision_embeds" if "vision_embeds" in b else "frames"])

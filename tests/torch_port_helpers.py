@@ -313,3 +313,222 @@ def deployed_pairs():
             deps[bits, layout] = (jax_deployed(tp), tp)
         return japi, tapi, deps[bits, layout]
     return get
+
+
+# --------------------------------------------------------------------------
+# the CNN pipeline (tests/test_torch_cnn*.py)
+# --------------------------------------------------------------------------
+
+CNN_MODELS = {"resnet": (8, 8), "vgg": (11, 32)}     # depth, image side
+
+
+def bridged(jp):
+    """A reference param tree carried into the port on the CPU."""
+    from repro_torch.bridge import params_from_numpy
+    return params_from_numpy(tree_to_numpy(jp), device="cpu")
+
+
+def cnn_images(side, b=2, seed=3):
+    return np.random.default_rng(seed).standard_normal(
+        (b, side, side, 3)).astype(np.float32)
+
+
+def cnn_jinit(model, qc):
+    """The reference's ResNet-8 / VGG-11 from ``PRNGKey(0)``."""
+    import jax
+    from repro.models import cnn as jcnn
+    depth, _ = CNN_MODELS[model]
+    init = jcnn.resnet_init if model == "resnet" else jcnn.vgg_init
+    return init(jax.random.PRNGKey(0), qc, depth=depth)
+
+
+# --------------------------------------------------------------------------
+# the vlm, ssm and hybrid families' serving (tests/test_torch_families_*.py)
+# --------------------------------------------------------------------------
+
+_FAMILY_FIXTURES = {}
+
+
+def family_fx(arch):
+    """``tiny_fixture(arch)`` with caches of its deploys and engines, built
+    once a process."""
+    if arch not in _FAMILY_FIXTURES:
+        fx = tiny_fixture(arch)
+        fx["trees"], fx["kv_engines"] = {}, {}
+        _FAMILY_FIXTURES[arch] = fx
+    return _FAMILY_FIXTURES[arch]
+
+
+def family_trees(fx, bits, layout="packed"):
+    """(reference, port) trees of the reference's deploy at ``bits`` /
+    ``layout``, carried across."""
+    from repro.serve.deploy import to_serving_params as j_deploy
+    from repro_torch.bridge import params_from_numpy
+    key = (bits, layout)
+    if key not in fx["trees"]:
+        jt = fx["jdep"] if key == (8, "packed") else \
+            j_deploy(fx["qat"], bits, layout=layout)
+        fx["trees"][key] = (jt, params_from_numpy(tree_to_numpy(jt),
+                                                  device="cpu"))
+    return fx["trees"][key]
+
+
+def family_engines(fx, kv, bits=8, layout="packed"):
+    """(reference, port) engines over a deploy at KV width ``kv``: the
+    reference through its ``ref`` matmuls and ``gather`` attention, the
+    port through its ``kernel`` (``bitplane``) / ``fused`` wrappers."""
+    from repro.serve import ServeEngine as JEngine
+    from repro_torch.serve.engine import ServeEngine as TEngine
+    key = (kv, bits, layout)
+    if key not in fx["kv_engines"]:
+        jt, tt = family_trees(fx, bits, layout)
+        be = "bitplane" if layout == "bitplane" else "kernel"
+        fx["kv_engines"][key] = (
+            JEngine(fx["japi"], jt, kv_quant_bits=kv, backend="ref",
+                    attn_backend="gather"),
+            TEngine(fx["tapi"], tt, kv_quant_bits=kv, backend=be,
+                    attn_backend="fused", device="cpu"))
+    return fx["kv_engines"][key]
+
+
+def family_inputs(fx, width, seed, b=1):
+    """A prompt of ``width`` tokens; a vlm prompt's vision prefix too."""
+    cfg = fx["tapi"].cfg
+    x = {"tokens": prompt(fx["vocab"], width, seed, b)}
+    if cfg.family == "vlm":
+        x["vision_embeds"] = (0.1 * np.random.default_rng((3, seed))
+                              .standard_normal((b, cfg.vision_tokens,
+                                                cfg.d_model))
+                              ).astype(np.float32)
+    return x
+
+
+def jax_inputs(x):
+    import jax.numpy as jnp
+    return {k: jnp.asarray(v) for k, v in x.items()}
+
+
+def family_pairs(fx, specs):
+    """The same greedy requests for both packages: (width, max_new,
+    arrival, priority) each."""
+    from repro.serve import Request as JRequest
+    from repro.serve import SamplingParams as JSP
+    from repro_torch.serve import Request, SamplingParams
+    out = []
+    for uid, (width, new, arrival, prio) in enumerate(specs):
+        x = family_inputs(fx, width, 30 + uid)
+        sp = dict(max_new_tokens=new, priority=prio)
+        out.append((JRequest(uid=uid, inputs=jax_inputs(x),
+                             sampling=JSP(**sp), arrival=arrival),
+                    Request(uid=uid, inputs=x, sampling=SamplingParams(**sp),
+                            arrival=arrival)))
+    return [p[0] for p in out], [p[1] for p in out]
+
+
+# --------------------------------------------------------------------------
+# the encoder-decoder family's serving (tests/test_torch_encdec_*.py)
+# --------------------------------------------------------------------------
+
+_ENCDEC_FIXTURE = {}
+
+
+def encdec_fixture():
+    """``tiny_fixture`` of seamless with its QAT tree carried across and
+    caches of deploys and engines, built once a process."""
+    if not _ENCDEC_FIXTURE:
+        from repro_torch.bridge import params_from_numpy
+        fx = tiny_fixture("seamless-m4t-large-v2")
+        fx["tqat"] = params_from_numpy(tree_to_numpy(fx["qat"]),
+                                       device="cpu")
+        fx["jtrees"], fx["ttrees"], fx["qat_engines"] = {}, {}, {}
+        _ENCDEC_FIXTURE.update(fx)
+    return _ENCDEC_FIXTURE
+
+
+def encdec_batch(fx, b=2, p=8):
+    """{"tokens" (b, p), "frames" (b, S_enc, d)} as numpy."""
+    return {"tokens": prompt(fx["vocab"], p, 0, b),
+            "frames": fx["frames"][:b]}
+
+
+def encdec_qat_engines(fx, kv):
+    """The reference's engine over its QAT tree (``dense``, as its serving
+    tests run the family) and the port's over the carried tree."""
+    from repro.serve import ServeEngine as JEngine
+    from repro_torch.serve.engine import ServeEngine as TEngine
+    if kv not in fx["qat_engines"]:
+        fx["qat_engines"][kv] = (
+            JEngine(fx["japi"], fx["qat"], kv_quant_bits=kv),
+            TEngine(fx["tapi"], fx["tqat"], kv_quant_bits=kv, device="cpu"))
+    return fx["qat_engines"][kv]
+
+
+# --------------------------------------------------------------------------
+# the budget autotuner (tests/test_torch_autotune*.py)
+# --------------------------------------------------------------------------
+
+_AUTOTUNE_FIXTURE = {}
+
+
+def autotune_fixture():
+    """Tiny phi3 (f32, 9x8 blocks, 8-bit fake quantization with 8-bit
+    activations), the reference's ``init(PRNGKey(0))`` deployed to the
+    bit-plane layout by the reference at full occupancy and with mixed
+    per-block widths, carried across; a prompt batch.  Built once a
+    process."""
+    if not _AUTOTUNE_FIXTURE:
+        import jax
+        from repro.configs import REGISTRY as JREG
+        from repro.models.api import build as jbuild
+        from repro.models.common import QuantConfig as JQ
+        from repro.serve.deploy import to_serving_params as j_deploy
+        from repro_torch.configs import REGISTRY as TREG
+        from repro_torch.configs.base import QuantConfig as TQ
+        from repro_torch.models.api import build as tbuild
+        arch = "phi3-mini-3.8b"
+        jcfg = JREG[arch].tiny(dtype="float32").with_quant(
+            JQ(mode="fake", n_bits=8, act_bits=8))
+        tcfg = TREG[arch].tiny(dtype="float32").with_quant(
+            TQ(mode="fake", n_bits=8, act_bits=8))
+        japi, tapi = jbuild(jcfg), tbuild(tcfg)
+        qat = japi.init(jax.random.PRNGKey(0))
+        jfull = j_deploy(qat, 8, layout="bitplane")
+        jmixed = j_deploy(mixed_bitwidths(qat, np.random.default_rng(7)), 8,
+                          layout="bitplane")
+        tok = np.random.default_rng((1, 3)).integers(0, jcfg.vocab, (2, 8))
+        _AUTOTUNE_FIXTURE.update(japi=japi, tapi=tapi, trees={
+            "full": (jfull, bridged(jfull)),
+            "mixed": (jmixed, bridged(jmixed))},
+            batch={"tokens": tok.astype(np.int32)})
+    return _AUTOTUNE_FIXTURE
+
+
+def np_scores(scores):
+    return {k: np.asarray(v.numpy() if isinstance(v, torch.Tensor) else v,
+                          dtype=np.float64) for k, v in scores.items()}
+
+
+def same_alloc(got, want, ref=None):
+    assert got.total_bytes == want.total_bytes
+    assert got.steps_taken == want.steps_taken
+    assert got.steps_available == want.steps_available
+    assert got.predicted_error == want.predicted_error
+    assert got.baseline_error == want.baseline_error
+    assert got.occupancies.keys() == want.occupancies.keys()
+    for p in want.occupancies:
+        np.testing.assert_array_equal(np.asarray(got.occupancies[p]),
+                                      np.asarray(want.occupancies[p]),
+                                      err_msg=p)
+
+
+def three_ways(jtree, ttree, scores, budget):
+    """(reference, port heap, port sorted) allocations on one score set."""
+    from repro.serve.autotune import greedy_allocate as j_allocate
+    from repro_torch.serve.autotune import greedy_allocate
+    want = j_allocate(jtree, scores, budget)   # float64 numpy, as produced
+    tscores = {k: torch.from_numpy(v) for k, v in scores.items()}
+    heap = greedy_allocate(ttree, tscores, budget, search="heap")
+    fast = greedy_allocate(ttree, tscores, budget)
+    same_alloc(heap, want)
+    same_alloc(fast, want)
+    return want, fast

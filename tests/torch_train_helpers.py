@@ -38,6 +38,8 @@ against one jitted call of the reference (:func:`ref_step`):
 """
 import dataclasses
 
+import pytest
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -310,3 +312,30 @@ def drifted(jp, seed=4):
                                    mask=jnp.asarray(mask))
     return jax.tree_util.tree_map(drift, jp,
                                   is_leaf=lambda x: isinstance(x, JQT))
+
+
+# the MoE family's module gradients (tests/test_torch_train_moe*.py)
+GRAD_TOL = 1e-5                  # module gradients, relative to the largest
+
+
+@pytest.fixture(autouse=True)
+def moe_dispatch_back_to_ragged():
+    """Each test leaves both packages' MoE dispatch on ``ragged``."""
+    yield
+    from repro.models import moe as jmoe
+    from repro_torch.models import moe as tmoe
+    jmoe.GROUPED_IMPL["impl"] = "ragged"
+    tmoe.GROUPED_IMPL["impl"] = "ragged"
+
+
+def as_torch(a, grad=False):
+    return torch.from_numpy(np.array(a, copy=True)).requires_grad_(grad)
+
+
+def assert_grad_close(got, want, tol=GRAD_TOL):
+    assert leaf_err(got, want) <= tol, leaf_err(got, want)
+
+
+def loss_weights(shape, seed=7):
+    return np.random.default_rng(seed).standard_normal(shape).astype(
+        np.float32)
